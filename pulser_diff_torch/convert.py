@@ -1,0 +1,65 @@
+"""Carry state across from the JAX package as numpy arrays.
+
+The port imports nothing of the JAX package; callers that hold both
+(tests, migration scripts) convert the JAX arrays with ``np.asarray``
+and hand them to these builders, so both packages see the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.cplx import Cplx
+from pulser_diff_torch.ops.apply import FactoredHamiltonian
+
+
+def _tensor(x: Any, device: DeviceLike) -> torch.Tensor:
+    """An f64 copy of an array (JAX hands out read-only buffers)."""
+    return torch.tensor(np.array(x, dtype=np.float64), dtype=DTYPE, device=device)
+
+
+def _cplx(pair: Any, device: DeviceLike) -> Cplx:
+    re, im = pair
+    return Cplx(_tensor(re, device), _tensor(im, device))
+
+
+def factored_from_numpy(
+    *,
+    row_parts: Any,
+    col_parts: Any,
+    row_streams: Any,
+    col_streams: Any,
+    int_diag: Any,
+    sample_dt: Any,
+    n_samples: int,
+    device: DeviceLike = "cpu",
+) -> FactoredHamiltonian:
+    """The port's FactoredHamiltonian from the JAX one's fields.
+
+    ``row_streams`` / ``col_streams`` are (re, im) pairs of (P, Ts)
+    arrays; the JAX ``Cplx`` is such a pair.  XY kron pairs are not
+    ported yet."""
+    return FactoredHamiltonian(
+        row_parts=_tensor(row_parts, device),
+        col_parts=_tensor(col_parts, device),
+        row_streams=_cplx(row_streams, device),
+        col_streams=_cplx(col_streams, device),
+        int_diag=_tensor(int_diag, device),
+        sample_dt=float(np.asarray(sample_dt)),
+        n_samples=int(n_samples),
+    )
+
+
+def params_from_numpy(
+    params: Mapping[str, Any], device: DeviceLike = "cpu", requires_grad: bool = False
+) -> dict[str, torch.Tensor]:
+    """A JAX ``QuantumModel.params`` dict as the port's parameter dict
+    (f64 tensors on ``device``), ready for ``expectation_fn(obs)(params)``."""
+    return {
+        name: _tensor(v, device).requires_grad_(requires_grad)
+        for name, v in params.items()
+    }

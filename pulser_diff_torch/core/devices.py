@@ -1,0 +1,82 @@
+"""Device specifications (counterpart of pulser_diff_tpu/core/devices.py).
+
+The device supplies the interaction constant used by the Hamiltonian,
+``interaction_coeff`` (C6/hbar, rad/us um^6).  This slice ports
+``MockDevice`` with its global Rydberg channel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from pulser_diff_torch.core.channels import Channel, Rydberg
+from pulser_diff_torch.core.register import Register
+
+# C6/hbar [rad/us um^6] per rydberg level (subset of pulser's table)
+C6_DICT = {
+    50: 96120.72,
+    55: 297167.09,
+    60: 865723.02,
+    65: 2281056.86,
+    70: 5420158.53,
+    75: 11886839.66,
+    80: 24371417.83,
+}
+
+
+@dataclass(frozen=True)
+class Device:
+    name: str
+    dimensions: int = 2
+    rydberg_level: int = 70
+    max_atom_num: Optional[int] = None
+    max_radial_distance: Optional[float] = None
+    min_atom_distance: float = 0.0
+    channels: tuple[Channel, ...] = ()
+
+    @property
+    def interaction_coeff(self) -> float:
+        return C6_DICT[self.rydberg_level]
+
+    @property
+    def channel_objects(self) -> dict[str, Channel]:
+        return {ch.name: ch for ch in self.channels}
+
+    def validate_register(self, register: Register) -> None:
+        if register.dimensionality > self.dimensions:
+            raise ValueError(
+                f"Register is {register.dimensionality}D but device "
+                f"'{self.name}' supports {self.dimensions}D."
+            )
+        n = len(register)
+        if self.max_atom_num is not None and n > self.max_atom_num:
+            raise ValueError(
+                f"Register has {n} atoms; device allows {self.max_atom_num}."
+            )
+        coords = register.coords_array.detach().cpu().numpy()
+        if self.max_radial_distance is not None:
+            r = np.linalg.norm(coords, axis=-1).max()
+            if r > self.max_radial_distance + 1e-9:
+                raise ValueError(
+                    f"Atoms lie up to {r:.2f} um from the center; device "
+                    f"allows {self.max_radial_distance} um."
+                )
+        if self.min_atom_distance > 0 and n > 1:
+            d = np.linalg.norm(coords[:, None, :] - coords[None, :, :], axis=-1)
+            np.fill_diagonal(d, np.inf)
+            if d.min() < self.min_atom_distance - 1e-9:
+                raise ValueError(
+                    f"Minimal inter-atom distance {d.min():.2f} um below "
+                    f"device limit {self.min_atom_distance} um."
+                )
+
+
+MockDevice = Device(
+    name="MockDevice",
+    dimensions=3,
+    rydberg_level=70,
+    channels=(Rydberg.Global(),),
+)

@@ -1,0 +1,143 @@
+"""Split-complex arithmetic (counterpart of pulser_diff_tpu/cplx.py).
+
+Every complex quantity is a pair of real tensors ``(re, im)``.  The port
+keeps this layout, which the JAX package chose for the TPU, at every
+public function: the fused kernels work on split re/im f32 words, and the
+tests compare the two packages array for array.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Sequence, Union
+
+import numpy as np
+import torch
+
+from pulser_diff_torch.config import DTYPE
+
+Scalar = Union[int, float, complex]
+
+
+class Cplx(NamedTuple):
+    """A complex tensor stored as separate real and imaginary parts."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.re.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.re.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.re.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.re.device
+
+    def __add__(self, other: "Cplx | Scalar") -> "Cplx":
+        other = as_cplx(other, like=self)
+        return Cplx(self.re + other.re, self.im + other.im)
+
+    __radd__ = __add__
+
+    def __sub__(self, other: "Cplx | Scalar") -> "Cplx":
+        other = as_cplx(other, like=self)
+        return Cplx(self.re - other.re, self.im - other.im)
+
+    def __rsub__(self, other: "Cplx | Scalar") -> "Cplx":
+        other = as_cplx(other, like=self)
+        return Cplx(other.re - self.re, other.im - self.im)
+
+    def __mul__(self, other: "Cplx | Scalar | torch.Tensor") -> "Cplx":
+        if isinstance(other, Cplx):
+            return Cplx(
+                self.re * other.re - self.im * other.im,
+                self.re * other.im + self.im * other.re,
+            )
+        if isinstance(other, complex):
+            return self * as_cplx(other, like=self)
+        return Cplx(self.re * other, self.im * other)
+
+    __rmul__ = __mul__
+
+    def __neg__(self) -> "Cplx":
+        return Cplx(-self.re, -self.im)
+
+    def __getitem__(self, idx: Any) -> "Cplx":
+        return Cplx(self.re[idx], self.im[idx])
+
+    def conj(self) -> "Cplx":
+        return Cplx(self.re, -self.im)
+
+    def abs2(self) -> torch.Tensor:
+        return self.re * self.re + self.im * self.im
+
+    def reshape(self, *shape) -> "Cplx":
+        return Cplx(self.re.reshape(*shape), self.im.reshape(*shape))
+
+    def transpose(self, *axes) -> "Cplx":
+        return Cplx(self.re.permute(*axes), self.im.permute(*axes))
+
+    def to(self, *args, **kwargs) -> "Cplx":
+        return Cplx(self.re.to(*args, **kwargs), self.im.to(*args, **kwargs))
+
+    def sum(self, axis=None, keepdims: bool = False) -> "Cplx":
+        if axis is None:
+            return Cplx(self.re.sum(), self.im.sum())
+        return Cplx(
+            self.re.sum(dim=axis, keepdim=keepdims),
+            self.im.sum(dim=axis, keepdim=keepdims),
+        )
+
+    def mul_neg_i(self) -> "Cplx":
+        """Multiply by -i (rotates (re, im) -> (im, -re))."""
+        return Cplx(self.im, -self.re)
+
+    def to_numpy(self) -> np.ndarray:
+        return (
+            self.re.detach().cpu().numpy()
+            + 1j * self.im.detach().cpu().numpy()
+        )
+
+
+def as_cplx(x: Any, like: Cplx | None = None, dtype=None, device=None) -> Cplx:
+    """Coerce scalars, numpy arrays and tensors into a Cplx."""
+    if isinstance(x, Cplx):
+        return x
+    if like is not None:
+        dtype = dtype or like.dtype
+        device = device or like.device
+    dtype = dtype or DTYPE
+    if isinstance(x, torch.Tensor):
+        if x.is_complex():
+            return Cplx(x.real.to(dtype), x.imag.to(dtype))
+        r = x.to(dtype=dtype, device=device or x.device)
+        return Cplx(r, torch.zeros_like(r))
+    arr = np.asarray(x)
+    re = torch.as_tensor(np.ascontiguousarray(arr.real), dtype=dtype, device=device)
+    im = torch.as_tensor(
+        np.ascontiguousarray(arr.imag if np.iscomplexobj(arr) else np.zeros_like(arr.real)),
+        dtype=dtype,
+        device=device,
+    )
+    return Cplx(re, im)
+
+
+def ckron(a: Cplx, b: Cplx) -> Cplx:
+    return Cplx(
+        torch.kron(a.re, b.re) - torch.kron(a.im, b.im),
+        torch.kron(a.re, b.im) + torch.kron(a.im, b.re),
+    )
+
+
+def cstack(xs: Sequence[Cplx], axis: int = 0) -> Cplx:
+    return Cplx(
+        torch.stack([x.re for x in xs], dim=axis),
+        torch.stack([x.im for x in xs], dim=axis),
+    )

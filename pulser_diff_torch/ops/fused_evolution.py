@@ -1,0 +1,664 @@
+"""Fused compensated-f32 ERK evolution and its discrete adjoint
+(counterpart of pulser_diff_tpu/ops/pallas_evolution.py).
+
+The whole Schrodinger evolution runs in ONE launch of a hand-written
+CUDA kernel (K1, ``csrc/fused_evolution.cu``: ``fused_fwd_kernel``) and
+its gradient in ONE launch of the adjoint kernel (K2:
+``fused_bwd_kernel``).  They compute what the Pallas kernels
+``_fwd_kernel`` and ``_bwd_kernel`` (lean interval form) compute:
+
+  - the state is split-complex f32 ``(R, nb, da, db)``; every stage
+    assembles the row/column side matrices from the real part stacks and
+    two-word (hi, lo) stream values, applies -iH as true-f32 products plus
+    the two-word interaction diagonal, and the step increment uses
+    two-word h*b_s weights with Kahan-compensated accumulation;
+  - the adjoint rebuilds each step's start state by reverse-time ERK on
+    the mirror-node (1 - c) streams, recomputes the forward stage inputs,
+    runs the exact transpose of the stage recursion and accumulates the
+    stream cotangents, the diagonal cotangent and the costate; at every
+    grid point that carries an evaluation slot it reloads the stored
+    state and adds that slot's cotangent.
+
+Beside each kernel sits its plain PyTorch version (``fused_fwd_plain``,
+``fused_bwd_plain``), which repeats the kernel's arithmetic in the same
+order.  The wrappers ``fused_fwd`` / ``fused_bwd`` take the plain version
+for tensors on the CPU and launch the kernel for tensors on a CUDA
+device; on any other device they raise.  ``LAUNCHES`` counts kernel
+launches (the plain versions never count).
+
+Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
+``prepare_fused_inputs``, ``_unpack_zbar``, ``_zero_like_aux``) follows
+the JAX package key by key.  ``zbar`` is written directly as
+``(R, n_steps, S, 2pr + 2pc)``: the ``(1, 128)`` row packing of the Pallas
+kernel was a TPU layout workaround.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pulser_diff_torch.cplx import Cplx
+from pulser_diff_torch.ops import kernel_build
+from pulser_diff_torch.ops.apply import FactoredHamiltonian, interp_streams
+from pulser_diff_torch.solvers.solver import (
+    _DP5_A, _DP5_B, _DP5_C, _RK4_A, _RK4_B, _RK4_C,
+)
+
+_TABLEAUS = {
+    "RK4": (_RK4_C, _RK4_A, _RK4_B),
+    "DP5": (_DP5_C, _DP5_A, _DP5_B),
+}
+
+# state-batch cap, as in the JAX package
+_NB_MAX = 32
+
+# data-dict keys for the staged streams, in kernel order
+_ZF_KEYS = (
+    "zrh_re", "zrh_im", "zrl_re", "zrl_im",
+    "zch_re", "zch_im", "zcl_re", "zcl_im",
+)
+_ZB_KEYS = ("zbr_re", "zbr_im", "zbc_re", "zbc_im")
+
+# inputs of the autograd Function, in order; the first eight plus diag /
+# diag_lo / psi carry gradients, the rest are structural constants
+_FN_KEYS = _ZF_KEYS + (
+    "diag", "diag_lo", "psi_re", "psi_im",
+    "rp", "cp", "hb_hi", "hb_lo", "hs",
+) + _ZB_KEYS
+
+# kernel launches since the last reset (plain versions never count)
+LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0}
+
+# shared memory one block can use on Hopper (bytes)
+_SMEM_LIMIT = 232448
+
+
+# ----------------------------------------------------------------------
+# host-side staging (follows the JAX package)
+# ----------------------------------------------------------------------
+def _precompute_stage_z(ham: FactoredHamiltonian, grid_times: torch.Tensor,
+                        c_nodes: np.ndarray = _RK4_C):
+    """Interpolate all coefficient streams at every (step, stage) time.
+    Returns (zr, zc, hs) with z shapes (n_steps, S, P)."""
+    t0s = grid_times[:-1]
+    t1s = grid_times[1:]
+    hs = t1s - t0s
+    c = torch.as_tensor(np.asarray(c_nodes), dtype=hs.dtype, device=hs.device)
+    ts = t0s[:, None] + hs[:, None] * c[None, :]
+    zr, zc = interp_streams(ham, ts)
+    return zr, zc, hs
+
+
+def _split_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-word f32 split of an f64 tensor: hi = f32(x), lo = f32(x - hi)."""
+    hi = x.to(torch.float32)
+    lo = (x - hi.to(x.dtype)).to(torch.float32)
+    return hi, lo
+
+
+def _stage_all(ham: FactoredHamiltonian, grid_times: torch.Tensor, method: str) -> dict:
+    """Forward-node (hi/lo split) + mirror-node staged streams."""
+    C, _, B = _TABLEAUS[method]
+    zr, zc, hs = _precompute_stage_z(ham, grid_times, C)
+    zbr, zbc, _ = _precompute_stage_z(ham, grid_times, 1.0 - C)
+    hb = hs[:, None] * torch.as_tensor(B, dtype=hs.dtype, device=hs.device)[None, :]
+    f32 = torch.float32
+    out = {}
+    for key_hi, key_lo, arr in (
+        ("zrh_re", "zrl_re", zr.re), ("zrh_im", "zrl_im", zr.im),
+        ("zch_re", "zcl_re", zc.re), ("zch_im", "zcl_im", zc.im),
+    ):
+        out[key_hi], out[key_lo] = _split_hi_lo(arr)
+    out["zbr_re"] = zbr.re.to(f32)
+    out["zbr_im"] = zbr.im.to(f32)
+    out["zbc_re"] = zbc.re.to(f32)
+    out["zbc_im"] = zbc.im.to(f32)
+    out["hb_hi"], out["hb_lo"] = _split_hi_lo(hb)
+    out["hs"] = hs.to(f32)
+    return out
+
+
+def prepare_fused_inputs(
+    ham: FactoredHamiltonian,
+    psi0: Cplx,
+    grid_times: torch.Tensor,
+    method: str = "DP5",
+) -> dict:
+    """Stage-precompute + two-word f32 casts, with a leading R=1 run axis
+    (the same keys, shapes and values as the JAX package's)."""
+    if int(psi0.re.shape[0]) > _NB_MAX:
+        raise ValueError(
+            f"Fused kernels support state batches up to nb={_NB_MAX}; use "
+            "the f64 stepper (fused=False) for larger batches."
+        )
+    f32 = torch.float32
+    data = {}
+    for k, v in _stage_all(ham, grid_times, method).items():
+        data[k] = v if k in ("hb_hi", "hb_lo", "hs") else v[None]
+    diag, diag_lo = _split_hi_lo(ham.int_diag)
+    data["rp"] = ham.row_parts.to(f32)
+    data["cp"] = ham.col_parts.to(f32)
+    data["diag"] = diag[None]
+    data["diag_lo"] = diag_lo[None]
+    data["psi_re"] = psi0.re.to(f32)[None]
+    data["psi_im"] = psi0.im.to(f32)[None]
+    # the kernels index dense row-major buffers
+    return {k: v.contiguous() for k, v in data.items()}
+
+
+def _dims(data: dict) -> tuple[int, ...]:
+    R, nb, da, db = (int(v) for v in data["psi_re"].shape)
+    n_steps = int(data["hs"].shape[0])
+    pr = int(data["rp"].shape[0])
+    pc = int(data["cp"].shape[0])
+    return R, n_steps, pr, pc, nb, da, db
+
+
+def _check_shapes(data: dict, S: int, slots: torch.Tensor, n_eval: int, *states) -> None:
+    """Raise on inputs whose shapes disagree with ``psi_re``, ``hs``,
+    ``rp`` and ``cp`` (the kernels index them as dense buffers of these
+    shapes); ``states`` are slot-state or slot-cotangent tensors."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    want = {
+        "psi_re": (R, nb, da, db), "psi_im": (R, nb, da, db),
+        "rp": (pr, da, da), "cp": (pc, db, db),
+        "hb_hi": (n_steps, S), "hb_lo": (n_steps, S), "hs": (n_steps,),
+        "diag": (R, da, db), "diag_lo": (R, da, db),
+    }
+    for k in _ZF_KEYS + _ZB_KEYS:
+        want[k] = (R, n_steps, S, pr if k.startswith(("zr", "zbr")) else pc)
+    got = {k: tuple(data[k].shape) for k in want}
+    got["slots"], want["slots"] = tuple(slots.shape), (n_steps + 1,)
+    for i, t in enumerate(states):
+        got[f"states[{i}]"], want[f"states[{i}]"] = tuple(t.shape), (R, n_eval, nb, da, db)
+    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    if bad:
+        raise ValueError(f"Fused kernel inputs of the wrong shape (got, expected): {bad}")
+
+
+def _tableau(method: str):
+    if method not in _TABLEAUS:
+        raise ValueError(f"No fused tableau '{method}'; expected one of {sorted(_TABLEAUS)}.")
+    C, A, B = _TABLEAUS[method]
+    return tuple(tuple(float(a) for a in row) for row in A), tuple(float(b) for b in B), len(C)
+
+
+def _unpack_zbar(zbar: torch.Tensor, pr: int, pc: int):
+    """(R, n_steps, S, 2pr + 2pc) cotangent rows -> per-stream cotangents
+    (zbar_rr, zbar_ri, zbar_cr, zbar_ci), each (R, n_steps, S, P)."""
+    return (
+        zbar[..., 0 : 2 * pr : 2],
+        zbar[..., 1 : 2 * pr : 2],
+        zbar[..., 2 * pr : 2 * pr + 2 * pc : 2],
+        zbar[..., 2 * pr + 1 : 2 * pr + 2 * pc : 2],
+    )
+
+
+def _parts_sym(data: dict):
+    """(P + P^T, P - P^T) of the row and of the column part stacks."""
+    rp, cp = data["rp"], data["cp"]
+    return tuple(
+        t.contiguous()
+        for t in (rp + rp.transpose(-1, -2), rp - rp.transpose(-1, -2),
+                  cp + cp.transpose(-1, -2), cp - cp.transpose(-1, -2))
+    )
+
+
+def _zero_like_aux(data: dict, zbar, dbar, lam0_re, lam0_im) -> dict:
+    """The cotangent dict: streams / diag / psi carry gradients, everything
+    structural (parts, step sizes, mirror streams) is zero.  Hi and lo
+    words are summed in-kernel, so they get identical cotangents; so do
+    diag and diag_lo."""
+    zbar_rr, zbar_ri, zbar_cr, zbar_ci = zbar
+    out = {k: torch.zeros_like(v) for k, v in data.items()}
+    out["zrh_re"], out["zrh_im"] = zbar_rr, zbar_ri
+    out["zrl_re"], out["zrl_im"] = zbar_rr, zbar_ri
+    out["zch_re"], out["zch_im"] = zbar_cr, zbar_ci
+    out["zcl_re"], out["zcl_im"] = zbar_cr, zbar_ci
+    out["diag"] = dbar
+    out["diag_lo"] = dbar
+    out["psi_re"], out["psi_im"] = lam0_re, lam0_im
+    return out
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions of the kernels (same arithmetic, same order)
+# ----------------------------------------------------------------------
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+class _PlainRun:
+    """One run's constants for the plain versions: symmetric and
+    antisymmetric part stacks, host copies of the stream scalars, the
+    two-word diagonal."""
+
+    def __init__(self, data: dict, r: int, mirror: bool) -> None:
+        self.rsym, self.rasym, self.csym, self.casym = _parts_sym(data)
+        self.zf = [data[k][r].detach().cpu().numpy() for k in _ZF_KEYS]
+        self.zb = [data[k][r].detach().cpu().numpy() for k in _ZB_KEYS] if mirror else None
+        self.d = data["diag"][r]
+        self.dlo = data["diag_lo"][r]
+
+    @staticmethod
+    def _assemble(parts: torch.Tensor, z: np.ndarray) -> torch.Tensor:
+        acc = parts[0] * float(z[0])
+        for p in range(1, parts.shape[0]):
+            acc = acc + parts[p] * float(z[p])
+        return acc
+
+    def side(self, k: int, s: int, mirror: bool = False):
+        """(Hrow re, Hrow im, Hcol^T re, Hcol^T im) at step k, stage s."""
+        a = self._assemble
+        if mirror:
+            z = self.zb
+            hre = a(self.rsym, z[0][k, s])
+            him = a(self.rasym, z[1][k, s])
+            gre = a(self.csym, z[2][k, s])
+            gim = -a(self.casym, z[3][k, s])
+        else:
+            z = self.zf
+            hre = a(self.rsym, z[0][k, s]) + a(self.rsym, z[2][k, s])
+            him = a(self.rasym, z[1][k, s]) + a(self.rasym, z[3][k, s])
+            gre = a(self.csym, z[4][k, s]) + a(self.csym, z[6][k, s])
+            gim = -(a(self.casym, z[5][k, s]) + a(self.casym, z[7][k, s]))
+        return hre, him, gre, gim
+
+    def apply_minus_iH(self, side, x: torch.Tensor, y: torch.Tensor):
+        """k = -i H u for u = (x, y) of shape (nb, da, db)."""
+        hre, him, gre, gim = side
+        a1, a2, a3, a4 = hre @ x, him @ y, him @ x, hre @ y
+        c1, c2, c3, c4 = x @ gre, y @ gim, x @ gim, y @ gre
+        h_re = (((a1 - a2) + (c1 - c2)) + self.d * x) + self.dlo * x
+        h_im = (((a3 + a4) + (c3 + c4)) + self.d * y) + self.dlo * y
+        return h_im, -h_re
+
+
+def _combine(x, y, ks, coeffs, sign: float = 1.0):
+    """x + sum_j c_j k_j over the nonzero coefficients, in order."""
+    for (kx, ky), c in zip(ks, coeffs):
+        if c != 0.0:
+            if sign > 0:
+                x = x + kx * c
+                y = y + ky * c
+            else:
+                x = x - kx * c
+                y = y - ky * c
+    return x, y
+
+
+def _stage_coeffs(A, s: int, h: np.float32) -> list[float]:
+    return [float(_f32(a) * h) if a != 0.0 else 0.0 for a in A[s]]
+
+
+def fused_fwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+    """Plain version of K1: the states at every evaluation slot,
+    (R, n_eval, nb, da, db) re/im in f32."""
+    A, B, S = _tableau(method)
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    sl = [int(v) for v in slots.tolist()]
+    hs = data["hs"].detach().cpu().numpy()
+    hb_hi = data["hb_hi"].detach().cpu().numpy()
+    hb_lo = data["hb_lo"].detach().cpu().numpy()
+    like = data["psi_re"]
+    out_re = torch.zeros((R, n_eval, nb, da, db), dtype=like.dtype, device=like.device)
+    out_im = torch.zeros_like(out_re)
+    for r in range(R):
+        run = _PlainRun(data, r, mirror=False)
+        x, y = data["psi_re"][r], data["psi_im"][r]
+        cx, cy = torch.zeros_like(x), torch.zeros_like(y)
+        if sl[0] < n_eval:
+            out_re[r, sl[0]], out_im[r, sl[0]] = x, y
+        for k in range(n_steps):
+            h = _f32(hs[k])
+            ks = []
+            for s in range(S):
+                xs, ys = _combine(x, y, ks, _stage_coeffs(A, s, h))
+                ks.append(run.apply_minus_iH(run.side(k, s), xs, ys))
+            dx = dy = None
+            for s in range(S):
+                if B[s] == 0.0:
+                    continue
+                w = float(hb_hi[k, s])
+                if dx is None:
+                    dx, dy = ks[s][0] * w, ks[s][1] * w
+                else:
+                    dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
+            for s in range(S):
+                if B[s] == 0.0:
+                    continue
+                w = float(hb_lo[k, s])
+                dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
+            # Kahan-compensated accumulation
+            yk = dx - cx
+            t = x + yk
+            cx = (t - x) - yk
+            x = t
+            yk = dy - cy
+            t = y + yk
+            cy = (t - y) - yk
+            y = t
+            if sl[k + 1] < n_eval:
+                out_re[r, sl[k + 1]], out_im[r, sl[k + 1]] = x, y
+    return out_re, out_im
+
+
+def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
+                    last_slot: int, st_re, st_im, lam_re, lam_im):
+    """Plain version of K2.  Returns (lam0_re, lam0_im, zbar, dbar) with
+    zbar (R, n_steps, S, 2pr + 2pc) and dbar (R, da, db)."""
+    A, B, S = _tableau(method)
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    sl = [int(v) for v in slots.tolist()]
+    hs = data["hs"].detach().cpu().numpy()
+    hb_hi = data["hb_hi"].detach().cpu().numpy()
+    hb_lo = data["hb_lo"].detach().cpu().numpy()
+    like = data["psi_re"]
+    nrow = 2 * pr + 2 * pc
+    lam0_re = torch.empty_like(like)
+    lam0_im = torch.empty_like(like)
+    zbar = torch.empty((R, n_steps, S, nrow), dtype=like.dtype, device=like.device)
+    dbar = torch.empty_like(data["diag"])
+    for r in range(R):
+        run = _PlainRun(data, r, mirror=True)
+        x, y = st_re[r, last_slot], st_im[r, last_slot]
+        lx, ly = lam_re[r, last_slot], lam_im[r, last_slot]
+        dacc = torch.zeros_like(run.d)
+        for k in reversed(range(n_steps)):
+            h = _f32(hs[k])
+            bhl = [float(_f32(hb_hi[k, s]) + _f32(hb_lo[k, s])) for s in range(S)]
+            # 1. reconstruct the step's start state on the mirror streams
+            rk = []
+            for s in range(S):
+                xs, ys = _combine(x, y, rk, _stage_coeffs(A, s, h), sign=-1.0)
+                rk.append(run.apply_minus_iH(run.side(k, s, mirror=True), xs, ys))
+            x, y = _combine(x, y, rk, [bhl[s] if B[s] != 0.0 else 0.0 for s in range(S)],
+                            sign=-1.0)
+            # 2. forward stage inputs (the last stage's product is dead)
+            us, fk = [], []
+            for s in range(S):
+                us.append(_combine(x, y, fk, _stage_coeffs(A, s, h)))
+                if s < S - 1:
+                    fk.append(run.apply_minus_iH(run.side(k, s), *us[s]))
+            # 3. reversed transpose recursion with the cotangent work
+            w = [None] * S
+            for s in reversed(range(S)):
+                if B[s] != 0.0:
+                    gx, gy = lx * bhl[s], ly * bhl[s]
+                else:
+                    gx, gy = torch.zeros_like(lx), torch.zeros_like(ly)
+                for rr in range(s + 1, S):
+                    a = A[rr][s]
+                    if a != 0.0:
+                        c = float(_f32(a) * h)
+                        gx = gx + w[rr][0] * c
+                        gy = gy + w[rr][1] * c
+                # F^T = -F for the real form of -iH (H hermitian)
+                kx, ky = run.apply_minus_iH(run.side(k, s), gx, gy)
+                w[s] = (-kx, -ky)
+                ux, uy = us[s]
+                dacc = dacc + (gx * uy - gy * ux).sum(0)
+                W = torch.zeros_like(run.rsym[0])
+                V = torch.zeros_like(W)
+                Wc = torch.zeros_like(run.csym[0])
+                Vc = torch.zeros_like(Wc)
+                for b in range(nb):
+                    W = W + (gx[b] @ uy[b].T - gy[b] @ ux[b].T)
+                    V = V + (gx[b] @ ux[b].T + gy[b] @ uy[b].T)
+                    Wc = Wc + (uy[b].T @ gx[b] - ux[b].T @ gy[b])
+                    Vc = Vc + (ux[b].T @ gx[b] + uy[b].T @ gy[b])
+                rows = []
+                for p in range(pr):
+                    rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
+                for p in range(pc):
+                    rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
+                zbar[r, k, s] = torch.stack(rows)
+            # 4. costate update, then the stored state / slot cotangent
+            for s in range(S):
+                lx, ly = lx + w[s][0], ly + w[s][1]
+            if sl[k] < n_eval:
+                x, y = st_re[r, sl[k]], st_im[r, sl[k]]
+                lx, ly = lx + lam_re[r, sl[k]], ly + lam_im[r, sl[k]]
+        lam0_re[r], lam0_im[r], dbar[r] = lx, ly, dacc
+    return lam0_re, lam0_im, zbar, dbar
+
+
+# ----------------------------------------------------------------------
+# CUDA kernels (csrc/fused_evolution.cu), plain C interface via ctypes
+# ----------------------------------------------------------------------
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _library() -> ctypes.CDLL:
+    lib = kernel_build.load("fused_evolution")
+    if not getattr(lib, "_pdt_declared", False):
+        lib.pdt_fused_smem_bytes.argtypes = [_I] * 6
+        lib.pdt_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.pdt_fused_scratch_floats.argtypes = [_I] * 6
+        lib.pdt_fused_scratch_floats.restype = ctypes.c_size_t
+        lib.pdt_fused_fwd.argtypes = (
+            [_P] * 6 + [_P] + [_P] * 6 + [_P] * 3 + [_I] * 9 + [_P, _P, _P]
+        )
+        lib.pdt_fused_fwd.restype = _I
+        lib.pdt_fused_bwd.argtypes = (
+            [_P] * 8 + [_P, _P] + [_P] * 6 + [_P] * 5 + [_I] * 10 + [_P, _P, _P]
+        )
+        lib.pdt_fused_bwd.restype = _I
+        lib._pdt_declared = True
+    return lib
+
+
+def _check_cuda(tensors: dict, device: torch.device) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"'{name}' is on {t.device}, expected {device}.")
+        if t.dtype != (torch.int32 if name == "slots" else torch.float32):
+            raise TypeError(f"'{name}' has dtype {t.dtype}.")
+        if not t.is_contiguous():
+            raise ValueError(f"'{name}' is not contiguous.")
+
+
+def _tableau_c(method: str):
+    A, B, S = _tableau(method)
+    a = np.zeros((S, S))
+    for i, row in enumerate(A):
+        a[i, : len(row)] = row
+    a_arr = (ctypes.c_double * (S * S))(*a.reshape(-1).tolist())
+    bnz = (ctypes.c_int * S)(*[int(b != 0.0) for b in B])
+    return a_arr, bnz, S
+
+
+def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
+    if err == -1:
+        raise ValueError(f"{what}: unsupported tableau.")
+    if err == -2:
+        raise ValueError(f"{what}: at most 8 row and 8 column parts are supported (pr={pr}, pc={pc}).")
+    if err != 0:
+        raise RuntimeError(f"{what} failed to launch: cudaError {err}.")
+
+
+def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int) -> None:
+    """Both side matrices and the padded (nb, da, db + 1) stage input live
+    in one block's shared memory, so the limit is on nb * da * db."""
+    need = int(lib.pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc))
+    if need > _SMEM_LIMIT:
+        fits = [n for n in range(1, nb)
+                if lib.pdt_fused_smem_bytes(bwd, n, da, db, pr, pc) <= _SMEM_LIMIT]
+        most = f"state batches up to nb={fits[-1]}" if fits else "no state batch"
+        raise ValueError(
+            f"The fused kernel needs {need} bytes of shared memory for "
+            f"nb={nb}, da={da}, db={db} (limit {_SMEM_LIMIT}); at this da, db "
+            f"it takes {most}. Split the batch or pass fused=False for the "
+            "f64 stepper."
+        )
+
+
+def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+    device = data["psi_re"].device
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    names = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS
+    _check_cuda({**{k: data[k] for k in names}, "slots": slots}, device)
+    lib = _library()
+    _smem_check(lib, 0, nb, da, db, pr, pc)
+    a_arr, bnz, S = _tableau_c(method)
+    rsym, rasym, csym, casym = _parts_sym(data)
+    out_re = torch.empty((R, n_eval, nb, da, db), dtype=torch.float32, device=device)
+    out_im = torch.empty_like(out_re)
+    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(0, R, S, nb, da, db)),
+                          dtype=torch.float32, device=device)
+    zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
+    # the library's runtime launches on its current device: make it the data's
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pdt_fused_fwd(
+            data["psi_re"].data_ptr(), data["psi_im"].data_ptr(),
+            rsym.data_ptr(), rasym.data_ptr(), csym.data_ptr(), casym.data_ptr(),
+            zf,
+            data["hb_hi"].data_ptr(), data["hb_lo"].data_ptr(), data["hs"].data_ptr(),
+            data["diag"].data_ptr(), data["diag_lo"].data_ptr(), slots.data_ptr(),
+            out_re.data_ptr(), out_im.data_ptr(), scratch.data_ptr(),
+            R, n_steps, nb, da, db, pr, pc, n_eval, S,
+            a_arr, bnz, stream,
+        )
+    _launch_check(err, "fused_fwd_kernel", pr, pc)
+    LAUNCHES["fused_fwd"] += 1
+    return out_re, out_im
+
+
+def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
+                    last_slot: int, st_re, st_im, lam_re, lam_im):
+    device = data["psi_re"].device
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    names = ("rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS + _ZB_KEYS
+    _check_cuda(
+        {**{k: data[k] for k in names}, "slots": slots, "st_re": st_re,
+         "st_im": st_im, "lam_re": lam_re, "lam_im": lam_im},
+        device,
+    )
+    lib = _library()
+    _smem_check(lib, 1, nb, da, db, pr, pc)
+    a_arr, bnz, S = _tableau_c(method)
+    rsym, rasym, csym, casym = _parts_sym(data)
+    lam0_re = torch.empty((R, nb, da, db), dtype=torch.float32, device=device)
+    lam0_im = torch.empty_like(lam0_re)
+    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc), dtype=torch.float32, device=device)
+    dbar = torch.empty((R, da, db), dtype=torch.float32, device=device)
+    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(1, R, S, nb, da, db)),
+                          dtype=torch.float32, device=device)
+    zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
+    zb = (_P * 4)(*[data[k].data_ptr() for k in _ZB_KEYS])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pdt_fused_bwd(
+            st_re.data_ptr(), st_im.data_ptr(), lam_re.data_ptr(), lam_im.data_ptr(),
+            rsym.data_ptr(), rasym.data_ptr(), csym.data_ptr(), casym.data_ptr(),
+            zf, zb,
+            data["hb_hi"].data_ptr(), data["hb_lo"].data_ptr(), data["hs"].data_ptr(),
+            data["diag"].data_ptr(), data["diag_lo"].data_ptr(), slots.data_ptr(),
+            lam0_re.data_ptr(), lam0_im.data_ptr(), zbar.data_ptr(), dbar.data_ptr(),
+            scratch.data_ptr(),
+            R, n_steps, nb, da, db, pr, pc, n_eval, last_slot, S,
+            a_arr, bnz, stream,
+        )
+    _launch_check(err, "fused_bwd_kernel", pr, pc)
+    LAUNCHES["fused_bwd"] += 1
+    return lam0_re, lam0_im, zbar, dbar
+
+
+def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+    """K1: forward evolution writing every evaluation-slot state.
+
+    Replaces ``_fwd_kernel`` (pallas_evolution.py) with ``states=True``
+    and no kron pairs.  CPU tensors take :func:`fused_fwd_plain`; CUDA
+    tensors launch ``fused_fwd_kernel``."""
+    _check_shapes(data, _tableau(method)[2], slots, n_eval)
+    dev = data["psi_re"].device
+    if dev.type == "cpu":
+        return fused_fwd_plain(data, method, slots, n_eval)
+    if dev.type == "cuda":
+        return _fused_fwd_cuda(data, method, slots, n_eval)
+    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+
+
+def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
+              last_slot: int, st_re, st_im, lam_re, lam_im):
+    """K2: discrete adjoint of :func:`fused_fwd` for the slot cotangents
+    ``lam``.  Replaces ``_bwd_kernel`` (lean interval form).  CPU tensors
+    take :func:`fused_bwd_plain`; CUDA tensors launch
+    ``fused_bwd_kernel``."""
+    _check_shapes(data, _tableau(method)[2], slots, n_eval, st_re, st_im, lam_re, lam_im)
+    if not 0 <= last_slot < n_eval:
+        raise ValueError(f"last_slot {last_slot} is not an evaluation slot (n_eval={n_eval}).")
+    dev = data["psi_re"].device
+    if dev.type == "cpu":
+        return fused_bwd_plain(data, method, slots, n_eval, last_slot,
+                               st_re, st_im, lam_re, lam_im)
+    if dev.type == "cuda":
+        return _fused_bwd_cuda(data, method, slots, n_eval, last_slot,
+                               st_re, st_im, lam_re, lam_im)
+    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+
+
+# ----------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------
+class _FusedEvolveStates(torch.autograd.Function):
+    """Counterpart of the JAX custom VJP ``fused_evolve_states``: forward
+    is K1, backward is K2."""
+
+    @staticmethod
+    def forward(ctx, method, slots, n_eval, last_slot, *tensors):
+        data = dict(zip(_FN_KEYS, tensors))
+        out_re, out_im = fused_fwd(data, method, slots, n_eval)
+        ctx.method, ctx.n_eval, ctx.last_slot = method, n_eval, last_slot
+        ctx.save_for_backward(slots, out_re, out_im, *tensors)
+        return out_re, out_im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        slots, st_re, st_im, *tensors = ctx.saved_tensors
+        data = dict(zip(_FN_KEYS, tensors))
+        lam0_re, lam0_im, zbar, dbar = fused_bwd(
+            data, ctx.method, slots, ctx.n_eval, ctx.last_slot,
+            st_re, st_im, g_re.contiguous(), g_im.contiguous(),
+        )
+        pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
+        cot = _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im)
+        grads = tuple(
+            cot[k] if ctx.needs_input_grad[4 + i] else None for i, k in enumerate(_FN_KEYS)
+        )
+        return (None, None, None, None) + grads
+
+
+def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
+                        last_slot: int, data: dict):
+    """Fused f32 ERK evolution emitting every evaluation-slot state,
+    differentiable through the adjoint kernel.
+
+    slots: int32 tensor (n_steps + 1,) of grid write slots on the data's
+    device; n_eval: number of evaluation slots; last_slot: the final grid
+    point's slot.  Returns (R, n_eval, nb, da, db) re/im."""
+    return _FusedEvolveStates.apply(
+        method, slots, int(n_eval), int(last_slot), *[data[k] for k in _FN_KEYS]
+    )
+
+
+def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5") -> Cplx:
+    """Fused evolution emitting the states at the grid's evaluation slots,
+    (n_eval, nb, da, db) f32, differentiable (counterpart of
+    ``pallas_evolve_states``)."""
+    data = prepare_fused_inputs(ham, psi0, grid.times, method)
+    slots_np = np.asarray(grid.write_slots, dtype=np.int32)
+    last_slot = int(slots_np[-1])
+    if last_slot >= grid.n_eval:
+        raise ValueError(
+            "The final grid point must carry an evaluation slot (the "
+            "emulator always unions {0, T} into evaluation times)."
+        )
+    slots = torch.as_tensor(slots_np, device=psi0.re.device)
+    out_re, out_im = fused_evolve_states(method, slots, grid.n_eval, last_slot, data)
+    return Cplx(out_re[0], out_im[0])

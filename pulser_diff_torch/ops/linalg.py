@@ -1,0 +1,128 @@
+"""Tensor utilities (counterpart of pulser_diff_tpu/ops/linalg.py).
+
+Only what the main path needs: ``kron``, the Pauli constants,
+``basis_state``, ``expect`` (kets, and 1-D diagonal observables),
+``total_magnetization`` and ``interpolate_sine``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache, reduce
+from math import pi, prod, sin
+
+import numpy as np
+import torch
+
+from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.cplx import Cplx, as_cplx, ckron
+
+IMAT = as_cplx(np.eye(2))
+XMAT = as_cplx(np.array([[0, 1], [1, 0]]))
+YMAT = as_cplx(np.array([[0, -1j], [1j, 0]]))
+ZMAT = as_cplx(np.array([[1, 0], [0, -1]]))
+
+
+def kron(*args) -> Cplx:
+    """Dense Kronecker product of any number of (split-)complex matrices."""
+    return reduce(ckron, [as_cplx(a) for a in args])
+
+
+@lru_cache
+def _total_magnetization_diag_np(n_qubits: int) -> np.ndarray:
+    # diag(sum_i Z_i) over the computational basis: zero bits - one bits
+    idx = np.arange(2**n_qubits, dtype=np.int64)
+    ones = np.zeros(2**n_qubits, dtype=np.int64)
+    for b in range(n_qubits):
+        ones += (idx >> b) & 1
+    return (n_qubits - 2 * ones).astype(np.float64)
+
+
+def total_magnetization(
+    n_qubits: int, dense: bool | None = None, device: DeviceLike = "cpu"
+) -> Cplx:
+    """sum_i Z_i: the dense diagonal matrix up to 12 qubits, else (or with
+    ``dense=False``) its 1-D diagonal, which ``expect`` accepts."""
+    d = torch.as_tensor(
+        _total_magnetization_diag_np(n_qubits), dtype=DTYPE, device=device
+    )
+    if dense is None:
+        dense = n_qubits <= 12
+    if not dense:
+        return Cplx(d, torch.zeros_like(d))
+    return Cplx(torch.diag(d), torch.zeros(d.shape[0], d.shape[0], dtype=DTYPE, device=device))
+
+
+def expect(obs: Cplx, states: Cplx) -> Cplx:
+    """Expectation values of ``obs`` over a time batch of kets.
+
+    ``states``: (n_t, dim, n_batch), or (n_t, dim) promoted to
+    (n_t, dim, 1); the batch columns are summed as in the reference.
+    A 1-D ``obs`` of shape (dim,) is the diagonal operator diag(obs).
+    """
+    obs = as_cplx(obs, dtype=DTYPE).to(device=states.device)
+    if states.ndim == 2:
+        states = states.reshape(states.shape + (1,))
+    if states.ndim != 3 or states.shape[-1] == states.shape[-2]:
+        raise ValueError(f"Unsupported states shape {states.shape}")
+    sh = states.sum(axis=-1)  # (n_t, dim)
+    if obs.ndim == 1:
+        # |s_j|^2 in the states' dtype, promoted for the contraction (as
+        # jnp.einsum promotes f32 states against an f64 observable)
+        p = sh.re * sh.re + sh.im * sh.im
+        dt = torch.promote_types(p.dtype, obs.dtype)
+        return Cplx(p.to(dt) @ obs.re.to(dt), p.to(dt) @ obs.im.to(dt))
+    dt = torch.promote_types(sh.dtype, obs.dtype)
+    sh, obs = sh.to(dt), obs.to(dt)
+    # <s|O|s> = sum_jk conj(s_j) O_jk s_k
+    ar = sh.re @ obs.re  # (n_t, dim): sum_j s_j O_jk
+    ai = sh.im @ obs.re
+    br = sh.re @ obs.im
+    bi = sh.im @ obs.im
+    re = ((ar + bi) * sh.re + (ai - br) * sh.im).sum(-1)
+    im = ((br - ai) * sh.re + (ar + bi) * sh.im).sum(-1)
+    return Cplx(re, im)
+
+
+def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...]) -> Cplx:
+    """Ket of a Fock state / tensor product of Fock states, shape (n, 1)."""
+    dim = (dim,) if isinstance(dim, int) else dim
+    number = (number,) if isinstance(number, int) else number
+    if len(dim) != len(number):
+        raise ValueError(
+            f"Arguments `number` must have the same length as `dim` of "
+            f"length {len(dim)}, but has length {len(number)}."
+        )
+    n = 0
+    for d, s_ in zip(dim, number):
+        n = d * n + s_
+    ket = np.zeros((prod(dim), 1))
+    ket[n] = 1.0
+    return as_cplx(ket)
+
+
+def _s(t: float) -> float:
+    """Sine easing in [0, 1]."""
+    return (1 + sin((pi * t - (pi / 2)))) / 2
+
+
+@lru_cache
+def _interpolate_sine_np(num_values: int, duration: int) -> np.ndarray:
+    step_size = duration / (num_values + 1)
+    mat = np.zeros((duration, num_values))
+    for k in range(duration):
+        idx, r = divmod(k, step_size)
+        idx = int(idx)
+        h = r / step_size
+        if idx > 0:
+            mat[k, idx - 1] = 1 - _s(h)
+        if idx < num_values:
+            mat[k, idx] = _s(h)
+    return mat
+
+
+def interpolate_sine(num_values: int, duration: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """(duration, num_values) sine-interpolation weight matrix; the caller
+    applies it as ``interpolate_sine(n, T) @ values``."""
+    return torch.as_tensor(
+        _interpolate_sine_np(num_values, duration), dtype=DTYPE, device=device
+    )

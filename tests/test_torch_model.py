@@ -1,0 +1,152 @@
+"""PyTorch port vs the JAX package end to end: the bench.py workload
+(sine-interpolated 8-parameter amplitude on a rydberg_global channel,
+constant detuning, total magnetization, value and gradient) shrunk to
+four atoms, through QuantumModel.expectation_fn, TorchEmulator.run and
+the solver routing (pulser_diff_torch.model, backend, simresults).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pulser_diff_tpu.core as jcore
+import pulser_diff_torch.core as tcore
+from pulser_diff_tpu.model import QuantumModel as JModel
+from pulser_diff_tpu.ops import total_magnetization as j_total_mag
+from pulser_diff_torch import QuantumModel, TorchEmulator
+from pulser_diff_torch.convert import params_from_numpy
+from pulser_diff_torch.ops import fused_evolution as tfe
+from pulser_diff_torch.ops.linalg import _interpolate_sine_np, total_magnetization
+
+from tests.torch_port_cases import emulators, sequence, to_numpy
+
+torch.set_num_threads(1)
+
+N_ATOMS, DURATION, N_PARAMS, SAMPLING_RATE = 4, 120, 8, 0.25
+P0 = np.linspace(1.0, 3.0, N_PARAMS)
+M = _interpolate_sine_np(N_PARAMS, DURATION)
+
+# f64 on both sides with the same grid and tableau
+F64_TOL = 1e-10
+# the fused f32 path on both sides: the plain versions repeat the
+# kernels' compensated arithmetic, so value and gradient differ only by
+# the f32 rounding of sums taken in another order (observed ~4e-9 here,
+# against ~2e-7 / ~7e-7 between either fused path and f64)
+FUSED_TOL = 1e-7
+# the BASELINE.md bars of the fused f32 path against f64
+VALUE_BAR, GRAD_BAR = 1e-6, 1e-5
+
+
+def _bench_sequence(core):
+    reg = core.Register.from_coordinates(
+        [(10.0 * (i % 4), 10.0 * (i // 4)) for i in range(N_ATOMS)], prefix="q")
+    seq = core.Sequence(reg, core.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    v = seq.declare_variable("amp_samples", size=DURATION)
+    seq.add(core.Pulse(core.CustomWaveform(v, duration=DURATION),
+                       core.ConstantWaveform(DURATION, -2.0), 0.0), "ryd")
+    return seq
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_grad(solver="DP5_SE", fused=None):
+    kw = {"solver": solver} if fused is None else {"solver": solver, "fused": fused}
+    Mj = jnp.asarray(M)
+    model = JModel(_bench_sequence(jcore), {"amp_samples": ((jnp.asarray(P0),), lambda x: Mj @ x)},
+                   sampling_rate=SAMPLING_RATE, evaluation_times="Minimal", **kw)
+    f = model.expectation_fn(j_total_mag(N_ATOMS, dense=False))
+    v, g = jax.value_and_grad(lambda p: f({"amp_samples_0": p})[1][-1])(jnp.asarray(P0))
+    return float(v), np.asarray(g), model
+
+
+def _port_model(**kw):
+    Mt = torch.as_tensor(M)
+    return QuantumModel(_bench_sequence(tcore), {"amp_samples": ((P0,), lambda x: Mt @ x)},
+                        sampling_rate=SAMPLING_RATE, evaluation_times="Minimal",
+                        device="cpu", **kw)
+
+
+def _port_value_grad(model, params=None):
+    params = params or {"amp_samples_0": torch.tensor(P0, requires_grad=True)}
+    _, vals = model.expectation_fn()(params)
+    vals[-1].backward()
+    return float(vals[-1].detach()), to_numpy(params["amp_samples_0"].grad)
+
+
+def test_bench_workload_f64_matches_jax():
+    jv, jg, jmodel = _jax_value_grad(fused=False)
+    model = _port_model(fused=False)
+    assert model._default_substeps() == jmodel._default_substeps()
+    params = params_from_numpy(jmodel.params, requires_grad=True)
+    before = dict(tfe.LAUNCHES)
+    tv, tg = _port_value_grad(model, params)
+    assert tfe.LAUNCHES == before
+    assert abs(tv - jv) < F64_TOL
+    np.testing.assert_allclose(tg, jg, rtol=0, atol=F64_TOL)
+
+
+def test_bench_workload_fused_matches_pallas_and_f64():
+    """DP5_PALLAS on the CPU runs the kernels' plain versions: held
+    against JAX DP5_PALLAS in interpret mode at f32 roundoff, and against
+    the f64 path within the BASELINE bars."""
+    jv, jg, _ = _jax_value_grad(solver="DP5_PALLAS")
+    jv64, jg64, _ = _jax_value_grad(fused=False)
+    tv, tg = _port_value_grad(_port_model(solver="DP5_PALLAS"))
+    assert abs(tv - jv) < FUSED_TOL
+    np.testing.assert_allclose(tg, jg, rtol=0, atol=FUSED_TOL)
+    assert abs(tv - jv64) < VALUE_BAR
+    np.testing.assert_allclose(tg, jg64, rtol=0, atol=GRAD_BAR)
+
+
+def test_quantum_model_is_a_module():
+    model = _port_model(fused=False)
+    assert [n for n, _ in model.named_parameters()] == ["params.amp_samples_0"]
+    times, vals = model()
+    vals[-1].backward()
+    _, g = _port_value_grad(_port_model(fused=False))
+    np.testing.assert_allclose(to_numpy(model.params["amp_samples_0"].grad), g, rtol=0, atol=0)
+    np.testing.assert_array_equal(times, [0.0, DURATION / 1000])
+
+
+@pytest.mark.parametrize("eval_times", ["Full", 0.5])
+def test_run_expectations_match_jax(eval_times):
+    """run() on the CPU routes DP5_SE to the f64 stepper, as the JAX
+    package does on its CPU backend, and its results match."""
+    jsim, tsim = emulators(3, duration=80, seed=4, evaluation_times=eval_times)
+    jres = jsim.run()
+    before = dict(tfe.LAUNCHES)
+    tres = tsim.run()
+    assert tfe.LAUNCHES == before
+    assert len(tres) == len(jres.states.re)
+    np.testing.assert_allclose(to_numpy(tres.states.re), np.asarray(jres.states.re),
+                               rtol=0, atol=F64_TOL)
+    for dense in (True, False):
+        (je,) = jres.expect([j_total_mag(3, dense=dense)])
+        (te,) = tres.expect([total_magnetization(3, dense=dense)])
+        np.testing.assert_allclose(to_numpy(te.re), np.asarray(je.re), rtol=0, atol=F64_TOL)
+
+
+def test_fused_run_and_routing():
+    """DP5_PALLAS forces the fused path on the CPU (plain versions);
+    fused=False and the default keep the stepper; the checkpointed
+    kernels and unknown options raise instead of rerouting."""
+    _, tsim = emulators(2, duration=60, seed=6, evaluation_times="Full")
+    f64 = tsim.run(fused=False).states
+    fused = tsim.run(solver="DP5_PALLAS").states
+    assert fused.re.dtype == torch.float32 and fused.shape == f64.shape
+    assert float((fused.re.double() - f64.re).abs().max()) < VALUE_BAR
+    np.testing.assert_array_equal(to_numpy(tsim.run().states.re), to_numpy(f64.re))
+    # 16 atoms: dim 2^16, where the JAX package takes the checkpointed kernels
+    big = TorchEmulator.from_sequence(sequence(tcore, 16, duration=20), sampling_rate=0.5,
+                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="K4"):
+        big.run(solver="DP5_PALLAS")
+    for option in ("ckpt", "remat"):
+        with pytest.raises(TypeError, match="Unknown run"):
+            tsim.run(**{option: True})
+    with pytest.raises(TypeError, match="Sequence instance"):
+        TorchEmulator.from_sequence(sequence(jcore, 2), device="cpu")

@@ -1,0 +1,118 @@
+"""The PyTorch port as a package: what it imports, where it runs by
+default, and its tensor utilities against the JAX package
+(pulser_diff_torch config, cplx, ops.linalg).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pulser_diff_torch.core as tcore
+from pulser_diff_tpu.cplx import Cplx as JCplx
+from pulser_diff_tpu.ops import linalg as jla
+from pulser_diff_torch import QuantumModel, TorchEmulator
+from pulser_diff_torch import config as tconfig
+from pulser_diff_torch.cplx import as_cplx
+from pulser_diff_torch.ops import linalg as tla
+
+from tests.torch_port_cases import sequence, to_numpy
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# f64 on both sides, same operations
+F64_TOL = 1e-12
+
+_IMPORT_PROBE = """
+import importlib, pkgutil, sys
+import torch
+before = torch.get_default_dtype()
+import pulser_diff_torch
+for m in pkgutil.walk_packages(pulser_diff_torch.__path__, "pulser_diff_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "pulser_diff_tpu"))
+assert not bad, bad
+assert torch.get_default_dtype() is before, torch.get_default_dtype()
+print("clean")
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of pulser_diff_torch, and chip_smoke.py, import in a
+    fresh interpreter without pulling in JAX or pulser_diff_tpu, and
+    without touching torch's default dtype."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a device the entry points take CUDA; with no CUDA they
+    raise instead of dropping to the CPU; device="cpu" runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seq = sequence(tcore, 2, 40)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEmulator.from_sequence(seq)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantumModel(seq)
+    with pytest.raises(RuntimeError, match="CUDA is absent"):
+        TorchEmulator.from_sequence(seq, device="cuda")
+    sim = TorchEmulator.from_sequence(seq, device="cpu")
+    assert sim.torch_device.type == "cpu" and sim.run().states.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tconfig.resolve_device(None) == torch.device("cuda")
+
+
+def _rand_cplx(rng, shape):
+    return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+
+def test_kron_and_basis_states_match_jax():
+    rng = np.random.default_rng(0)
+    a, b = _rand_cplx(rng, (2, 2)), _rand_cplx(rng, (3, 3))
+    for got, want in ((tla.kron(tla.XMAT, tla.YMAT, tla.ZMAT), jla.kron(jla.XMAT, jla.YMAT, jla.ZMAT)),
+                      (tla.kron(a, b), jla.kron(a, b))):
+        np.testing.assert_allclose(got.to_numpy(), np.asarray(want.re) + 1j * np.asarray(want.im),
+                                   rtol=0, atol=F64_TOL)
+    for dim, num in ((4, 2), ((2, 3, 2), (1, 2, 0))):
+        np.testing.assert_array_equal(to_numpy(tla.basis_state(dim, num).re),
+                                      np.asarray(jla.basis_state(dim, num).re))
+    with pytest.raises(ValueError):
+        tla.basis_state((2, 2), (1,))
+
+
+@pytest.mark.parametrize("n_qubits", [3, 4])
+def test_expect_and_observables_match_jax(n_qubits):
+    """Kets with a batch axis, the dense and 1-D diagonal magnetization
+    and a non-Hermitian observable (its imaginary part)."""
+    rng = np.random.default_rng(n_qubits)
+    dim = 2**n_qubits
+    st = _rand_cplx(rng, (5, dim, 2))
+    t_st = as_cplx(st)
+    j_st = JCplx(jnp.asarray(st.real), jnp.asarray(st.imag))
+    obs = _rand_cplx(rng, (dim, dim))
+    cases = [
+        (tla.total_magnetization(n_qubits, dense=True), jla.total_magnetization(n_qubits, dense=True)),
+        (tla.total_magnetization(n_qubits, dense=False), jla.total_magnetization(n_qubits, dense=False)),
+        (as_cplx(obs), JCplx(jnp.asarray(obs.real), jnp.asarray(obs.imag))),
+    ]
+    for t_obs, j_obs in cases:
+        np.testing.assert_array_equal(to_numpy(t_obs.re), np.asarray(j_obs.re))
+        got, want = tla.expect(t_obs, t_st), jla.expect(j_obs, j_st)
+        np.testing.assert_allclose(to_numpy(got.re), np.asarray(want.re), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(to_numpy(got.im), np.asarray(want.im), rtol=0, atol=1e-10)
+
+
+def test_interpolate_sine_matches_jax():
+    for n, T in ((8, 660), (5, 37)):
+        np.testing.assert_array_equal(to_numpy(tla.interpolate_sine(n, T)),
+                                      np.asarray(jla.interpolate_sine(n, T)))
