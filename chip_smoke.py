@@ -6,18 +6,26 @@
 Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the hand-written kernels, from csrc/, into the ignored build
-     directory;
+     directory, one nvcc per source, all started together;
   3. kernels against their plain PyTorch versions on the card: K1
      (fused_fwd_kernel) on every evaluation-slot state and K2
-     (fused_bwd_kernel) on lam0, every stream cotangent and dbar, at the
-     main path's shapes and at small shapes that cover the direct form,
-     da != db, a state batch and the RK4 tableau;
-  4. the main path: the 12-atom, 8-parameter value-and-gradient step of
+     (fused_bwd_kernel) on lam0, every stream cotangent and dbar; K4
+     (fused_fwd_ckpt_kernel) on every step's state and K5
+     (fused_bwd_ckpt_kernel) on the same outputs as K2; at the main paths'
+     shapes and at small shapes that cover the direct form, da != db, a
+     state batch, the RK4 tableau and (K4/K5) two runs.  K1/K2 refuse what
+     does not fit a block's shared memory and name ckpt=True, which a
+     14-atom step then takes on K4/K5;
+  4. the 12-atom main path: the 8-parameter value-and-gradient step of
      bench.py through QuantumModel.expectation_fn and torch.autograd, held
      against the port's f64 stepper on the card (1e-6 on the value, 1e-5
      on the gradient) with exactly one K1 and one K2 launch per step;
-  5. times: each kernel's warm median (CUDA events) beside its plain
-     version's time and its bound, the value+grad step, the f64 step.
+  5. the 16-atom main path: the same step at dim 2^16, which routes to
+     K4/K5, with exactly one K4 and one K5 launch and no K1/K2 launch,
+     held against the f64 stepper at the same bars (its time and peak
+     device memory printed);
+  6. times: each kernel's warm median (CUDA events) beside its plain
+     version's time and its bound, the value+grad steps, the f64 steps.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -63,8 +71,10 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _bench_model(torch, device, fused: bool, n_qubits: int = N_QUBITS,
-                 duration: int = DURATION):
+def _bench_model(torch, device, fused, n_qubits: int = N_QUBITS,
+                 duration: int = DURATION, **options):
+    """bench.py's model at ``n_qubits`` atoms; ``fused=None`` keeps the
+    default routing."""
     from pulser_diff_torch import QuantumModel
     from pulser_diff_torch.core import (
         ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
@@ -89,7 +99,8 @@ def _bench_model(torch, device, fused: bool, n_qubits: int = N_QUBITS,
         sampling_rate=SAMPLING_RATE,
         evaluation_times="Minimal",
         device=device,
-        fused=fused,
+        **({} if fused is None else {"fused": fused}),
+        **options,
     )
     return model, p0
 
@@ -143,19 +154,7 @@ def _check_kernels(torch, fe, data, slots, n_eval, last_slot, method, gen, label
     want = fe.fused_bwd_plain(data, method, slots, n_eval, last_slot,
                               ref_re, ref_im, lam_re, lam_im)
     torch.cuda.synchronize()
-    pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
-    pairs = [("lam0_re", got[0], want[0]), ("lam0_im", got[1], want[1]), ("dbar", got[3], want[3])]
-    names = ("zbar_rr", "zbar_ri", "zbar_cr", "zbar_ci")
-    pairs += list(zip(names, fe._unpack_zbar(got[2], pr, pc), fe._unpack_zbar(want[2], pr, pc)))
-    k2_abs = k2_rel = 0.0
-    for name, g, w in pairs:
-        if not torch.isfinite(g).all():
-            raise RuntimeError(f"{label}: K2 {name} is not finite")
-        err = _max_err(g, w)
-        rel = err / max(float(w.abs().max()), 1e-30)
-        k2_abs, k2_rel = max(k2_abs, err), max(k2_rel, rel)
-        if rel > K2_TOL_REL:
-            raise RuntimeError(f"{label}: K2 {name} vs plain rel {rel:.3e} > {K2_TOL_REL:.0e}")
+    k2_abs, k2_rel = _compare_adjoint(torch, fe, data, got, want, f"{label}: K2")
     _log(f"  {label}: K1 max|err| {k1_err:.3e} (tol {K1_TOL:.0e}), "
          f"K2 max|err| {k2_abs:.3e}, max rel err {k2_rel:.3e} (tol {K2_TOL_REL:.0e})")
     return k1_err, k2_abs, k2_rel, (ref_re, ref_im, lam_re, lam_im)
@@ -217,30 +216,114 @@ def _host_time_ms(torch, fn, n: int) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(fe, data, slots, others, S: int, bwd: bool) -> tuple[float, str]:
+def _check_ckpt(torch, fe, data, method, gen, label):
+    """K4 and K5 against their plain versions on the same inputs, K5 from
+    the plain stored states and random per-step cotangents; returns
+    (K4 max abs err, K5 max abs err, K5 max rel err, inputs of K5)."""
+    st_re, st_im = fe.fused_fwd_ckpt(data, method)
+    ref_re, ref_im = fe.fused_fwd_ckpt_plain(data, method)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(st_re).all() and torch.isfinite(st_im).all()):
+        raise RuntimeError(f"{label}: K4 produced non-finite states")
+    k4_err = max(_max_err(st_re, ref_re), _max_err(st_im, ref_im))
+    if k4_err > K1_TOL:
+        raise RuntimeError(f"{label}: K4 vs plain {k4_err:.3e} > {K1_TOL:.0e}")
+    shape = tuple(ref_re.shape)
+    lam_re = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
+    lam_im = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
+    got = fe.fused_bwd_ckpt(data, method, ref_re, ref_im, lam_re, lam_im)
+    want = fe.fused_bwd_ckpt_plain(data, method, ref_re, ref_im, lam_re, lam_im)
+    torch.cuda.synchronize()
+    k5_abs, k5_rel = _compare_adjoint(torch, fe, data, got, want, f"{label}: K5")
+    _log(f"  {label}: K4 max|err| {k4_err:.3e} (tol {K1_TOL:.0e}), "
+         f"K5 max|err| {k5_abs:.3e}, max rel err {k5_rel:.3e} (tol {K2_TOL_REL:.0e})")
+    return k4_err, k5_abs, k5_rel, (ref_re, ref_im, lam_re, lam_im)
+
+
+def _compare_adjoint(torch, fe, data, got, want, label):
+    """An adjoint kernel's (lam0, zbar, dbar) against its plain version:
+    each output within K2_TOL_REL of its largest magnitude."""
+    pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
+    pairs = [("lam0_re", got[0], want[0]), ("lam0_im", got[1], want[1]), ("dbar", got[3], want[3])]
+    names = ("zbar_rr", "zbar_ri", "zbar_cr", "zbar_ci")
+    pairs += list(zip(names, fe._unpack_zbar(got[2], pr, pc), fe._unpack_zbar(want[2], pr, pc)))
+    err_abs = err_rel = 0.0
+    for name, g, w in pairs:
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"{label} {name} is not finite")
+        err = _max_err(g, w)
+        rel = err / max(float(w.abs().max()), 1e-30)
+        err_abs, err_rel = max(err_abs, err), max(err_rel, rel)
+        if rel > K2_TOL_REL:
+            raise RuntimeError(f"{label} {name} vs plain rel {rel:.3e} > {K2_TOL_REL:.0e}")
+    return err_abs, err_rel
+
+
+def _two_runs(torch, fe, data):
+    """Two runs on the run axis: the given one, and one with its state's
+    real and imaginary parts swapped and its streams scaled by 0.9."""
+    shared = ("rp", "cp", "hb_hi", "hb_lo", "hs")
+    out = {}
+    for k, v in data.items():
+        if k in shared:
+            out[k] = v
+            continue
+        w = v * 0.9 if k in fe._ZF_KEYS + fe._ZB_KEYS else v
+        if k == "psi_re":
+            w = data["psi_im"]
+        if k == "psi_im":
+            w = data["psi_re"]
+        out[k] = torch.cat((v, w)).contiguous()
+    return out
+
+
+def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     """Least time for the work: the bytes of every input read once and
     every output written once over the HBM rate, against the products'
     f32 operations over the non-tensor f32 rate; the larger of the two.
-    ``others``: the kernel's tensors outside ``data`` (states, slot
-    cotangents, outputs)."""
+    ``others``: the kernel's tensors outside ``data`` (states, cotangents,
+    outputs).  ``kind``: "fwd" (K1), "bwd" (K2), "fwd_ckpt" (K4) or
+    "bwd_ckpt" (K5)."""
     R, nb, da, db = (int(v) for v in data["psi_re"].shape)
     n_steps = int(data["hs"].shape[0])
     # 8 real products per application of -iH (4 row-side, 4 column-side)
     apply_flops = 2 * 4 * nb * (da * da * db + da * db * db)
+    # per stage the 8 outer products of (W, V, Wc, Vc)
+    outer_flops = 2 * 4 * nb * (da * da * db + db * db * da)
     shared = ("rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + fe._ZF_KEYS
-    if not bwd:
+    inputs = [data[k] for k in shared]
+    if kind in ("fwd", "fwd_ckpt"):
+        # S applications per step
         flops = R * n_steps * S * apply_flops
-        inputs = [data[k] for k in shared + ("psi_re", "psi_im")]
-    else:
-        # per step: S mirror + (S - 1) forward + S transpose applications,
-        # and per stage the 8 outer products of (W, V, Wc, Vc)
-        outer_flops = 2 * 4 * nb * (da * da * db + db * db * da)
+        inputs += [data["psi_re"], data["psi_im"]]
+    elif kind == "bwd":
+        # S mirror + (S - 1) forward + S transpose applications per step
         flops = R * n_steps * ((3 * S - 1) * apply_flops + S * outer_flops)
-        inputs = [data[k] for k in shared + fe._ZB_KEYS]
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, slots, *others))
+        inputs += [data[k] for k in fe._ZB_KEYS]
+    else:
+        # (S - 1) forward + S transpose applications per step, no mirror pass
+        flops = R * n_steps * ((2 * S - 1) * apply_flops + S * outer_flops)
+        inputs += [data["psi_re"], data["psi_im"]]
+    tensors = (*inputs, *(() if slots is None else (slots,)), *others)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
     t_ops = flops / F32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _reset(fe) -> None:
+    for k in fe.LAUNCHES:
+        fe.LAUNCHES[k] = 0
+
+
+def _hold_against_f64(torch, value, grad, v64, g64, label):
+    dv = abs(float(value) - float(v64))
+    dg = float((grad - g64).abs().max())
+    _log(f"  {label}: value {float(value)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} (tol {VALUE_TOL:.0e})")
+    _log(f"  {label}: grad  {grad.cpu().numpy().tolist()!r}")
+    _log(f"  {label}: f64   {g64.cpu().numpy().tolist()!r}  max|dg| {dg:.3e} (tol {GRAD_TOL:.0e})")
+    if dv > VALUE_TOL or dg > GRAD_TOL:
+        raise RuntimeError(f"{label}: fused path vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
 
 
 def main() -> int:
@@ -267,14 +350,17 @@ def main() -> int:
     _log(f"phase 1 device: {name}; nvidia-smi: {smi}; torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, both sources at once
     t0 = time.perf_counter()
-    report = kernel_build.build("fused_evolution")
+    reports = kernel_build.build_all(("fused_evolution", "fused_ckpt"))
     fe._library()
-    _log(f"phase 2 build: fused_evolution.cu in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if any(w in line for w in ("Function properties", "registers", "spill", "smem")):
-            _log(f"  ptxas: {line.strip()}")
+    fe._ckpt_library()
+    _log(f"phase 2 build: fused_evolution.cu and fused_ckpt.cu in "
+         f"{time.perf_counter() - t0:.1f} s")
+    for src, report in reports.items():
+        for line in report.splitlines():
+            if any(w in line for w in ("Function properties", "registers", "spill", "smem")):
+                _log(f"  ptxas [{src}]: {line.strip()}")
 
     # 3. kernels against their plain versions
     _log("phase 3 kernels vs plain versions")
@@ -285,33 +371,82 @@ def main() -> int:
     data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
     k1_err, k2_err, _, (st_re, st_im, lam_re, lam_im) = _check_kernels(
         torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms (main path)")
+    small = []
     for label, small_sim, method in _small_cases(torch, device):
         sd, ss, sn, sl = _kernel_inputs(torch, small_sim, 1, device, method)
         _check_kernels(torch, fe, sd, ss, sn, sl, method, gen, label)
+        small.append((label, sd, method))
+    # K4 runs K1's arithmetic: its states at the slots equal K1's
+    ck_re, ck_im = fe.fused_fwd_ckpt(data, "DP5")
+    k1_re, k1_im = fe.fused_fwd(data, "DP5", slots, n_eval)
+    g_of = {int(s): g for g, s in enumerate(slots.tolist()) if s < n_eval}
+    k4_vs_k1 = max(max(_max_err(ck_re[:, g - 1], k1_re[:, s]), _max_err(ck_im[:, g - 1], k1_im[:, s]))
+                   for s, g in g_of.items() if g > 0)
+    _log(f"  12 atoms: K4 vs K1 at the evaluation slots max|diff| {k4_vs_k1:.3e}")
+    if k4_vs_k1 > K1_TOL:
+        raise RuntimeError(f"K4 vs K1 {k4_vs_k1:.3e} > {K1_TOL:.0e}")
+    del ck_re, ck_im, k1_re, k1_im
+    for label, sd, method in small:
+        _check_ckpt(torch, fe, sd, method, gen, label)
+    label, sd, method = small[1]
+    _check_ckpt(torch, fe, _two_runs(torch, fe, sd), method, gen, f"{label} R=2")
     # shared memory bounds nb * da * db: at 12 atoms a batch of 4 states
-    # must be refused, naming nb = 3 as the largest that fits
+    # must be refused, naming nb = 3 as the largest that fits and ckpt=True
     batch4 = {**data, "psi_re": data["psi_re"].repeat(1, 4, 1, 1),
               "psi_im": data["psi_im"].repeat(1, 4, 1, 1)}
     try:
         fe.fused_fwd(batch4, "DP5", slots, n_eval)
     except ValueError as exc:
-        if "up to nb=3" not in str(exc):
+        if "up to nb=3" not in str(exc) or "ckpt=True" not in str(exc):
             raise
         _log(f"  12 atoms nb=4 refused as expected: {exc}")
     else:
         raise RuntimeError("12 atoms nb=4: the kernel accepted more shared memory than it has")
+    # 14 atoms: K1 refuses even one state; ckpt=True runs it on K4/K5
+    m14, _ = _bench_model(torch, device, fused=True, n_qubits=14, ckpt=True)
+    with torch.no_grad():
+        sim14 = m14._make_emulator(dict(m14.params))
+    d14, s14, n14, _ = _kernel_inputs(torch, sim14, m14._default_substeps(), device)
+    try:
+        fe.fused_fwd(d14, "DP5", s14, n14)
+    except ValueError as exc:
+        if "ckpt=True" not in str(exc):
+            raise
+        _log(f"  14 atoms refused by K1 as expected: {exc}")
+    else:
+        raise RuntimeError("14 atoms: K1 accepted more shared memory than it has")
+    _check_ckpt(torch, fe, d14, "DP5", gen, "14 atoms (ckpt=True)")
+    _reset(fe)
+    v14, g14, _ = _value_and_grad(torch, m14, p0, device)
+    torch.cuda.synchronize()
+    if dict(fe.LAUNCHES) != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1,
+                             "fused_bwd_ckpt": 1}:
+        raise RuntimeError(f"14 atoms ckpt=True: launches {fe.LAUNCHES}")
+    if not (torch.isfinite(v14) and torch.isfinite(g14).all()):
+        raise RuntimeError(f"14 atoms ckpt=True: value {v14}, grad {g14}")
+    _log(f"  14 atoms ckpt=True value+grad: value {float(v14)!r}, launches {dict(fe.LAUNCHES)}")
+    del d14, sim14, m14
 
-    # 4. the main path: counts reset just before, read just after
+    # 16-atom main-path shapes (the default routing)
+    model16, _ = _bench_model(torch, device, fused=None, n_qubits=16)
+    substeps16 = model16._default_substeps()
+    with torch.no_grad():
+        sim16 = model16._make_emulator(dict(model16.params))
+    d16, _, _, _ = _kernel_inputs(torch, sim16, substeps16, device)
+    del sim16
+    k4_err, k5_err, _, (st16_re, st16_im, lam16_re, lam16_im) = _check_ckpt(
+        torch, fe, d16, "DP5", gen, "16 atoms (main path)")
+
+    # 4. the 12-atom main path: counts reset just before, read just after
     _log("phase 4 main path: 12-atom value+grad through QuantumModel")
-    for k in fe.LAUNCHES:
-        fe.LAUNCHES[k] = 0
+    _reset(fe)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     value, grad, vals = _value_and_grad(torch, fused_model, p0, device)
     torch.cuda.synchronize()
     first_step_s = time.perf_counter() - t0
     launches = dict(fe.LAUNCHES)
-    if launches != {"fused_fwd": 1, "fused_bwd": 1}:
+    if launches != {"fused_fwd": 1, "fused_bwd": 1, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}:
         raise RuntimeError(f"expected one K1 and one K2 launch per step, got {launches}")
     if vals.shape != (2,) or not torch.isfinite(vals).all() or not torch.isfinite(grad).all():
         raise RuntimeError(f"bad main-path output: values {vals}, grad {grad}")
@@ -321,17 +456,40 @@ def main() -> int:
     v64, g64, _ = _value_and_grad(torch, f64_model, p0, device)
     torch.cuda.synchronize()
     f64_step_ms = (time.perf_counter() - t0) * 1e3
-    dv = abs(float(value) - float(v64))
-    dg = float((grad - g64).abs().max())
     _log(f"  n_steps {int(data['hs'].shape[0])}, substeps {substeps}, launches {launches}")
-    _log(f"  value {float(value)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} (tol {VALUE_TOL:.0e})")
-    _log(f"  grad  {grad.cpu().numpy().tolist()!r}")
-    _log(f"  f64   {g64.cpu().numpy().tolist()!r}  max|dg| {dg:.3e} (tol {GRAD_TOL:.0e})")
-    if dv > VALUE_TOL or dg > GRAD_TOL:
-        raise RuntimeError(f"fused path vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
+    _hold_against_f64(torch, value, grad, v64, g64, "12 atoms")
+    del f64_model
 
-    # 5. times
-    _log("phase 5 times (CUDA events, warm medians)")
+    # 5. the 16-atom main path: counts reset just before, read just after
+    _log("phase 5 main path: 16-atom value+grad through QuantumModel (default routing)")
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value16, grad16, vals16 = _value_and_grad(torch, model16, p0, device)
+    torch.cuda.synchronize()
+    first16_s = time.perf_counter() - t0
+    launches16 = dict(fe.LAUNCHES)
+    if launches16 != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1}:
+        raise RuntimeError(f"expected one K4 and one K5 launch and no K1/K2, got {launches16}")
+    if vals16.shape != (2,) or not torch.isfinite(vals16).all() or not torch.isfinite(grad16).all():
+        raise RuntimeError(f"bad 16-atom output: values {vals16}, grad {grad16}")
+    f64_16, _ = _bench_model(torch, device, fused=False, n_qubits=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v64_16, g64_16, _ = _value_and_grad(torch, f64_16, p0, device)
+    torch.cuda.synchronize()
+    f64_16_ms = (time.perf_counter() - t0) * 1e3
+    f64_16_peak = torch.cuda.max_memory_allocated() / 2**30
+    del f64_16
+    _log(f"  n_steps {int(d16['hs'].shape[0])}, substeps {substeps16}, launches {launches16}, "
+         f"K4 grid {fe.ckpt_blocks(d16, False)} blocks, K5 grid {fe.ckpt_blocks(d16, True)} blocks")
+    _log(f"  f64 stepper value+grad {f64_16_ms:.1f} ms (once), peak device memory "
+         f"{f64_16_peak:.2f} GiB")
+    _hold_against_f64(torch, value16, grad16, v64_16, g64_16, "16 atoms")
+
+    # 6. times
+    _log("phase 6 times (CUDA events, warm medians)")
     n_kernel = 10
     k1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(data, "DP5", slots, n_eval), n_kernel)
     k1_plain_ms = _cuda_time_ms(
@@ -340,30 +498,47 @@ def main() -> int:
         data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im), n_kernel)
     k2_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_plain(
         data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im), 3)
+    k4_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(d16, "DP5"), n_kernel)
+    k4_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt_plain(d16, "DP5"), 2)
+    k5_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(
+        d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), n_kernel)
+    k5_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt_plain(
+        d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), 2)
     step_ms = _host_time_ms(torch, lambda: _value_and_grad(torch, fused_model, p0, device), 5)
+    step16_ms = _host_time_ms(torch, lambda: _value_and_grad(torch, model16, p0, device), 5)
     S = 6
     k2_out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im)
-    k1_bound, k1_by = _bound_ms(fe, data, slots, (st_re, st_im), S, bwd=False)
+    k5_out = fe.fused_bwd_ckpt(d16, "DP5", st16_re, st16_im, lam16_re, lam16_im)
+    k1_bound, k1_by = _bound_ms(fe, data, slots, (st_re, st_im), S, "fwd")
     k2_bound, k2_by = _bound_ms(fe, data, slots, (st_re, st_im, lam_re, lam_im, *k2_out),
-                                S, bwd=True)
+                                S, "bwd")
+    k4_bound, k4_by = _bound_ms(fe, d16, None, (st16_re, st16_im), S, "fwd_ckpt")
+    k5_bound, k5_by = _bound_ms(fe, d16, None, (st16_re, st16_im, lam16_re, lam16_im, *k5_out),
+                                S, "bwd_ckpt")
     _log(f"  K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms, bound {k1_bound:.4f} ms by {k1_by})")
     _log(f"  K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {k2_bound:.4f} ms by {k2_by})")
-    _log(f"  value+grad step {step_ms:.2f} ms (first {first_step_s * 1e3:.1f} ms); "
+    _log(f"  K4 {k4_ms:.3f} ms (plain {k4_plain_ms:.1f} ms, bound {k4_bound:.4f} ms by {k4_by})")
+    _log(f"  K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.1f} ms, bound {k5_bound:.4f} ms by {k5_by})")
+    _log(f"  12-atom value+grad step {step_ms:.2f} ms (first {first_step_s * 1e3:.1f} ms); "
          f"f64 stepper step {f64_step_ms:.1f} ms (once)")
+    _log(f"  16-atom value+grad step {step16_ms:.2f} ms (first {first16_s * 1e3:.1f} ms); "
+         f"f64 stepper step {f64_16_ms:.1f} ms (once)")
+
+    def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
+        return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
+                "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
+                "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
 
     kernels = [
-        {"name": "fused_fwd_kernel (K1)", "route": "cuda",
-         "source": "pulser_diff_torch/csrc/fused_evolution.cu",
-         "replaces": "pulser_diff_tpu/ops/pallas_evolution.py:594",
-         "launches": launches["fused_fwd"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "fused_bwd_kernel (K2)", "route": "cuda",
-         "source": "pulser_diff_torch/csrc/fused_evolution.cu",
-         "replaces": "pulser_diff_tpu/ops/pallas_evolution.py:1026",
-         "launches": launches["fused_bwd"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+        entry("fused_fwd_kernel (K1)", "fused_evolution.cu", 594, launches["fused_fwd"],
+              k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by),
+        entry("fused_bwd_kernel (K2)", "fused_evolution.cu", 1026, launches["fused_bwd"],
+              k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by),
+        entry("fused_fwd_ckpt_kernel (K4)", "fused_ckpt.cu", 1479, launches16["fused_fwd_ckpt"],
+              k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by),
+        entry("fused_bwd_ckpt_kernel (K5)", "fused_ckpt.cu", 1511, launches16["fused_bwd_ckpt"],
+              k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@
 Hamiltonian of a sampled sequence on one torch device, holds the initial
 state and the evaluation times, and routes the solve:
 
-  - on CUDA, ``DP5_SE`` takes the fused kernels (K1 forward, K2 adjoint),
-    as the JAX package does on a TPU, below ``_FUSED_DIM_CAP``;
+  - on CUDA, ``DP5_SE`` takes the fused kernels, as the JAX package does
+    on a TPU, below ``_FUSED_DIM_CAP``: K1 forward and K2 adjoint below
+    ``_CKPT_DIM_THRESHOLD``, the checkpointed K4 forward and K5 adjoint
+    from there (``ckpt=True`` / ``False`` overrides);
   - on the CPU, ``DP5_SE`` takes the f64 stepper, as the JAX package does
     on its CPU backend;
   - ``solver="DP5_PALLAS"`` / ``"RK4_PALLAS"`` force the fused path on
@@ -13,9 +15,9 @@ state and the evaluation times, and routes the solve:
   - ``fused=False`` forces the f64 stepper.
 
 This slice is noiseless and coherent: ``run()`` returns
-:class:`CoherentResults`.  The checkpointed fused adjoint (kernels K4/K5,
-used at dim >= 2^16) and the f32 XLA stepper are not ported yet; the
-paths that would take them raise instead of rerouting.
+:class:`CoherentResults`.  The f32 XLA stepper (the JAX package's route
+at dim >= 2^18) is not ported yet; the path that would take it raises
+instead of rerouting.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from pulser_diff_torch.simresults import CoherentResults
 from pulser_diff_torch.solvers import SolverType, TimeGrid, sesolve
 
 # solver options accepted by run(**options) in this slice
-_RUN_OPTIONS = {"substeps", "max_step", "fused"}
+_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt"}
 
 
 class TorchEmulator:
@@ -233,6 +235,7 @@ class TorchEmulator:
         dim = da * db
         opts = dict(solver_opts or {})
         fused = opts.pop("fused", None)
+        ckpt = opts.pop("ckpt", None)
         if solver == SolverType.DP5_SE and fused is not False:
             if (fused is True and self._fused_backend_ok()) or self._fused_eligible():
                 solver = SolverType.DP5_PALLAS
@@ -248,15 +251,12 @@ class TorchEmulator:
         if solver in (SolverType.DP5_SE, SolverType.RK4_SE):
             states = sesolve(ham_data, p, grid, solver=solver, substeps=substeps)
         elif solver in self._PALLAS_METHODS:
-            if dim >= self._CKPT_DIM_THRESHOLD:
-                raise NotImplementedError(
-                    "The checkpointed fused kernels (K4 _fwd_ckpt_kernel, K5 "
-                    "_bwd_ckpt_kernel), which the JAX package uses at dim >= "
-                    "2^16, are not ported yet; pass fused=False for the f64 "
-                    "stepper."
-                )
+            # the checkpointed kernels (K4/K5) from 2^16, as in the JAX package
+            if ckpt is None:
+                ckpt = dim >= self._CKPT_DIM_THRESHOLD
             states = evolve_states(
-                ham_data, p, grid.refined(substeps), method=self._PALLAS_METHODS[solver]
+                ham_data, p, grid.refined(substeps), method=self._PALLAS_METHODS[solver],
+                ckpt=bool(ckpt),
             )
         else:
             raise ValueError(f"Solver {solver} not available.")
@@ -279,7 +279,8 @@ class TorchEmulator:
 
         Options: ``substeps`` / ``max_step`` (fixed-step refinement),
         ``fused`` (True / False to force the fused kernels or the f64
-        stepper)."""
+        stepper), ``ckpt`` (True / False to force the checkpointed fused
+        kernels K4/K5 or K1/K2; by default they run from dim 2^16)."""
         unknown = set(options) - _RUN_OPTIONS
         if unknown:
             raise TypeError(

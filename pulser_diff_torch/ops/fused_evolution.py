@@ -19,12 +19,22 @@ its gradient in ONE launch of the adjoint kernel (K2:
     grid point that carries an evaluation slot it reloads the stored
     state and adds that slot's cotangent.
 
+The checkpointed pair runs the same stage arithmetic where the state no
+longer fits one block (the JAX package takes it from dim 2^16): K4
+(``csrc/fused_ckpt.cu``: ``fused_fwd_ckpt_kernel``, for
+``_fwd_ckpt_kernel``) stores the state after every step, and K5
+(``fused_bwd_ckpt_kernel``, for ``_bwd_ckpt_kernel``) runs the adjoint
+from those exact start states, with no mirror pass, taking a cotangent
+at every step.  Each is one cooperative launch spread over the whole
+card.
+
 Beside each kernel sits its plain PyTorch version (``fused_fwd_plain``,
-``fused_bwd_plain``), which repeats the kernel's arithmetic in the same
-order.  The wrappers ``fused_fwd`` / ``fused_bwd`` take the plain version
-for tensors on the CPU and launch the kernel for tensors on a CUDA
-device; on any other device they raise.  ``LAUNCHES`` counts kernel
-launches (the plain versions never count).
+``fused_bwd_plain``, ``fused_fwd_ckpt_plain``, ``fused_bwd_ckpt_plain``),
+which repeats the kernel's arithmetic in the same order.  The wrappers
+``fused_fwd`` / ``fused_bwd`` / ``fused_fwd_ckpt`` / ``fused_bwd_ckpt``
+take the plain version for tensors on the CPU and launch the kernel for
+tensors on a CUDA device; on any other device they raise.  ``LAUNCHES``
+counts kernel launches (the plain versions never count).
 
 Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
 ``prepare_fused_inputs``, ``_unpack_zbar``, ``_zero_like_aux``) follows
@@ -70,7 +80,7 @@ _FN_KEYS = _ZF_KEYS + (
 ) + _ZB_KEYS
 
 # kernel launches since the last reset (plain versions never count)
-LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0}
+LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
 
 # shared memory one block can use on Hopper (bytes)
 _SMEM_LIMIT = 232448
@@ -157,10 +167,13 @@ def _dims(data: dict) -> tuple[int, ...]:
     return R, n_steps, pr, pc, nb, da, db
 
 
-def _check_shapes(data: dict, S: int, slots: torch.Tensor, n_eval: int, *states) -> None:
+def _check_shapes(data: dict, S: int, *states, slots: torch.Tensor | None = None,
+                  n_eval: int = 0) -> None:
     """Raise on inputs whose shapes disagree with ``psi_re``, ``hs``,
     ``rp`` and ``cp`` (the kernels index them as dense buffers of these
-    shapes); ``states`` are slot-state or slot-cotangent tensors."""
+    shapes).  ``states`` are slot states or slot cotangents
+    (R, n_eval, ...) when ``slots`` is given, else per-step states or
+    cotangents (R, n_steps, ...)."""
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     want = {
         "psi_re": (R, nb, da, db), "psi_im": (R, nb, da, db),
@@ -171,9 +184,12 @@ def _check_shapes(data: dict, S: int, slots: torch.Tensor, n_eval: int, *states)
     for k in _ZF_KEYS + _ZB_KEYS:
         want[k] = (R, n_steps, S, pr if k.startswith(("zr", "zbr")) else pc)
     got = {k: tuple(data[k].shape) for k in want}
-    got["slots"], want["slots"] = tuple(slots.shape), (n_steps + 1,)
+    lead = n_steps
+    if slots is not None:
+        got["slots"], want["slots"] = tuple(slots.shape), (n_steps + 1,)
+        lead = n_eval
     for i, t in enumerate(states):
-        got[f"states[{i}]"], want[f"states[{i}]"] = tuple(t.shape), (R, n_eval, nb, da, db)
+        got[f"states[{i}]"], want[f"states[{i}]"] = tuple(t.shape), (R, lead, nb, da, db)
     bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
     if bad:
         raise ValueError(f"Fused kernel inputs of the wrong shape (got, expected): {bad}")
@@ -294,56 +310,149 @@ def _stage_coeffs(A, s: int, h: np.float32) -> list[float]:
     return [float(_f32(a) * h) if a != 0.0 else 0.0 for a in A[s]]
 
 
-def fused_fwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int):
-    """Plain version of K1: the states at every evaluation slot,
-    (R, n_eval, nb, da, db) re/im in f32."""
+def _fwd_plain_steps(data: dict, method: str, r: int):
+    """Run r's forward evolution: yields (x, y) after every step.  The
+    shared body of K1's and K4's plain versions, so their states agree bit
+    for bit."""
     A, B, S = _tableau(method)
-    R, n_steps, pr, pc, nb, da, db = _dims(data)
-    sl = [int(v) for v in slots.tolist()]
+    n_steps = int(data["hs"].shape[0])
     hs = data["hs"].detach().cpu().numpy()
     hb_hi = data["hb_hi"].detach().cpu().numpy()
     hb_lo = data["hb_lo"].detach().cpu().numpy()
+    run = _PlainRun(data, r, mirror=False)
+    x, y = data["psi_re"][r], data["psi_im"][r]
+    cx, cy = torch.zeros_like(x), torch.zeros_like(y)
+    for k in range(n_steps):
+        h = _f32(hs[k])
+        ks = []
+        for s in range(S):
+            xs, ys = _combine(x, y, ks, _stage_coeffs(A, s, h))
+            ks.append(run.apply_minus_iH(run.side(k, s), xs, ys))
+        dx = dy = None
+        for s in range(S):
+            if B[s] == 0.0:
+                continue
+            w = float(hb_hi[k, s])
+            if dx is None:
+                dx, dy = ks[s][0] * w, ks[s][1] * w
+            else:
+                dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
+        for s in range(S):
+            if B[s] == 0.0:
+                continue
+            w = float(hb_lo[k, s])
+            dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
+        # Kahan-compensated accumulation
+        yk = dx - cx
+        t = x + yk
+        cx = (t - x) - yk
+        x = t
+        yk = dy - cy
+        t = y + yk
+        cy = (t - y) - yk
+        y = t
+        yield x, y
+
+
+def fused_fwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+    """Plain version of K1: the states at every evaluation slot,
+    (R, n_eval, nb, da, db) re/im in f32."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    sl = [int(v) for v in slots.tolist()]
     like = data["psi_re"]
     out_re = torch.zeros((R, n_eval, nb, da, db), dtype=like.dtype, device=like.device)
     out_im = torch.zeros_like(out_re)
     for r in range(R):
-        run = _PlainRun(data, r, mirror=False)
-        x, y = data["psi_re"][r], data["psi_im"][r]
-        cx, cy = torch.zeros_like(x), torch.zeros_like(y)
         if sl[0] < n_eval:
-            out_re[r, sl[0]], out_im[r, sl[0]] = x, y
-        for k in range(n_steps):
-            h = _f32(hs[k])
-            ks = []
-            for s in range(S):
-                xs, ys = _combine(x, y, ks, _stage_coeffs(A, s, h))
-                ks.append(run.apply_minus_iH(run.side(k, s), xs, ys))
-            dx = dy = None
-            for s in range(S):
-                if B[s] == 0.0:
-                    continue
-                w = float(hb_hi[k, s])
-                if dx is None:
-                    dx, dy = ks[s][0] * w, ks[s][1] * w
-                else:
-                    dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
-            for s in range(S):
-                if B[s] == 0.0:
-                    continue
-                w = float(hb_lo[k, s])
-                dx, dy = dx + ks[s][0] * w, dy + ks[s][1] * w
-            # Kahan-compensated accumulation
-            yk = dx - cx
-            t = x + yk
-            cx = (t - x) - yk
-            x = t
-            yk = dy - cy
-            t = y + yk
-            cy = (t - y) - yk
-            y = t
+            out_re[r, sl[0]], out_im[r, sl[0]] = data["psi_re"][r], data["psi_im"][r]
+        for k, (x, y) in enumerate(_fwd_plain_steps(data, method, r)):
             if sl[k + 1] < n_eval:
                 out_re[r, sl[k + 1]], out_im[r, sl[k + 1]] = x, y
     return out_re, out_im
+
+
+def fused_fwd_ckpt_plain(data: dict, method: str):
+    """Plain version of K4: the state after every step,
+    (R, n_steps, nb, da, db) re/im in f32 (index k holds grid point k + 1)."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    like = data["psi_re"]
+    out_re = torch.zeros((R, n_steps, nb, da, db), dtype=like.dtype, device=like.device)
+    out_im = torch.zeros_like(out_re)
+    for r in range(R):
+        for k, (x, y) in enumerate(_fwd_plain_steps(data, method, r)):
+            out_re[r, k], out_im[r, k] = x, y
+    return out_re, out_im
+
+
+def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B, S,
+                        zrow: torch.Tensor):
+    """Phases 2-3 of one adjoint step from the step's START state (x, y):
+    the forward stage recompute and the reversed transpose recursion with
+    each stage's cotangent rows (written to ``zrow``, (S, 2pr + 2pc)), then
+    the costate update.  Shared by K2's and K5's plain versions, as the
+    JAX package shares ``_adjoint_core``.  Returns (lx', ly', dacc')."""
+    nb = x.shape[0]
+    pr, pc = run.rsym.shape[0], run.csym.shape[0]
+    # forward stage inputs (the last stage's product is dead)
+    us, fk = [], []
+    for s in range(S):
+        us.append(_combine(x, y, fk, _stage_coeffs(A, s, h)))
+        if s < S - 1:
+            fk.append(run.apply_minus_iH(run.side(k, s), *us[s]))
+    # reversed transpose recursion with the cotangent work
+    w = [None] * S
+    for s in reversed(range(S)):
+        if B[s] != 0.0:
+            gx, gy = lx * bhl[s], ly * bhl[s]
+        else:
+            gx, gy = torch.zeros_like(lx), torch.zeros_like(ly)
+        for rr in range(s + 1, S):
+            a = A[rr][s]
+            if a != 0.0:
+                c = float(_f32(a) * h)
+                gx = gx + w[rr][0] * c
+                gy = gy + w[rr][1] * c
+        # F^T = -F for the real form of -iH (H hermitian)
+        kx, ky = run.apply_minus_iH(run.side(k, s), gx, gy)
+        w[s] = (-kx, -ky)
+        ux, uy = us[s]
+        dacc = dacc + (gx * uy - gy * ux).sum(0)
+        W = torch.zeros_like(run.rsym[0])
+        V = torch.zeros_like(W)
+        Wc = torch.zeros_like(run.csym[0])
+        Vc = torch.zeros_like(Wc)
+        for b in range(nb):
+            W = W + (gx[b] @ uy[b].T - gy[b] @ ux[b].T)
+            V = V + (gx[b] @ ux[b].T + gy[b] @ uy[b].T)
+            Wc = Wc + (uy[b].T @ gx[b] - ux[b].T @ gy[b])
+            Vc = Vc + (ux[b].T @ gx[b] + uy[b].T @ gy[b])
+        rows = []
+        for p in range(pr):
+            rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
+        for p in range(pc):
+            rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
+        zrow[s] = torch.stack(rows)
+    # costate update
+    for s in range(S):
+        lx, ly = lx + w[s][0], ly + w[s][1]
+    return lx, ly, dacc
+
+
+def _bwd_outputs(data: dict, S: int):
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    like = data["psi_re"]
+    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc), dtype=like.dtype, device=like.device)
+    return torch.empty_like(like), torch.empty_like(like), zbar, torch.empty_like(data["diag"])
+
+
+def _step_weights(data: dict, S: int):
+    """Host copies of the step sizes and the summed two-word h*b_s weights."""
+    hs = data["hs"].detach().cpu().numpy()
+    hb_hi = data["hb_hi"].detach().cpu().numpy()
+    hb_lo = data["hb_lo"].detach().cpu().numpy()
+    bhl = [[float(_f32(hb_hi[k, s]) + _f32(hb_lo[k, s])) for s in range(S)]
+           for k in range(hs.shape[0])]
+    return hs, bhl
 
 
 def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
@@ -353,15 +462,8 @@ def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
     A, B, S = _tableau(method)
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     sl = [int(v) for v in slots.tolist()]
-    hs = data["hs"].detach().cpu().numpy()
-    hb_hi = data["hb_hi"].detach().cpu().numpy()
-    hb_lo = data["hb_lo"].detach().cpu().numpy()
-    like = data["psi_re"]
-    nrow = 2 * pr + 2 * pc
-    lam0_re = torch.empty_like(like)
-    lam0_im = torch.empty_like(like)
-    zbar = torch.empty((R, n_steps, S, nrow), dtype=like.dtype, device=like.device)
-    dbar = torch.empty_like(data["diag"])
+    hs, bhl_all = _step_weights(data, S)
+    lam0_re, lam0_im, zbar, dbar = _bwd_outputs(data, S)
     for r in range(R):
         run = _PlainRun(data, r, mirror=True)
         x, y = st_re[r, last_slot], st_im[r, last_slot]
@@ -369,7 +471,7 @@ def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
         dacc = torch.zeros_like(run.d)
         for k in reversed(range(n_steps)):
             h = _f32(hs[k])
-            bhl = [float(_f32(hb_hi[k, s]) + _f32(hb_lo[k, s])) for s in range(S)]
+            bhl = bhl_all[k]
             # 1. reconstruct the step's start state on the mirror streams
             rk = []
             for s in range(S):
@@ -377,51 +479,41 @@ def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
                 rk.append(run.apply_minus_iH(run.side(k, s, mirror=True), xs, ys))
             x, y = _combine(x, y, rk, [bhl[s] if B[s] != 0.0 else 0.0 for s in range(S)],
                             sign=-1.0)
-            # 2. forward stage inputs (the last stage's product is dead)
-            us, fk = [], []
-            for s in range(S):
-                us.append(_combine(x, y, fk, _stage_coeffs(A, s, h)))
-                if s < S - 1:
-                    fk.append(run.apply_minus_iH(run.side(k, s), *us[s]))
-            # 3. reversed transpose recursion with the cotangent work
-            w = [None] * S
-            for s in reversed(range(S)):
-                if B[s] != 0.0:
-                    gx, gy = lx * bhl[s], ly * bhl[s]
-                else:
-                    gx, gy = torch.zeros_like(lx), torch.zeros_like(ly)
-                for rr in range(s + 1, S):
-                    a = A[rr][s]
-                    if a != 0.0:
-                        c = float(_f32(a) * h)
-                        gx = gx + w[rr][0] * c
-                        gy = gy + w[rr][1] * c
-                # F^T = -F for the real form of -iH (H hermitian)
-                kx, ky = run.apply_minus_iH(run.side(k, s), gx, gy)
-                w[s] = (-kx, -ky)
-                ux, uy = us[s]
-                dacc = dacc + (gx * uy - gy * ux).sum(0)
-                W = torch.zeros_like(run.rsym[0])
-                V = torch.zeros_like(W)
-                Wc = torch.zeros_like(run.csym[0])
-                Vc = torch.zeros_like(Wc)
-                for b in range(nb):
-                    W = W + (gx[b] @ uy[b].T - gy[b] @ ux[b].T)
-                    V = V + (gx[b] @ ux[b].T + gy[b] @ uy[b].T)
-                    Wc = Wc + (uy[b].T @ gx[b] - ux[b].T @ gy[b])
-                    Vc = Vc + (ux[b].T @ gx[b] + uy[b].T @ gy[b])
-                rows = []
-                for p in range(pr):
-                    rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
-                for p in range(pc):
-                    rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
-                zbar[r, k, s] = torch.stack(rows)
-            # 4. costate update, then the stored state / slot cotangent
-            for s in range(S):
-                lx, ly = lx + w[s][0], ly + w[s][1]
+            # 2-3. stage recompute, transpose recursion, costate update
+            lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, h, bhl, A, B, S,
+                                               zbar[r, k])
+            # 4. the stored state / slot cotangent
             if sl[k] < n_eval:
                 x, y = st_re[r, sl[k]], st_im[r, sl[k]]
                 lx, ly = lx + lam_re[r, sl[k]], ly + lam_im[r, sl[k]]
+        lam0_re[r], lam0_im[r], dbar[r] = lx, ly, dacc
+    return lam0_re, lam0_im, zbar, dbar
+
+
+def fused_bwd_ckpt_plain(data: dict, method: str, st_re, st_im, lam_re, lam_im):
+    """Plain version of K5: the adjoint of :func:`fused_fwd_ckpt_plain`
+    for per-step cotangents ``lam`` (R, n_steps, nb, da, db), from the
+    stored start states (no mirror pass).  Returns (lam0_re, lam0_im,
+    zbar, dbar) as K2's plain version does."""
+    A, B, S = _tableau(method)
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    hs, bhl_all = _step_weights(data, S)
+    lam0_re, lam0_im, zbar, dbar = _bwd_outputs(data, S)
+    for r in range(R):
+        run = _PlainRun(data, r, mirror=False)
+        lx = torch.zeros_like(data["psi_re"][r])
+        ly = torch.zeros_like(lx)
+        dacc = torch.zeros_like(run.d)
+        for k in reversed(range(n_steps)):
+            # the cotangent of the state at grid point k + 1 (= stored[k])
+            lx, ly = lx + lam_re[r, k], ly + lam_im[r, k]
+            # the step's start state: stored[k - 1], or psi0 at k = 0
+            if k == 0:
+                x, y = data["psi_re"][r], data["psi_im"][r]
+            else:
+                x, y = st_re[r, k - 1], st_im[r, k - 1]
+            lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, _f32(hs[k]),
+                                               bhl_all[k], A, B, S, zbar[r, k])
         lam0_re[r], lam0_im[r], dbar[r] = lx, ly, dacc
     return lam0_re, lam0_im, zbar, dbar
 
@@ -477,13 +569,16 @@ def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
         raise ValueError(f"{what}: unsupported tableau.")
     if err == -2:
         raise ValueError(f"{what}: at most 8 row and 8 column parts are supported (pr={pr}, pc={pc}).")
+    if err == -3:
+        raise RuntimeError(f"{what}: the device does not support cooperative launches.")
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}.")
 
 
 def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int) -> None:
     """Both side matrices and the padded (nb, da, db + 1) stage input live
-    in one block's shared memory, so the limit is on nb * da * db."""
+    in one block's shared memory, so the limit is on nb * da * db.  The
+    checkpointed kernels (K4/K5) keep them in device memory instead."""
     need = int(lib.pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc))
     if need > _SMEM_LIMIT:
         fits = [n for n in range(1, nb)
@@ -492,8 +587,9 @@ def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int) -> N
         raise ValueError(
             f"The fused kernel needs {need} bytes of shared memory for "
             f"nb={nb}, da={da}, db={db} (limit {_SMEM_LIMIT}); at this da, db "
-            f"it takes {most}. Split the batch or pass fused=False for the "
-            "f64 stepper."
+            f"it takes {most}. Pass ckpt=True to run the state on the "
+            "checkpointed kernels K4/K5, which keep it in device memory; or "
+            "split the batch, or pass fused=False for the f64 stepper."
         )
 
 
@@ -575,7 +671,7 @@ def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int):
     Replaces ``_fwd_kernel`` (pallas_evolution.py) with ``states=True``
     and no kron pairs.  CPU tensors take :func:`fused_fwd_plain`; CUDA
     tensors launch ``fused_fwd_kernel``."""
-    _check_shapes(data, _tableau(method)[2], slots, n_eval)
+    _check_shapes(data, _tableau(method)[2], slots=slots, n_eval=n_eval)
     dev = data["psi_re"].device
     if dev.type == "cpu":
         return fused_fwd_plain(data, method, slots, n_eval)
@@ -590,7 +686,8 @@ def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
     ``lam``.  Replaces ``_bwd_kernel`` (lean interval form).  CPU tensors
     take :func:`fused_bwd_plain`; CUDA tensors launch
     ``fused_bwd_kernel``."""
-    _check_shapes(data, _tableau(method)[2], slots, n_eval, st_re, st_im, lam_re, lam_im)
+    _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im,
+                  slots=slots, n_eval=n_eval)
     if not 0 <= last_slot < n_eval:
         raise ValueError(f"last_slot {last_slot} is not an evaluation slot (n_eval={n_eval}).")
     dev = data["psi_re"].device
@@ -600,6 +697,117 @@ def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
     if dev.type == "cuda":
         return _fused_bwd_cuda(data, method, slots, n_eval, last_slot,
                                st_re, st_im, lam_re, lam_im)
+    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+
+
+# ----------------------------------------------------------------------
+# checkpointed kernels (csrc/fused_ckpt.cu): K4 forward, K5 adjoint
+# ----------------------------------------------------------------------
+# inputs of pdt_ckpt_fwd / pdt_ckpt_bwd, in the order of their pointer arrays
+_CKPT_FWD_IN = ("psi_re", "psi_im", "rsym", "rasym", "csym", "casym") + _ZF_KEYS + (
+    "hb_hi", "hb_lo", "hs", "diag", "diag_lo")
+_CKPT_BWD_IN = ("st_re", "st_im", "lam_re", "lam_im") + _CKPT_FWD_IN
+# the data keys both take (the symmetric part stacks are formed per launch)
+_CKPT_DATA_KEYS = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag",
+                   "diag_lo") + _ZF_KEYS
+
+
+def _ckpt_library() -> ctypes.CDLL:
+    lib = kernel_build.load("fused_ckpt")
+    if not getattr(lib, "_pdt_declared", False):
+        lib.pdt_ckpt_scratch_floats.argtypes = [_I] * 6
+        lib.pdt_ckpt_scratch_floats.restype = ctypes.c_size_t
+        lib.pdt_ckpt_blocks.argtypes = [_I] * 5
+        lib.pdt_ckpt_blocks.restype = _I
+        lib.pdt_ckpt_fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P, _P, _P]
+        lib.pdt_ckpt_fwd.restype = _I
+        lib.pdt_ckpt_bwd.argtypes = [_P] * 7 + [_I] * 8 + [_P, _P, _P]
+        lib.pdt_ckpt_bwd.restype = _I
+        lib._pdt_declared = True
+    return lib
+
+
+def ckpt_blocks(data: dict, bwd: bool) -> int:
+    """The cooperative grid (blocks of 256 threads) that K4 (``bwd=False``)
+    or K5 launches for ``data`` on its CUDA device."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    with torch.cuda.device(data["psi_re"].device):
+        return int(_ckpt_library().pdt_ckpt_blocks(int(bwd), R, nb, da, db))
+
+
+def _ckpt_launch(fn_name: str, bwd: int, data: dict, method: str, tensors: dict, outs) -> None:
+    """Check, then launch K4 or K5 as one cooperative grid on the data's
+    device and torch's current stream; raise if the launch is refused."""
+    device = data["psi_re"].device
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    _check_cuda(tensors, device)
+    lib = _ckpt_library()
+    a_arr, bnz, S = _tableau_c(method)
+    rsym, rasym, csym, casym = _parts_sym(data)
+    ins = {**tensors, "rsym": rsym, "rasym": rasym, "csym": csym, "casym": casym}
+    order = _CKPT_BWD_IN if bwd else _CKPT_FWD_IN
+    in_ptrs = (_P * len(order))(*[ins[k].data_ptr() for k in order])
+    scratch = torch.empty(int(lib.pdt_ckpt_scratch_floats(bwd, R, S, nb, da, db)),
+                          dtype=torch.float32, device=device)
+    # the grid barrier's arrival count and generation; the count starts at 0
+    barrier = torch.zeros(2, dtype=torch.int32, device=device)
+    out_ptrs = [t.data_ptr() for t in outs]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(
+            in_ptrs, *out_ptrs, scratch.data_ptr(), barrier.data_ptr(),
+            R, n_steps, nb, da, db, pr, pc, S, a_arr, bnz, stream,
+        )
+    _launch_check(err, fn_name, pr, pc)
+
+
+def _fused_fwd_ckpt_cuda(data: dict, method: str):
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    out_re = torch.empty((R, n_steps, nb, da, db), dtype=torch.float32,
+                         device=data["psi_re"].device)
+    out_im = torch.empty_like(out_re)
+    _ckpt_launch("pdt_ckpt_fwd", 0, data, method, {k: data[k] for k in _CKPT_DATA_KEYS},
+                 (out_re, out_im))
+    LAUNCHES["fused_fwd_ckpt"] += 1
+    return out_re, out_im
+
+
+def _fused_bwd_ckpt_cuda(data: dict, method: str, st_re, st_im, lam_re, lam_im):
+    tensors = {**{k: data[k] for k in _CKPT_DATA_KEYS},
+               "st_re": st_re, "st_im": st_im, "lam_re": lam_re, "lam_im": lam_im}
+    outs = _bwd_outputs(data, _tableau(method)[2])
+    _ckpt_launch("pdt_ckpt_bwd", 1, data, method, tensors, outs)
+    LAUNCHES["fused_bwd_ckpt"] += 1
+    return outs
+
+
+def fused_fwd_ckpt(data: dict, method: str):
+    """K4: forward evolution storing the state after every step,
+    (R, n_steps, nb, da, db) re/im.
+
+    Replaces ``_fwd_ckpt_kernel`` (pallas_evolution.py) with no kron
+    pairs.  CPU tensors take :func:`fused_fwd_ckpt_plain`; CUDA tensors
+    launch ``fused_fwd_ckpt_kernel`` (csrc/fused_ckpt.cu)."""
+    _check_shapes(data, _tableau(method)[2])
+    dev = data["psi_re"].device
+    if dev.type == "cpu":
+        return fused_fwd_ckpt_plain(data, method)
+    if dev.type == "cuda":
+        return _fused_fwd_ckpt_cuda(data, method)
+    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+
+
+def fused_bwd_ckpt(data: dict, method: str, st_re, st_im, lam_re, lam_im):
+    """K5: adjoint of :func:`fused_fwd_ckpt` for the per-step cotangents
+    ``lam``, from the stored states ``st``.  Replaces ``_bwd_ckpt_kernel``.
+    CPU tensors take :func:`fused_bwd_ckpt_plain`; CUDA tensors launch
+    ``fused_bwd_ckpt_kernel``."""
+    _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im)
+    dev = data["psi_re"].device
+    if dev.type == "cpu":
+        return fused_bwd_ckpt_plain(data, method, st_re, st_im, lam_re, lam_im)
+    if dev.type == "cuda":
+        return _fused_bwd_ckpt_cuda(data, method, st_re, st_im, lam_re, lam_im)
     raise ValueError(f"No fused kernel for device type '{dev.type}'.")
 
 
@@ -647,10 +855,49 @@ def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
     )
 
 
-def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5") -> Cplx:
+class _FusedEvolveCkpt(torch.autograd.Function):
+    """Counterpart of the JAX custom VJP ``fused_evolve_ckpt``: forward is
+    K4, backward is K5, fed the per-step cotangent buffer autograd hands
+    it (dense, zero at every step no slot reads)."""
+
+    @staticmethod
+    def forward(ctx, method, *tensors):
+        data = dict(zip(_FN_KEYS, tensors))
+        st_re, st_im = fused_fwd_ckpt(data, method)
+        ctx.method = method
+        ctx.save_for_backward(st_re, st_im, *tensors)
+        return st_re, st_im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        st_re, st_im, *tensors = ctx.saved_tensors
+        data = dict(zip(_FN_KEYS, tensors))
+        lam0_re, lam0_im, zbar, dbar = fused_bwd_ckpt(
+            data, ctx.method, st_re, st_im, g_re.contiguous(), g_im.contiguous())
+        pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
+        cot = _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im)
+        grads = tuple(
+            cot[k] if ctx.needs_input_grad[1 + i] else None for i, k in enumerate(_FN_KEYS)
+        )
+        return (None,) + grads
+
+
+def fused_evolve_ckpt(method: str, data: dict):
+    """Fused f32 ERK evolution emitting EVERY step's state,
+    (R, n_steps, nb, da, db) re/im (the state after step k at index k),
+    differentiable through the checkpointed adjoint kernel, which reads
+    exact start states from this buffer instead of reconstructing them."""
+    return _FusedEvolveCkpt.apply(method, *[data[k] for k in _FN_KEYS])
+
+
+def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5",
+                  ckpt: bool = False) -> Cplx:
     """Fused evolution emitting the states at the grid's evaluation slots,
     (n_eval, nb, da, db) f32, differentiable (counterpart of
-    ``pallas_evolve_states``)."""
+    ``pallas_evolve_states``).  ``ckpt=True`` takes the checkpointed
+    kernels (K4/K5): every step's state is stored and the slots are
+    gathered from it, so their cotangents scatter into the per-step
+    buffer."""
     data = prepare_fused_inputs(ham, psi0, grid.times, method)
     slots_np = np.asarray(grid.write_slots, dtype=np.int32)
     last_slot = int(slots_np[-1])
@@ -659,6 +906,15 @@ def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5
             "The final grid point must carry an evaluation slot (the "
             "emulator always unions {0, T} into evaluation times)."
         )
+    if ckpt:
+        st_re, st_im = fused_evolve_ckpt(method, data)
+        # grid point g carries slot s when slots[g] = s < n_eval; its state
+        # is psi0 for g = 0 and stored[g - 1] otherwise
+        by_slot = {int(s): g for g, s in enumerate(slots_np) if s < grid.n_eval}
+        idx = torch.as_tensor([by_slot[s] for s in range(grid.n_eval)],
+                              device=psi0.re.device)
+        return Cplx(torch.cat([data["psi_re"], st_re[0]]).index_select(0, idx),
+                    torch.cat([data["psi_im"], st_im[0]]).index_select(0, idx))
     slots = torch.as_tensor(slots_np, device=psi0.re.device)
     out_re, out_im = fused_evolve_states(method, slots, grid.n_eval, last_slot, data)
     return Cplx(out_re[0], out_im[0])

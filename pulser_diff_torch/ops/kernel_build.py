@@ -46,22 +46,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library is current; returns
-    the compiler's output (ptxas register / shared-memory report)."""
+def _start(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless the library is current;
+    returns (process, temporary output, output) or None."""
     out = library_path(name)
     if out.exists():
-        return ""
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a per-process name, then rename: concurrent builders
     # never load a half-written library
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile several sources at once (one ``nvcc`` each, all started
+    together); returns each compiler's output (ptxas register and
+    shared-memory report), empty for a library that was current."""
+    started = {name: _start(name) for name in names}
+    reports, failed = {}, []
+    for name, job in started.items():
+        if job is None:
+            reports[name] = ""
+            continue
+        proc, tmp, out = job
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{stderr[-4000:]}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = stdout + stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless the library is current; returns
+    the compiler's output (ptxas register / shared-memory report)."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:

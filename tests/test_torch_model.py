@@ -53,8 +53,11 @@ def _bench_sequence(core):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_value_grad(solver="DP5_SE", fused=None):
-    kw = {"solver": solver} if fused is None else {"solver": solver, "fused": fused}
+def _jax_value_grad(solver="DP5_SE", fused=None, ckpt=None):
+    kw = {"solver": solver}
+    for name, val in (("fused", fused), ("ckpt", ckpt)):
+        if val is not None:
+            kw[name] = val
     Mj = jnp.asarray(M)
     model = JModel(_bench_sequence(jcore), {"amp_samples": ((jnp.asarray(P0),), lambda x: Mj @ x)},
                    sampling_rate=SAMPLING_RATE, evaluation_times="Minimal", **kw)
@@ -130,23 +133,41 @@ def test_run_expectations_match_jax(eval_times):
         np.testing.assert_allclose(to_numpy(te.re), np.asarray(je.re), rtol=0, atol=F64_TOL)
 
 
-def test_fused_run_and_routing():
-    """DP5_PALLAS forces the fused path on the CPU (plain versions);
-    fused=False and the default keep the stepper; the checkpointed
-    kernels and unknown options raise instead of rerouting."""
+def _spy(monkeypatch, name):
+    """Count the calls of ``tfe.<name>`` (the CPU runs plain versions, which
+    the launch counters do not count)."""
+    calls = []
+    real = getattr(tfe, name)
+    monkeypatch.setattr(tfe, name, lambda *a, **k: calls.append(name) or real(*a, **k))
+    return calls
+
+
+def test_fused_run_and_routing(monkeypatch):
+    """DP5_PALLAS forces the fused path on the CPU (plain versions), on
+    K1/K2 below dim 2^16 and on the checkpointed K4/K5 from there, as the
+    JAX package routes it; ckpt overrides; fused=False and the default
+    keep the stepper; unknown options raise."""
     _, tsim = emulators(2, duration=60, seed=6, evaluation_times="Full")
     f64 = tsim.run(fused=False).states
+    fwd, fwd_ckpt = _spy(monkeypatch, "fused_fwd"), _spy(monkeypatch, "fused_fwd_ckpt")
     fused = tsim.run(solver="DP5_PALLAS").states
     assert fused.re.dtype == torch.float32 and fused.shape == f64.shape
     assert float((fused.re.double() - f64.re).abs().max()) < VALUE_BAR
+    assert (len(fwd), len(fwd_ckpt)) == (1, 0)
+    # ckpt=False keeps K1/K2 at small dim; ckpt=True takes K4/K5, same states
+    tsim.run(solver="DP5_PALLAS", ckpt=False)
+    assert (len(fwd), len(fwd_ckpt)) == (2, 0)
+    ck = tsim.run(solver="DP5_PALLAS", ckpt=True).states
+    assert (len(fwd), len(fwd_ckpt)) == (2, 1)
+    np.testing.assert_array_equal(to_numpy(ck.re), to_numpy(fused.re))
     np.testing.assert_array_equal(to_numpy(tsim.run().states.re), to_numpy(f64.re))
     # 16 atoms: dim 2^16, where the JAX package takes the checkpointed kernels
-    big = TorchEmulator.from_sequence(sequence(tcore, 16, duration=20), sampling_rate=0.5,
+    big = TorchEmulator.from_sequence(sequence(tcore, 16, duration=8), sampling_rate=0.5,
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        big.run(solver="DP5_PALLAS")
-    for option in ("ckpt", "remat"):
-        with pytest.raises(TypeError, match="Unknown run"):
-            tsim.run(**{option: True})
+    out = big.run(solver="DP5_PALLAS", substeps=1).states
+    assert (len(fwd), len(fwd_ckpt)) == (2, 2)
+    assert out.shape[1:] == (2**16, 1) and bool(torch.isfinite(out.re).all())
+    with pytest.raises(TypeError, match="Unknown run"):
+        tsim.run(remat=True)
     with pytest.raises(TypeError, match="Sequence instance"):
         TorchEmulator.from_sequence(sequence(jcore, 2), device="cpu")
