@@ -15,7 +15,11 @@ Phases (each raises on failure, so the script exits non-zero):
      shapes and at small shapes that cover the direct form, da != db, a
      state batch, the RK4 tableau and (K4/K5) two runs.  K1/K2 refuse what
      does not fit a block's shared memory and name ckpt=True, which a
-     14-atom step then takes on K4/K5;
+     14-atom step then takes on K4/K5.  The kron-pair branches (K3, the
+     XY terms) of all four kernels at small XY shapes (2, 3, 4 atoms, an
+     in-plane field) and at the 12-atom XY shapes (K = 8), with K2/K5's
+     kron stream and part-matrix cotangents and the states' low words; K4
+     equal to K1 at every 12-atom XY slot, bit for bit;
   4. the 12-atom main path: the 8-parameter value-and-gradient step of
      bench.py through QuantumModel.expectation_fn and torch.autograd, held
      against the port's f64 stepper on the card (1e-6 on the value, 1e-5
@@ -24,7 +28,13 @@ Phases (each raises on failure, so the script exits non-zero):
      K4/K5, with exactly one K4 and one K5 launch and no K1/K2 launch,
      held against the f64 stepper at the same bars (its time and peak
      device memory printed);
-  6. times: each kernel's warm median (CUDA events) beside its plain
+  6. the 12-atom XY main path: bench_xy.py's value and gradient with
+     respect to 8 amplitude parameters and q1's coordinates through
+     QuantumModel (default routing), with exactly one K1 and one K2 launch
+     and no K4/K5 launch, held against the f64 stepper at the same bars,
+     the coordinate gradient included (the f64 step's time and peak device
+     memory printed);
+  7. times: each kernel's warm median (CUDA events) beside its plain
      version's time and its bound, the value+grad steps, the f64 steps.
 
 The last two lines are one JSON object per kernel list and the result
@@ -50,6 +60,12 @@ SAMPLING_RATE = 0.25
 SPACING = 10.0
 DET0 = -2.0
 SEED = 0
+
+# the 12-atom XY path of bench_xy.py: microwave_global, 8 sine-interpolated
+# amplitude parameters and the coordinates of q1
+XY_DURATION = 400
+XY_SPACING = 8.0
+XY_P0 = np.linspace(0.5, 2.0, N_PARAMS)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 F32_FLOPS = 67e12
@@ -105,6 +121,46 @@ def _bench_model(torch, device, fused, n_qubits: int = N_QUBITS,
     return model, p0
 
 
+def _xy_model(torch, device, fused, n_qubits: int = N_QUBITS, duration: int = XY_DURATION,
+              **options):
+    """bench_xy.py's model at ``n_qubits`` atoms on a 4-column lattice at
+    8 um, with q1's coordinates trainable; returns (model, q1's coords)."""
+    from pulser_diff_torch import QuantumModel
+    from pulser_diff_torch.core import (
+        ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    coords = [(XY_SPACING * (i % 4), XY_SPACING * (i // 4)) for i in range(n_qubits)]
+    reg = Register.from_coordinates(coords, prefix="q")
+    seq = Sequence(reg, MockDevice)
+    seq.declare_channel("mw", "microwave_global")
+    amp_var = seq.declare_variable("amp_samples", size=duration)
+    seq.add(Pulse(CustomWaveform(amp_var, duration=duration),
+                  ConstantWaveform(duration, 0.0), 0.0), "mw")
+    M = torch.as_tensor(_interpolate_sine_np(N_PARAMS, duration), device=device)
+    model = QuantumModel(
+        seq,
+        {"amp_samples": ((XY_P0,), lambda v: M @ v), "q1": coords[1]},
+        sampling_rate=SAMPLING_RATE,
+        evaluation_times="Minimal",
+        device=device,
+        **({} if fused is None else {"fused": fused}),
+        **options,
+    )
+    return model, coords[1]
+
+
+def _xy_value_and_grad(torch, model, c1, device):
+    """(value, parameter gradient, coordinate gradient, values)."""
+    p = torch.tensor(XY_P0, dtype=torch.float64, device=device, requires_grad=True)
+    c = torch.tensor(c1, dtype=torch.float64, device=device, requires_grad=True)
+    _, vals = model.expectation_fn()({"amp_samples_0": p, "q1": c})
+    value = vals[-1]
+    value.backward()
+    return value.detach(), p.grad.detach(), c.grad.detach(), vals.detach()
+
+
 def _value_and_grad(torch, model, p0, device):
     p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
     _, vals = model.expectation_fn()({"amp_samples_0": p})
@@ -136,14 +192,18 @@ def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _check_kernels(torch, fe, data, slots, n_eval, last_slot, method, gen, label):
+def _check_kernels(torch, fe, data, slots, n_eval, last_slot, method, gen, label, times=None):
     """K1 and K2 against their plain versions on the same inputs; returns
-    (k1 max abs err, k2 max abs err, k2 max relative err, inputs of K2)."""
-    out_re, out_im = fe.fused_fwd(data, method, slots, n_eval)
-    ref_re, ref_im = fe.fused_fwd_plain(data, method, slots, n_eval)
-    torch.cuda.synchronize()
-    k1_err = max(_max_err(out_re, ref_re), _max_err(out_im, ref_im))
-    if not (torch.isfinite(out_re).all() and torch.isfinite(out_im).all()):
+    (k1 max abs err, k2 max abs err, k2 max relative err, inputs of K2).
+    ``times``: a dict that gets the plain versions' times (ms, once)."""
+    # with kron pairs the states' low words too
+    lo = fe._n_kron(data) > 0
+    outs = fe.fused_fwd(data, method, slots, n_eval, lo=lo)
+    k1_plain_ms, refs = _host_time_ms(
+        torch, lambda: fe.fused_fwd_plain(data, method, slots, n_eval, lo=lo), 1)
+    (out_re, out_im), (ref_re, ref_im) = outs[:2], refs[:2]
+    k1_err = max(_max_err(o, w) for o, w in zip(outs, refs))
+    if not all(torch.isfinite(o).all() for o in outs):
         raise RuntimeError(f"{label}: K1 produced non-finite states")
     if k1_err > K1_TOL:
         raise RuntimeError(f"{label}: K1 vs plain {k1_err:.3e} > {K1_TOL:.0e}")
@@ -151,9 +211,10 @@ def _check_kernels(torch, fe, data, slots, n_eval, last_slot, method, gen, label
     lam_re = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
     lam_im = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
     got = fe.fused_bwd(data, method, slots, n_eval, last_slot, ref_re, ref_im, lam_re, lam_im)
-    want = fe.fused_bwd_plain(data, method, slots, n_eval, last_slot,
-                              ref_re, ref_im, lam_re, lam_im)
-    torch.cuda.synchronize()
+    k2_plain_ms, want = _host_time_ms(torch, lambda: fe.fused_bwd_plain(
+        data, method, slots, n_eval, last_slot, ref_re, ref_im, lam_re, lam_im), 1)
+    if times is not None:
+        times.update(k1_plain=k1_plain_ms, k2_plain=k2_plain_ms)
     k2_abs, k2_rel = _compare_adjoint(torch, fe, data, got, want, f"{label}: K2")
     _log(f"  {label}: K1 max|err| {k1_err:.3e} (tol {K1_TOL:.0e}), "
          f"K2 max|err| {k2_abs:.3e}, max rel err {k2_rel:.3e} (tol {K2_TOL_REL:.0e})")
@@ -190,6 +251,37 @@ def _small_cases(torch, device):
     return cases
 
 
+def _xy_small_cases(torch, device):
+    """Small XY shapes with an in-plane field (the angle term on): 2 atoms
+    (cross terms only, the direct form), 3 atoms with a state batch (da !=
+    db, within-column + cross terms) and 4 atoms with RK4 (all three
+    kinds of kron pairs)."""
+    from pulser_diff_torch import TorchEmulator
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.core import CustomWaveform, MockDevice, Pulse, Register, Sequence
+
+    cases = []
+    for n, nb, method in ((2, 1, "DP5"), (3, 2, "DP5"), (4, 1, "RK4")):
+        reg = Register.from_coordinates(
+            [(8.0 * i, 2.0 * (i % 2)) for i in range(n)], prefix="q")
+        seq = Sequence(reg, MockDevice)
+        seq.declare_channel("mw", "microwave_global")
+        seq.set_magnetic_field(1.0, 1.0, 0.0)
+        t = np.arange(100)
+        seq.add(Pulse(CustomWaveform(1.0 + np.sin(t / 15.0) ** 2),
+                      CustomWaveform(0.3 * np.cos(t / 25.0)), 0.3), "mw")
+        sim = TorchEmulator.from_sequence(seq, sampling_rate=0.5, evaluation_times="Full",
+                                          device=device)
+        if nb > 1:
+            rng = np.random.default_rng(SEED + n)
+            st = rng.normal(size=(2**n, nb)) + 1j * rng.normal(size=(2**n, nb))
+            st /= np.linalg.norm(st, axis=0)
+            sim.set_initial_state(Cplx(torch.as_tensor(st.real, device=device),
+                                       torch.as_tensor(st.imag, device=device)))
+        cases.append((f"XY {n} atoms nb={nb} {method}", sim, method))
+    return cases
+
+
 def _cuda_time_ms(torch, fn, n: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -205,35 +297,42 @@ def _cuda_time_ms(torch, fn, n: int) -> float:
     return statistics.median(times)
 
 
-def _host_time_ms(torch, fn, n: int) -> float:
+def _host_time_ms(torch, fn, n: int):
+    """fn() n times, each timed on the host clock around synchronised work:
+    the median time (ms) and the last output."""
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
-def _check_ckpt(torch, fe, data, method, gen, label):
+def _check_ckpt(torch, fe, data, method, gen, label, times=None):
     """K4 and K5 against their plain versions on the same inputs, K5 from
     the plain stored states and random per-step cotangents; returns
-    (K4 max abs err, K5 max abs err, K5 max rel err, inputs of K5)."""
-    st_re, st_im = fe.fused_fwd_ckpt(data, method)
-    ref_re, ref_im = fe.fused_fwd_ckpt_plain(data, method)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(st_re).all() and torch.isfinite(st_im).all()):
+    (K4 max abs err, K5 max abs err, K5 max rel err, inputs of K5).
+    ``times``: a dict that gets the plain versions' times (ms, once)."""
+    lo = fe._n_kron(data) > 0
+    outs = fe.fused_fwd_ckpt(data, method, lo=lo)
+    k4_plain_ms, refs = _host_time_ms(
+        torch, lambda: fe.fused_fwd_ckpt_plain(data, method, lo=lo), 1)
+    ref_re, ref_im = refs[:2]
+    if not all(torch.isfinite(o).all() for o in outs):
         raise RuntimeError(f"{label}: K4 produced non-finite states")
-    k4_err = max(_max_err(st_re, ref_re), _max_err(st_im, ref_im))
+    k4_err = max(_max_err(o, w) for o, w in zip(outs, refs))
     if k4_err > K1_TOL:
         raise RuntimeError(f"{label}: K4 vs plain {k4_err:.3e} > {K1_TOL:.0e}")
     shape = tuple(ref_re.shape)
     lam_re = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
     lam_im = torch.randn(shape, generator=gen, dtype=torch.float32).to(ref_re.device)
     got = fe.fused_bwd_ckpt(data, method, ref_re, ref_im, lam_re, lam_im)
-    want = fe.fused_bwd_ckpt_plain(data, method, ref_re, ref_im, lam_re, lam_im)
-    torch.cuda.synchronize()
+    k5_plain_ms, want = _host_time_ms(
+        torch, lambda: fe.fused_bwd_ckpt_plain(data, method, ref_re, ref_im, lam_re, lam_im), 1)
+    if times is not None:
+        times.update(k4_plain=k4_plain_ms, k5_plain=k5_plain_ms)
     k5_abs, k5_rel = _compare_adjoint(torch, fe, data, got, want, f"{label}: K5")
     _log(f"  {label}: K4 max|err| {k4_err:.3e} (tol {K1_TOL:.0e}), "
          f"K5 max|err| {k5_abs:.3e}, max rel err {k5_rel:.3e} (tol {K2_TOL_REL:.0e})")
@@ -247,6 +346,10 @@ def _compare_adjoint(torch, fe, data, got, want, label):
     pairs = [("lam0_re", got[0], want[0]), ("lam0_im", got[1], want[1]), ("dbar", got[3], want[3])]
     names = ("zbar_rr", "zbar_ri", "zbar_cr", "zbar_ci")
     pairs += list(zip(names, fe._unpack_zbar(got[2], pr, pc), fe._unpack_zbar(want[2], pr, pc)))
+    if len(want) > 4:  # the kron pairs' stream and part-matrix cotangents
+        pairs += list(zip(("zbar_kr", "zbar_ki"), fe._unpack_zbar_kron(got[2], pr, pc),
+                          fe._unpack_zbar_kron(want[2], pr, pc)))
+        pairs += [("krbar", got[4], want[4]), ("kcbar", got[5], want[5])]
     err_abs = err_rel = 0.0
     for name, g, w in pairs:
         if not torch.isfinite(g).all():
@@ -286,11 +389,21 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     "bwd_ckpt" (K5)."""
     R, nb, da, db = (int(v) for v in data["psi_re"].shape)
     n_steps = int(data["hs"].shape[0])
-    # 8 real products per application of -iH (4 row-side, 4 column-side)
-    apply_flops = 2 * 4 * nb * (da * da * db + da * db * db)
-    # per stage the 8 outer products of (W, V, Wc, Vc)
-    outer_flops = 2 * 4 * nb * (da * da * db + db * db * da)
+    K = fe._n_kron(data)
+    # 8 real products per application of -iH (4 row-side, 4 column-side),
+    # and 8 per kron pair (R u, R^T u, then times C^T or C, for x and y)
+    kron_flops = 2 * nb * K * 4 * (da * da * db + da * db * db)
+    apply_flops = 2 * 4 * nb * (da * da * db + da * db * db) + kron_flops
+    # per stage the 8 outer products of (W, V, Wc, Vc), and per kron pair
+    # the 16 of the part-matrix cotangents (8 of them (da, da, db) or
+    # (db, db, da)); the stream cotangents reuse the products of the
+    # transpose application, counted in apply_flops
+    outer_flops = (2 * 4 * nb * (da * da * db + db * db * da)
+                   + 2 * nb * K * (4 * (da * db * db + da * da * db)
+                                   + 4 * da * da * db + 4 * db * db * da))
     shared = ("rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + fe._ZF_KEYS
+    if K:
+        shared += ("kr", "kc") + fe._ZKF_KEYS
     inputs = [data[k] for k in shared]
     if kind in ("fwd", "fwd_ckpt"):
         # S applications per step
@@ -299,7 +412,7 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     elif kind == "bwd":
         # S mirror + (S - 1) forward + S transpose applications per step
         flops = R * n_steps * ((3 * S - 1) * apply_flops + S * outer_flops)
-        inputs += [data[k] for k in fe._ZB_KEYS]
+        inputs += [data[k] for k in fe._ZB_KEYS + (fe._ZKB_KEYS if K else ())]
     else:
         # (S - 1) forward + S transpose applications per step, no mirror pass
         flops = R * n_steps * ((2 * S - 1) * apply_flops + S * outer_flops)
@@ -309,6 +422,109 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     t_ops = flops / F32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _xy_kernel_phase(torch, fe, device, gen):
+    """The kron-pair branches (K3) against their plain versions: K1/K2 and
+    K4/K5 at the small XY shapes and at the 12-atom XY shapes (K4 equal to
+    K1 at every evaluation slot, bit for bit).  Returns the 12-atom inputs
+    and errors, and the plain versions' times."""
+    for label, sim, method in _xy_small_cases(torch, device):
+        sd, ss, sn, sl = _kernel_inputs(torch, sim, 1, device, method)
+        _check_kernels(torch, fe, sd, ss, sn, sl, method, gen, label)
+        _check_ckpt(torch, fe, sd, method, gen, label)
+    model, c1 = _xy_model(torch, device, fused=None)
+    substeps = model._default_substeps()
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
+    K = fe._n_kron(data)
+    _log(f"  12 atoms XY: K = {K} kron pairs, {int(data['hs'].shape[0])} steps, "
+         f"substeps {substeps}, kr {tuple(data['kr'].shape)}, kc {tuple(data['kc'].shape)}")
+    times = {}
+    k1_err, k2_err, _, k2_in = _check_kernels(
+        torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms XY (main path)", times)
+    k4_err, k5_err, _, k5_in = _check_ckpt(
+        torch, fe, data, "DP5", gen, "12 atoms XY (ckpt=True)", times)
+    ck = fe.fused_fwd_ckpt(data, "DP5", lo=True)
+    k1 = fe.fused_fwd(data, "DP5", slots, n_eval, lo=True)
+    g_of = {int(s): g for g, s in enumerate(slots.tolist()) if s < n_eval}
+    k4_vs_k1 = max(_max_err(c[:, g - 1], o[:, s]) for c, o in zip(ck, k1)
+                   for s, g in g_of.items() if g > 0)
+    _log(f"  12 atoms XY: K4 vs K1 at the evaluation slots (both words) max|diff| "
+         f"{k4_vs_k1:.3e}")
+    if k4_vs_k1 != 0.0:
+        raise RuntimeError(f"12 atoms XY: K4 differs from K1 at the slots by {k4_vs_k1:.3e}")
+    return {"model": model, "c1": c1, "data": data, "slots": slots, "n_eval": n_eval,
+            "last_slot": last_slot, "k1_err": k1_err, "k2_err": k2_err, "k4_err": k4_err,
+            "k5_err": k5_err, "k2_in": k2_in, "k5_in": k5_in, "plain": times}
+
+
+def _xy_step_phase(torch, fe, device, xy):
+    """The 12-atom XY value+grad through QuantumModel (default routing),
+    counts reset just before and read just after: one K1 and one K2
+    launch, no K4/K5; held against the f64 stepper on the card."""
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value, grad, cgrad, vals = _xy_value_and_grad(torch, xy["model"], xy["c1"], device)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fe.LAUNCHES)
+    if launches != {"fused_fwd": 1, "fused_bwd": 1, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}:
+        raise RuntimeError(f"12 atoms XY: expected one K1 and one K2 launch, got {launches}")
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(grad).all()
+                                  and torch.isfinite(cgrad).all()):
+        raise RuntimeError(f"12 atoms XY: bad output: values {vals}, grad {grad}, coords {cgrad}")
+    if float(cgrad.abs().max()) == 0.0:
+        raise RuntimeError("12 atoms XY: the coordinate gradient is zero")
+    f64_model, c1 = _xy_model(torch, device, fused=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v64, g64, c64, _ = _xy_value_and_grad(torch, f64_model, c1, device)
+    torch.cuda.synchronize()
+    f64_ms = (time.perf_counter() - t0) * 1e3
+    f64_peak = torch.cuda.max_memory_allocated() / 2**30
+    del f64_model
+    _log(f"  launches {launches}; f64 stepper value+grad {f64_ms:.1f} ms (once), peak device "
+         f"memory {f64_peak:.2f} GiB")
+    dv = abs(float(value) - float(v64))
+    dg = float((grad - g64).abs().max())
+    dc = float((cgrad - c64).abs().max())
+    _log(f"  12 atoms XY: value {float(value)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} "
+         f"(tol {VALUE_TOL:.0e})")
+    _log(f"  12 atoms XY: grad  {grad.cpu().numpy().tolist()!r}")
+    _log(f"  12 atoms XY: f64   {g64.cpu().numpy().tolist()!r}  max|dg| {dg:.3e} "
+         f"(tol {GRAD_TOL:.0e})")
+    _log(f"  12 atoms XY: coordinate grad {cgrad.cpu().numpy().tolist()!r}  f64 "
+         f"{c64.cpu().numpy().tolist()!r}  max|dc| {dc:.3e} (tol {GRAD_TOL:.0e}), "
+         f"max|coordinate grad| {float(cgrad.abs().max()):.6e}")
+    # what the states' low words repair: the same final state's value from
+    # its f32 hi words alone (the Pallas kernel's single-word states), as
+    # the expectation takes f32 states (|s|^2 in f32) and squared in f64
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.ops.linalg import expect, total_magnetization
+
+    outs = fe.fused_fwd(xy["data"], "DP5", xy["slots"], xy["n_eval"], lo=True)
+    mag = total_magnetization(N_QUBITS, dense=False)
+    ls = xy["last_slot"]
+
+    def _value(re, im):
+        return float(expect(mag, Cplx(re.reshape(re.shape[0], -1).T[None],
+                                      im.reshape(im.shape[0], -1).T[None])).re[0])
+
+    hi_re, hi_im = outs[0][0, ls], outs[1][0, ls]
+    errs = [abs(v - float(v64)) for v in (
+        _value(hi_re, hi_im), _value(hi_re.double(), hi_im.double()),
+        _value(hi_re.double() + outs[2][0, ls].double(), hi_im.double() + outs[3][0, ls].double()))]
+    _log("  12 atoms XY: final value from the hi words alone |dv| {:.3e} (f32 squares), "
+         "{:.3e} (f64 squares); from hi + lo |dv| {:.3e}".format(*errs))
+    if dv > VALUE_TOL or dg > GRAD_TOL or dc > GRAD_TOL:
+        raise RuntimeError(f"12 atoms XY: fused path vs f64 stepper: |dv| {dv:.3e}, "
+                           f"|dg| {dg:.3e}, |dc| {dc:.3e}")
+    return {"launches": launches, "first_ms": first_ms, "f64_ms": f64_ms, "f64_peak": f64_peak,
+            "dv": dv, "dg": dg, "dc": dc}
 
 
 def _reset(fe) -> None:
@@ -436,6 +652,9 @@ def main() -> int:
     del sim16
     k4_err, k5_err, _, (st16_re, st16_im, lam16_re, lam16_im) = _check_ckpt(
         torch, fe, d16, "DP5", gen, "16 atoms (main path)")
+    # the kron-pair branches (K3) at the XY shapes (after the ising checks,
+    # whose random cotangents stay the draws they were)
+    xy = _xy_kernel_phase(torch, fe, device, gen)
 
     # 4. the 12-atom main path: counts reset just before, read just after
     _log("phase 4 main path: 12-atom value+grad through QuantumModel")
@@ -488,8 +707,13 @@ def main() -> int:
          f"{f64_16_peak:.2f} GiB")
     _hold_against_f64(torch, value16, grad16, v64_16, g64_16, "16 atoms")
 
-    # 6. times
-    _log("phase 6 times (CUDA events, warm medians)")
+    # 6. the 12-atom XY main path: counts reset just before, read just after
+    _log("phase 6 main path: 12-atom XY value+grad (parameters and q1's coordinates) "
+         "through QuantumModel (default routing)")
+    xy_step = _xy_step_phase(torch, fe, device, xy)
+
+    # 7. times
+    _log("phase 7 times (CUDA events, warm medians)")
     n_kernel = 10
     k1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(data, "DP5", slots, n_eval), n_kernel)
     k1_plain_ms = _cuda_time_ms(
@@ -504,8 +728,8 @@ def main() -> int:
         d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), n_kernel)
     k5_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt_plain(
         d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), 2)
-    step_ms = _host_time_ms(torch, lambda: _value_and_grad(torch, fused_model, p0, device), 5)
-    step16_ms = _host_time_ms(torch, lambda: _value_and_grad(torch, model16, p0, device), 5)
+    step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, fused_model, p0, device), 5)
+    step16_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model16, p0, device), 5)
     S = 6
     k2_out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im)
     k5_out = fe.fused_bwd_ckpt(d16, "DP5", st16_re, st16_im, lam16_re, lam16_im)
@@ -523,6 +747,33 @@ def main() -> int:
          f"f64 stepper step {f64_step_ms:.1f} ms (once)")
     _log(f"  16-atom value+grad step {step16_ms:.2f} ms (first {first16_s * 1e3:.1f} ms); "
          f"f64 stepper step {f64_16_ms:.1f} ms (once)")
+    # the XY kernels (K = 8) at the 12-atom XY shapes; their plain versions
+    # ran once in phase 3 (Python loops of small launches, ~3 s and ~15 s)
+    xd, xs, xn, xl = xy["data"], xy["slots"], xy["n_eval"], xy["last_slot"]
+    n_xy = 3
+    k1x_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(xd, "DP5", xs, xn, lo=True), n_xy)
+    k2x_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(xd, "DP5", xs, xn, xl, *xy["k2_in"]), n_xy)
+    k4x_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(xd, "DP5", lo=True), n_xy)
+    k5x_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(xd, "DP5", *xy["k5_in"]), n_xy)
+    stepx_ms, _ = _host_time_ms(
+        torch, lambda: _xy_value_and_grad(torch, xy["model"], xy["c1"], device), n_xy)
+    k2x_out = fe.fused_bwd(xd, "DP5", xs, xn, xl, *xy["k2_in"])
+    k1x_bound, k1x_by = _bound_ms(fe, xd, xs, fe.fused_fwd(xd, "DP5", xs, xn, lo=True), S, "fwd")
+    k2x_bound, k2x_by = _bound_ms(fe, xd, xs, (*xy["k2_in"], *k2x_out), S, "bwd")
+    k4x_bound, _ = _bound_ms(fe, xd, None, fe.fused_fwd_ckpt(xd, "DP5", lo=True), S, "fwd_ckpt")
+    k5x_out = fe.fused_bwd_ckpt(xd, "DP5", *xy["k5_in"])
+    k5x_bound, _ = _bound_ms(fe, xd, None, (*xy["k5_in"], *k5x_out), S, "bwd_ckpt")
+    plain = xy["plain"]
+    _log(f"  K1 XY (K3 branch, K = {fe._n_kron(xd)}) {k1x_ms:.3f} ms (plain "
+         f"{plain['k1_plain']:.1f} ms once, bound {k1x_bound:.4f} ms by {k1x_by})")
+    _log(f"  K2 XY (K3 branch) {k2x_ms:.3f} ms (plain {plain['k2_plain']:.1f} ms once, "
+         f"bound {k2x_bound:.4f} ms by {k2x_by})")
+    _log(f"  K4 / K5 XY (ckpt=True shapes) {k4x_ms:.3f} / {k5x_ms:.3f} ms on "
+         f"{fe.ckpt_blocks(xd, False)} / {fe.ckpt_blocks(xd, True)} blocks (plain "
+         f"{plain['k4_plain']:.1f} / {plain['k5_plain']:.1f} ms once, bounds "
+         f"{k4x_bound:.4f} / {k5x_bound:.4f} ms)")
+    _log(f"  12-atom XY value+grad step {stepx_ms:.2f} ms (first {xy_step['first_ms']:.1f} ms); "
+         f"f64 stepper step {xy_step['f64_ms']:.1f} ms (once, peak {xy_step['f64_peak']:.2f} GiB)")
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
@@ -539,6 +790,14 @@ def main() -> int:
               k4_err, k4_ms, k4_plain_ms, k4_bound, k4_by),
         entry("fused_bwd_ckpt_kernel (K5)", "fused_ckpt.cu", 1511, launches16["fused_bwd_ckpt"],
               k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by),
+        # the kron-pair branch (K3), timed in K1 and K2 at the 12-atom XY
+        # shapes (K = 8); launches from the XY main path's run
+        entry("fused_fwd_kernel kron-pair branch (K3 in K1, K = 8)", "fused_evolution.cu", 248,
+              xy_step["launches"]["fused_fwd"], xy["k1_err"], k1x_ms, plain["k1_plain"],
+              k1x_bound, k1x_by),
+        entry("fused_bwd_kernel kron-pair branch (K3 in K2, K = 8)", "fused_evolution.cu", 699,
+              xy_step["launches"]["fused_bwd"], xy["k2_err"], k2x_ms, plain["k2_plain"],
+              k2x_bound, k2x_by),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

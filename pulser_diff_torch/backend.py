@@ -14,15 +14,17 @@ state and the evaluation times, and routes the solve:
     either device (on the CPU that runs the kernels' plain versions);
   - ``fused=False`` forces the f64 stepper.
 
-This slice is noiseless and coherent: ``run()`` returns
-:class:`CoherentResults`.  The f32 XLA stepper (the JAX package's route
-at dim >= 2^18) is not ported yet; the path that would take it raises
-instead of rerouting.
+The port is noiseless and coherent: ``run()`` returns
+:class:`CoherentResults`.  ``expectation_fn_of_dists`` differentiates an
+expectation in the inter-qubit distances, through the same routing.
+The f32 XLA stepper (the JAX package's route at dim >= 2^18) is not
+ported yet; the path that would take it raises instead of rerouting.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+import itertools
+from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -125,7 +127,7 @@ class TorchEmulator:
         h = self._hamiltonian
         dev = self.torch_device
         if isinstance(state, str) and state == "all-ground":
-            idx = h._basis_labels.index("g")
+            idx = h._basis_labels.index("u" if h._interaction == "XY" else "g")
             pos = 0
             for _ in range(h._size):
                 pos = pos * h.dim + idx
@@ -144,6 +146,17 @@ class TorchEmulator:
             st = st.reshape(legal, 1)
         self._initial_state = st
         self._initial_is_ground = False
+
+    @property
+    def qq_distances(self) -> dict[str, torch.Tensor]:
+        """Pair distances 'q1-q2' of the last Hamiltonian build."""
+        return dict(self._hamiltonian._dist_dict)
+
+    @property
+    def qq_distance_keys(self) -> list[str]:
+        """Pair keys 'q1-q2' in the order expectation_fn_of_dists takes."""
+        qids = list(self._hamiltonian._qdict)
+        return [f"{q1}-{q2}" for q1, q2 in itertools.combinations(qids, 2)]
 
     @property
     def evaluation_times(self) -> torch.Tensor:
@@ -209,6 +222,12 @@ class TorchEmulator:
             pn = np.linalg.norm(p, ord=2, axis=(1, 2))
             zmax += 2 * float(np.max(np.abs(s), axis=1) @ pn) if s.size else 0.0
         dmax = float(hd.int_diag.detach().abs().max())
+        if hd.kron_row is not None:
+            kr = hd.kron_row.detach().cpu().numpy()
+            kc = hd.kron_col.detach().cpu().numpy()
+            zs = np.abs(hd.kron_streams.to_numpy()).max(axis=1)
+            zmax += 2 * float(sum(z * np.linalg.norm(r, 2) * np.linalg.norm(c, 2)
+                                  for z, r, c in zip(zs, kr, kc)))
         return max(1, int(np.ceil((zmax + dmax) * dt_grid / 1.2)))
 
     def _fused_backend_ok(self) -> bool:
@@ -273,6 +292,35 @@ class TorchEmulator:
             for i in range(states.re.shape[0])
         ]
         return CoherentResults(results, h._size, h.basis_name, self._eval_times_array)
+
+    def expectation_fn_of_dists(self, obs: Any, solver: str = SolverType.DP5_SE,
+                                **options: Any) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Function: pair distances -> expectation trace (n_eval,).
+
+        It takes a (n_pairs,) tensor ordered like ``qq_distance_keys`` and
+        rebuilds the interaction with those distances; differentiate it
+        with torch.autograd.  Routed as ``run`` routes: on CUDA DP5_SE
+        takes the fused kernels."""
+        from pulser_diff_torch.hamiltonian import zero_noise_draws
+        from pulser_diff_torch.ops.linalg import expect as _expect
+
+        obs = as_cplx(obs, dtype=DTYPE, device=self.torch_device).to(device=self.torch_device)
+        h = self._hamiltonian
+        keys = self.qq_distance_keys
+        substeps = int(options.get("substeps", self._auto_substeps(options)))
+        grid = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
+        draws = zero_noise_draws(h._size, h._count_noise_slots(), self.torch_device)
+
+        def fn(dist_values: torch.Tensor) -> torch.Tensor:
+            h._dist_override = dict(zip(keys, dist_values))
+            try:
+                hd = h.build_data(draws)
+            finally:
+                h._dist_override = {}
+            states = self._solve_states(hd, solver, substeps, grid, solver_opts=options)
+            return _expect(obs, states).re
+
+        return fn
 
     def run(self, solver: str = SolverType.DP5_SE, **options: Any) -> CoherentResults:
         """Simulate the sequence on the emulator's device.

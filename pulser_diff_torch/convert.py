@@ -36,13 +36,17 @@ def factored_from_numpy(
     int_diag: Any,
     sample_dt: Any,
     n_samples: int,
+    kron_row: Any = None,
+    kron_col: Any = None,
+    kron_streams: Any = None,
     device: DeviceLike = "cpu",
 ) -> FactoredHamiltonian:
     """The port's FactoredHamiltonian from the JAX one's fields.
 
-    ``row_streams`` / ``col_streams`` are (re, im) pairs of (P, Ts)
-    arrays; the JAX ``Cplx`` is such a pair.  XY kron pairs are not
-    ported yet."""
+    ``row_streams`` / ``col_streams`` / ``kron_streams`` are (re, im)
+    pairs of (P, Ts) arrays; the JAX ``Cplx`` is such a pair.  The kron
+    fields (XY) are None for an ising Hamiltonian."""
+    kron = kron_row is not None
     return FactoredHamiltonian(
         row_parts=_tensor(row_parts, device),
         col_parts=_tensor(col_parts, device),
@@ -51,6 +55,9 @@ def factored_from_numpy(
         int_diag=_tensor(int_diag, device),
         sample_dt=float(np.asarray(sample_dt)),
         n_samples=int(n_samples),
+        kron_row=_tensor(kron_row, device) if kron else None,
+        kron_col=_tensor(kron_col, device) if kron else None,
+        kron_streams=_cplx(kron_streams, device) if kron else None,
     )
 
 

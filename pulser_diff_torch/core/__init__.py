@@ -2,7 +2,7 @@ from pulser_diff_torch.core.variables import Expr, Variable, VariableItem
 from pulser_diff_torch.core.waveforms import ConstantWaveform, CustomWaveform, Waveform
 from pulser_diff_torch.core.register import Register
 from pulser_diff_torch.core.devices import Device, MockDevice
-from pulser_diff_torch.core.channels import Channel, Rydberg
+from pulser_diff_torch.core.channels import Channel, Microwave, Rydberg
 from pulser_diff_torch.core.pulse import Pulse
 from pulser_diff_torch.core.sequence import Sequence
 from pulser_diff_torch.core.sampler import ChannelSamples, SequenceSamples, sample
@@ -18,6 +18,7 @@ __all__ = [
     "Device",
     "MockDevice",
     "Channel",
+    "Microwave",
     "Rydberg",
     "Pulse",
     "Sequence",

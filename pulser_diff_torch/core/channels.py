@@ -1,8 +1,9 @@
 """Channel specifications (counterpart of pulser_diff_tpu/core/channels.py).
 
-This slice ports the global Rydberg channel.  Local addressing, the Raman
-(digital) and microwave (XY) channels, pulse limits, modulation and EOM
-mode are later slices.
+The port has the global Rydberg channel (ground-rydberg basis) and the
+global microwave channel (XY basis).  Local addressing, the Raman
+(digital) channels, pulse limits, modulation and EOM mode are later
+slices.
 """
 
 from __future__ import annotations
@@ -17,9 +18,20 @@ class Channel:
     basis: str = "ground-rydberg"
 
 
-class Rydberg:
-    basis = "ground-rydberg"
+class _ChannelFamily:
+    basis: str = ""
 
     @classmethod
     def Global(cls) -> Channel:
-        return Channel(name="rydberg_global", addressing="Global", basis=cls.basis)
+        return Channel(name=f"{cls.__name__.lower()}_global", addressing="Global",
+                       basis=cls.basis)
+
+
+class Rydberg(_ChannelFamily):
+    basis = "ground-rydberg"
+
+
+class Microwave(_ChannelFamily):
+    """Global only, as in the JAX package."""
+
+    basis = "XY"

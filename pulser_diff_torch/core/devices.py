@@ -1,8 +1,9 @@
 """Device specifications (counterpart of pulser_diff_tpu/core/devices.py).
 
-The device supplies the interaction constant used by the Hamiltonian,
-``interaction_coeff`` (C6/hbar, rad/us um^6).  This slice ports
-``MockDevice`` with its global Rydberg channel.
+The device supplies the interaction constants used by the Hamiltonian:
+``interaction_coeff`` (C6/hbar, rad/us um^6) for the ising interaction
+and ``interaction_coeff_xy`` (C3/hbar, rad/us um^3) for the XY one.  The
+port's ``MockDevice`` has the global Rydberg and microwave channels.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from pulser_diff_torch.core.channels import Channel, Rydberg
+from pulser_diff_torch.core.channels import Channel, Microwave, Rydberg
 from pulser_diff_torch.core.register import Register
 
 # C6/hbar [rad/us um^6] per rydberg level (subset of pulser's table)
@@ -35,6 +36,7 @@ class Device:
     max_atom_num: Optional[int] = None
     max_radial_distance: Optional[float] = None
     min_atom_distance: float = 0.0
+    interaction_coeff_xy: Optional[float] = 3700.0
     channels: tuple[Channel, ...] = ()
 
     @property
@@ -78,5 +80,6 @@ MockDevice = Device(
     name="MockDevice",
     dimensions=3,
     rydberg_level=70,
-    channels=(Rydberg.Global(),),
+    interaction_coeff_xy=3700.0,
+    channels=(Rydberg.Global(), Microwave.Global()),
 )

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from pulser_diff_torch.config import DTYPE, DeviceLike
@@ -70,6 +71,8 @@ class SequenceSamples:
     """All channels of a sampled sequence + sequence-level metadata."""
 
     channel_samples: dict[str, ChannelSamples]
+    _magnetic_field: np.ndarray
+    _in_xy: bool
     qubit_ids: tuple[QubitId, ...]
 
     @property
@@ -99,7 +102,8 @@ class SequenceSamples:
 
     def to_nested_dict(self) -> dict:
         """{"Global": {basis: {amp, det, phase}}}: the sum of the global
-        channels of each basis, the phase taken where the amplitude is on."""
+        channels of each basis ("ground-rydberg", or "XY" for the
+        microwave channel), the phase taken where the amplitude is on."""
         T = self.max_duration
         out: dict[str, Any] = {"Global": {}}
         for cs in self.channel_samples.values():
@@ -168,7 +172,12 @@ def sample(
         name: _sample_channel(seq, name, ch, total, device)
         for name, ch in seq.declared_channels.items()
     }
-    ss = SequenceSamples(channel_samples=chs, qubit_ids=seq.register.qubit_ids)
+    ss = SequenceSamples(
+        channel_samples=chs,
+        _magnetic_field=seq.magnetic_field,
+        _in_xy=seq._in_xy,
+        qubit_ids=seq.register.qubit_ids,
+    )
     if extended_duration is not None:
         ss = ss.extend_duration(extended_duration)
     return ss

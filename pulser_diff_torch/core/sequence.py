@@ -1,7 +1,8 @@
 """Pulse sequence builder (counterpart of pulser_diff_tpu/core/sequence.py).
 
-This slice ports global channels, pulses, delays, declared variables and
-deferred (parametrized) building.  Local retargeting, measurement, phase
+The port has global channels, pulses, delays, declared variables,
+deferred (parametrized) building, and the XY mode of the microwave
+channel with its magnetic field.  Local retargeting, measurement, phase
 shifts, SLM masks, EOM mode and serialization are later slices.
 """
 
@@ -9,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional
+
+import numpy as np
 
 from pulser_diff_torch.core.channels import Channel
 from pulser_diff_torch.core.devices import Device
@@ -45,6 +48,8 @@ class Sequence:
         self._variables: dict[str, Variable] = {}
         self._calls: list[_Call] = []  # concrete calls
         self._to_build_calls: list[_Call] = []  # parametrized calls
+        self._magnetic_field = np.array([0.0, 0.0, 30.0])
+        self._in_xy: bool = False
 
     @property
     def register(self) -> Register:
@@ -61,6 +66,10 @@ class Sequence:
     @property
     def declared_variables(self) -> dict[str, Variable]:
         return dict(self._variables)
+
+    @property
+    def magnetic_field(self) -> np.ndarray:
+        return self._magnetic_field
 
     def is_parametrized(self) -> bool:
         return bool(self._to_build_calls)
@@ -81,7 +90,14 @@ class Sequence:
                 f"Device '{self._device.name}' has no channel '{channel_id}'. "
                 f"Available: {sorted(ch_objs)}"
             )
-        self._channels[name] = ch_objs[channel_id]
+        ch = ch_objs[channel_id]
+        if ch.basis == "XY":
+            if self._channels and not self._in_xy:
+                raise ValueError("Microwave channels can't be combined with other bases.")
+            self._in_xy = True
+        elif self._in_xy:
+            raise ValueError("Can't declare a non-microwave channel in XY mode.")
+        self._channels[name] = ch
         self._schedule[name] = []
         self._calls.append(_Call("declare_channel", (name, channel_id), {}))
 
@@ -91,6 +107,14 @@ class Sequence:
         var = Variable(name, size=size, dtype=dtype)
         self._variables[name] = var
         return var
+
+    def set_magnetic_field(self, bx: float = 0.0, by: float = 0.0, bz: float = 30.0) -> None:
+        """The field whose direction sets the XY interaction's angle; it
+        puts the sequence in XY mode."""
+        if not self._in_xy and self._channels:
+            raise ValueError("Magnetic field can only be set in XY mode.")
+        self._in_xy = True
+        self._magnetic_field = np.array([bx, by, bz], dtype=float)
 
     def _check_channel(self, channel: str) -> None:
         if channel not in self._channels:
@@ -153,6 +177,8 @@ class Sequence:
             raise TypeError(f"Missing values for variables: {sorted(missing)}")
 
         new = Sequence(self._register, self._device)
+        new._magnetic_field = self._magnetic_field.copy()
+        new._in_xy = self._in_xy
         for call in self._calls:
             getattr(new, call.name)(*call.args, **call.kwargs)
         for call in self._to_build_calls:

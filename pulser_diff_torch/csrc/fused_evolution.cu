@@ -3,9 +3,14 @@
 // (ctypes; see pulser_diff_torch/ops/fused_evolution.py).
 //
 // Replaces the two Pallas kernels of pulser_diff_tpu/ops/pallas_evolution.py
-// that the main path runs:
-//   K1  _fwd_kernel  (states=True, no kron pairs)          -> fused_fwd_kernel
-//   K2  _bwd_kernel via _bwd_interval_lean / _adjoint_core -> fused_bwd_kernel
+// that the main path runs, with their kron-pair (XY) branches:
+//   K1  _fwd_kernel  (states=True)                          -> fused_fwd_kernel
+//   K2  _bwd_kernel via _bwd_interval_lean / _adjoint_core  -> fused_bwd_kernel
+//   K3  the kron-pair branch of both: _Side._kron_products, the kron terms
+//       of apply_minus_iH / apply_iH_transpose, _kron_cotangents and
+//       _kron_matrix_cotangents                              -> kron_products,
+//       the K-term loop of apply_block, kron_stream_partials,
+//       kron_matrix_cotangents
 // Both compute what the Pallas kernels compute; they are not a block-by-block
 // translation.
 //
@@ -41,12 +46,40 @@
 // This is the simple, correct first form: it uses one SM per run.  Splitting
 // each stage's products over many blocks (cooperative launch, grid sync per
 // stage) is the next step for speed.
+//
+// The kron pairs (K3).  The XY flip-flop terms sum_k z_k (R_k (x) C_k) + h.c.
+// add to -iH u, per term, T1 = R u C^T + R^T u C and T2 = R u C^T - R^T u C:
+//   h_re += za T1(x) - zb T2(y),  h_im += za T1(y) + zb T2(x),
+// added term by term after the side and diagonal terms, as the Pallas code
+// adds them.  Each term is 8 real products (R u, R^T u, then times C^T or C,
+// for x and y): at 12 atoms XY (da = db = 64, K = 8) 8 x 8 x 64^3 FMAs = 33.6
+// MFLOP a stage on top of the 4.2 MFLOP of the sides, ~23 GFLOP for K1's
+// ~600 stages (~0.34 ms at 67 TFLOP/s).  K2 adds per stage the za/zb stream
+// cotangents (from the transpose's own products) and 16 products per term
+// and state for the part-matrix cotangents krbar / kcbar (B1 C u^T ...),
+// ~108 GFLOP over the main path's 101 steps (~1.61 ms).
+//   - Shared memory: the 8 (R, C) pairs alone are 256 KB at 12 atoms, more
+//     than a block has, beside the 96 KB K1 already keeps there.  So R_k, C_k
+//     are read from global memory (L2-resident) one term at a time, and
+//     every intermediate (R u, the four products per term, the cotangent
+//     fields and their products) lives in global scratch; shared memory
+//     holds only the 2K stream values za, zb of the stage.
+//   - Each product is a block-wide pass of register tiles (4 x 2 outputs a
+//     thread), every k-sum in order from k = 0 with one rounding per FMA, so
+//     the checkpointed K4 (fused_ckpt.cu) reproduces K1's states bit for bit.
+//   - krbar / kcbar are accumulated in the output buffers across all steps:
+//     each element belongs to one thread tile, in a fixed order (steps and
+//     stages reversed, states in order), no float atomics.
+//   - K = 0 takes exactly the ising path: no extra phase, no extra rounding,
+//     and its own template instantiation (KRON = false), so the kron code
+//     adds no register pressure to it.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 #define MAX_S 7
 #define MAX_P 8  // row / column parts per side (a global channel needs 2)
+#define MAX_K 32  // kron pairs (12 atoms XY: 8; an SLM-masked 16-atom XY sequence: 20)
 #define NTHREADS 512
 #define NWARPS (NTHREADS / 32)
 #define TI 4  // rows of a thread's output tile
@@ -80,14 +113,27 @@ struct Parts {
     const float* casym;  // (pc, db, db)
 };
 
+// the kron pairs (K = 0: none, every pointer unused)
+struct Kron {
+    const float* kr;     // (R, K, da, da)
+    const float* kc;     // (R, K, db, db)
+    const float* zf[4];  // forward-node streams (R, n_steps, S, K): hi re, hi im, lo re, lo im
+    const float* zb[2];  // mirror-node streams, hi word only: re, im (K2)
+    float* krbar;        // (R, K, da, da) part-matrix cotangents (K2)
+    float* kcbar;        // (R, K, db, db)
+    float* scratch;      // per run: products 8 K N (K2: + cotangent work 12 K N)
+    int K;
+};
+
 // shared-memory view of one stage: side matrices + stage input / cotangent
 struct Smem {
     float *hre, *him, *gre, *gim;  // Hrow re/im (da, da); Hcol^T re/im (db, db)
     float *ux, *uy;                // (nb, da, db + 1)
+    float* zk;                     // kron stream values za (K), then zb (K)
     float* red;                    // (NWARPS, nrow) reduction partials
 };
 
-__device__ __forceinline__ Smem carve(float* sm, const Geo& g, int harea) {
+__device__ __forceinline__ Smem carve(float* sm, const Geo& g, int harea, int K) {
     Smem s;
     s.hre = sm;
     s.him = s.hre + g.da * g.da;
@@ -95,7 +141,8 @@ __device__ __forceinline__ Smem carve(float* sm, const Geo& g, int harea) {
     s.gim = s.gre + g.db * g.db;
     s.ux = sm + harea;
     s.uy = s.ux + g.nb * g.da * (g.db + 1);
-    s.red = s.uy + g.nb * g.da * (g.db + 1);
+    s.zk = s.uy + g.nb * g.da * (g.db + 1);
+    s.red = s.zk + 2 * K;
     return s;
 }
 
@@ -147,6 +194,22 @@ __device__ void assemble(const Smem& sh, const Parts& pt, const float* const* z,
     }
 }
 
+// The stage's kron stream values (K2's mirror reconstruction: hi word of the
+// mirror streams; otherwise hi + lo, as _Refs.side folds them).
+__device__ void assemble_kron(const Smem& sh, const Kron& kz, bool two_word, const Geo& g,
+                              int S, int r, int k, int s) {
+    const size_t base = (((size_t)r * g.n_steps + k) * S + s) * kz.K;
+    for (int j = threadIdx.x; j < kz.K; j += blockDim.x) {
+        if (two_word) {
+            sh.zk[j] = kz.zf[0][base + j] + kz.zf[2][base + j];
+            sh.zk[kz.K + j] = kz.zf[1][base + j] + kz.zf[3][base + j];
+        } else {
+            sh.zk[j] = kz.zb[0][base + j];
+            sh.zk[kz.K + j] = kz.zb[1][base + j];
+        }
+    }
+}
+
 // Thread tiles of an (m, n) output: a thread owns rows ti*TI .. ti*TI+TI-1
 // and columns tj + c*js (c < TJ, js = ceil(n / TJ)), so the lanes of a warp
 // take consecutive columns of the same rows: their row-operand loads are
@@ -164,16 +227,112 @@ __device__ __forceinline__ Tiles tiles(int m, int n, int nb) {
     return t;
 }
 
+// A real matrix read in place: X(i, k) at p[i * rs + k * cs] (shared or
+// global memory; a transpose swaps the strides).
+struct Mat {
+    const float* p;
+    int rs, cs;
+};
+
+// acc = A B over one thread tile (rows ii, columns jj), each sum over k in
+// order from k = 0 with one rounding per FMA.
+__device__ __forceinline__ void tile_mm(const Mat& A, const Mat& B, int kd, const int (&ii)[TI],
+                                        const int (&jj)[TJ], float (&acc)[TI][TJ]) {
+#pragma unroll
+    for (int r = 0; r < TI; ++r)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) acc[r][c] = 0.f;
+    for (int k = 0; k < kd; ++k) {
+        float av[TI], bv[TJ];
+#pragma unroll
+        for (int r = 0; r < TI; ++r) av[r] = A.p[(size_t)ii[r] * A.rs + (size_t)k * A.cs];
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) bv[c] = B.p[(size_t)k * B.rs + (size_t)jj[c] * B.cs];
+#pragma unroll
+        for (int r = 0; r < TI; ++r)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) acc[r][c] = __fmaf_rn(av[r], bv[c], acc[r][c]);
+    }
+}
+
+// The rows and columns of thread tile t of an (m, n) output (clamped at the
+// ragged edge; the writer masks).
+__device__ __forceinline__ void tile_at(const Tiles& tl, int t, int m, int n, int (&ii)[TI],
+                                        int (&jj)[TJ]) {
+    const int tj = t % tl.js, ti = t / tl.js;
+#pragma unroll
+    for (int r = 0; r < TI; ++r) ii[r] = min(ti * TI + r, m - 1);
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) jj[c] = min(tj + c * tl.js, n - 1);
+}
+
+// out (m, n, row stride ldo) = A B for thread tile t.
+__device__ __forceinline__ void tile_store(const Mat& A, const Mat& B, int m, int n, int kd,
+                                           const Tiles& tl, int t, float* out, int ldo) {
+    int ii[TI], jj[TJ];
+    tile_at(tl, t, m, n, ii, jj);
+    float acc[TI][TJ];
+    tile_mm(A, B, kd, ii, jj, acc);
+    const int ti = t / tl.js, tj = t % tl.js;
+#pragma unroll
+    for (int r = 0; r < TI; ++r)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) {
+            const int i = ti * TI + r, j = tj + c * tl.js;
+            if (i < m && j < n) out[(size_t)i * ldo + j] = acc[r][c];
+        }
+}
+
+// The kron products of the stage vector u (sh.ux / sh.uy) into the run's
+// kron scratch, per term j and state b (N = nb * da * db per block):
+//   level 1  T[j][q]  = R_j u_x, R_j^T u_x, R_j u_y, R_j^T u_y   (q = 0..3)
+//   level 2  KP[j][q] = T[j][0] C_j^T, T[j][1] C_j, T[j][2] C_j^T, T[j][3] C_j
+// so KP holds x1 = R x C^T, x2 = R^T x C, y1, y2 of each term, as
+// _Side._kron_products forms them (R first).  Ends with a block barrier.
+__device__ void kron_products(const Smem& sh, const Kron& kz, const Geo& g, int r) {
+    const int da = g.da, db = g.db, nb = g.nb, ldu = db + 1, K = kz.K;
+    const size_t M = (size_t)da * db, N = nb * M;
+    const float* kr = kz.kr + (size_t)r * K * da * da;
+    const float* kc = kz.kc + (size_t)r * K * db * db;
+    float* T = kz.scratch;
+    float* KP = T + (size_t)4 * K * N;
+    const Tiles tl = tiles(da, db, 1);
+    const int jobs = 4 * K * nb;
+    for (int t = threadIdx.x; t < jobs * tl.count; t += blockDim.x) {
+        const int job = t / tl.count, q = (job / nb) % 4, j = job / (4 * nb), b = job % nb;
+        const float* R = kr + (size_t)j * da * da;
+        const Mat A = (q & 1) ? Mat{R, 1, da} : Mat{R, da, 1};
+        const Mat B = {(q < 2 ? sh.ux : sh.uy) + (size_t)b * da * ldu, ldu, 1};
+        tile_store(A, B, da, db, da, tl, t % tl.count, T + (4 * j + q) * N + b * M, db);
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < jobs * tl.count; t += blockDim.x) {
+        const int job = t / tl.count, q = (job / nb) % 4, j = job / (4 * nb), b = job % nb;
+        const float* C = kc + (size_t)j * db * db;
+        const Mat A = {T + (4 * j + q) * N + b * M, db, 1};
+        const Mat B = (q & 1) ? Mat{C, db, 1} : Mat{C, 1, db};
+        tile_store(A, B, da, db, db, tl, t % tl.count, KP + (4 * j + q) * N + b * M, db);
+    }
+    __syncthreads();
+}
+
 // K = sign * (-i H u) for the whole state batch, u in shared memory:
 //   h_re = (Hre u_x - Him u_y) + (u_x Gre - u_y Gim) + d u_x + dlo u_x
 //   h_im = (Him u_x + Hre u_y) + (u_x Gim + u_y Gre) + d u_y + dlo u_y
 //   -i H u = (h_im, -h_re)
-// The real map F = -iH is antisymmetric (H hermitian), so F^T = -F: the
-// adjoint's transpose products take sign = -1.  Every sum runs over k in
-// order with one rounding per product-add, as the plain version does.
+// then, term by term, the kron pairs from their products KP (kron_products):
+//   h_re += za T1(x) - zb T2(y),  h_im += za T1(y) + zb T2(x).
+// The real map F = -iH is antisymmetric (H hermitian, kron terms included),
+// so F^T = -F: the adjoint's transpose products take sign = -1.  Every sum
+// runs over k in order with one rounding per product-add, as the plain
+// version does.  KRON = false compiles the ising kernels without the kron
+// code (their registers, spills and arithmetic stay as without kron pairs).
+template <bool KRON>
 __device__ void apply_block(const Smem& sh, const Geo& g, const float* dg, const float* dl,
-                            float* kx, float* ky, float sign) {
+                            float* kx, float* ky, float sign, const Kron& kz) {
     const int da = g.da, db = g.db, ldu = db + 1, M = da * db;
+    const size_t N = (size_t)g.nb * M;
+    const float* KP = kz.scratch + (size_t)4 * kz.K * N;
     const Tiles tl = tiles(da, db, g.nb);
     for (int t = threadIdx.x; t < tl.count; t += blockDim.x) {
         const int tj = t % tl.js, ti = (t / tl.js) % tl.tm, b = t / (tl.js * tl.tm);
@@ -253,9 +412,18 @@ __device__ void apply_block(const Smem& sh, const Geo& g, const float* dg, const
                 if (i >= da || j >= db) continue;
                 const int m = i * db + j;
                 const float x = xb[i * ldu + j], y = yb[i * ldu + j];
-                const float h_re = ((ra[r][c] + (c1[r][c] - c2[r][c])) + dg[m] * x) + dl[m] * x;
-                const float h_im = ((rb[r][c] + (c3[r][c] + c4[r][c])) + dg[m] * y) + dl[m] * y;
+                float h_re = ((ra[r][c] + (c1[r][c] - c2[r][c])) + dg[m] * x) + dl[m] * x;
+                float h_im = ((rb[r][c] + (c3[r][c] + c4[r][c])) + dg[m] * y) + dl[m] * y;
                 const size_t e = (size_t)b * M + m;
+                if constexpr (KRON) {
+                    for (int q = 0; q < kz.K; ++q) {
+                        const float* P = KP + (size_t)4 * q * N + e;
+                        const float x1 = P[0], x2 = P[N], y1 = P[2 * N], y2 = P[3 * N];
+                        const float za = sh.zk[q], zb = sh.zk[kz.K + q];
+                        h_re = h_re + (za * (x1 + x2) - zb * (y1 - y2));
+                        h_im = h_im + (za * (y1 + y2) + zb * (x1 - x2));
+                    }
+                }
                 kx[e] = sign * h_im;
                 ky[e] = -sign * h_re;
             }
@@ -273,6 +441,7 @@ __device__ __forceinline__ int uidx(const Geo& g, int e) {
 // ---------------------------------------------------------------------------
 // K1: forward evolution writing every evaluation-slot state
 // ---------------------------------------------------------------------------
+template <bool KRON>
 __global__ void __launch_bounds__(NTHREADS)
 fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi_im,
                  Parts pt, FwdStreams zf,
@@ -281,11 +450,13 @@ fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi
                  const float* __restrict__ diag, const float* __restrict__ diag_lo,
                  const int* __restrict__ slots,
                  float* __restrict__ out_re, float* __restrict__ out_im,
-                 float* __restrict__ scratch, Geo g, Tab tab, int harea) {
+                 float* __restrict__ lo_re, float* __restrict__ lo_im,
+                 float* __restrict__ scratch, Kron kz, Geo g, Tab tab, int harea) {
     extern __shared__ float sm[];
-    const Smem sh = carve(sm, g, harea);
+    const Smem sh = carve(sm, g, harea, kz.K);
     const int r = blockIdx.x, S = tab.S;
     const int M = g.da * g.db, N = g.nb * M;
+    kz.scratch += (size_t)r * 8 * kz.K * N;  // this run's kron products
     float* X = scratch + (size_t)r * (4 + 2 * S) * N;
     float* Y = X + N;
     float* CX = Y + N;
@@ -295,12 +466,19 @@ fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi
     const float* dl = diag_lo + (size_t)r * M;
     float* ore = out_re + (size_t)r * g.n_eval * N;
     float* oim = out_im + (size_t)r * g.n_eval * N;
+    // the slot states' low words (the negated Kahan carries), when asked for
+    float* lre = lo_re ? lo_re + (size_t)r * g.n_eval * N : 0;
+    float* lim = lo_im ? lo_im + (size_t)r * g.n_eval * N : 0;
 
     const int slot0 = slots[0];
     for (int e = threadIdx.x; e < N; e += blockDim.x) {
         const float x = psi_re[(size_t)r * N + e], y = psi_im[(size_t)r * N + e];
         X[e] = x; Y[e] = y; CX[e] = 0.f; CY[e] = 0.f;
         if (slot0 < g.n_eval) { ore[(size_t)slot0 * N + e] = x; oim[(size_t)slot0 * N + e] = y; }
+        if (slot0 < g.n_eval && lre) {
+            lre[(size_t)slot0 * N + e] = 0.f;
+            lim[(size_t)slot0 * N + e] = 0.f;
+        }
     }
     for (int k = 0; k < g.n_steps; ++k) {
         const float h = hs[k];
@@ -319,8 +497,11 @@ fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi
                 sh.ux[u] = xs; sh.uy[u] = ys;
             }
             assemble(sh, pt, zf.z, true, g, S, r, k, s);
+            if constexpr (KRON) assemble_kron(sh, kz, true, g, S, r, k, s);
             __syncthreads();
-            apply_block(sh, g, dg, dl, K + (size_t)2 * s * N, K + (size_t)2 * s * N + N, 1.f);
+            if constexpr (KRON) kron_products(sh, kz, g, r);
+            apply_block<KRON>(sh, g, dg, dl, K + (size_t)2 * s * N, K + (size_t)2 * s * N + N, 1.f,
+                              kz);
             __syncthreads();
         }
         // two-word h*b_s increment (hi words, then lo words), Kahan update
@@ -343,11 +524,15 @@ fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi
             }
             float x = X[e], cx = CX[e];
             float yk = dx - cx, t = x + yk;
-            CX[e] = (t - x) - yk; X[e] = t; x = t;
+            cx = (t - x) - yk; CX[e] = cx; X[e] = t; x = t;
             float y = Y[e], cy = CY[e];
             yk = dy - cy; t = y + yk;
-            CY[e] = (t - y) - yk; Y[e] = t; y = t;
+            cy = (t - y) - yk; CY[e] = cy; Y[e] = t; y = t;
             if (slot < g.n_eval) { ore[(size_t)slot * N + e] = x; oim[(size_t)slot * N + e] = y; }
+            if (slot < g.n_eval && lre) {
+                lre[(size_t)slot * N + e] = -cx;
+                lim[(size_t)slot * N + e] = -cy;
+            }
         }
     }
 }
@@ -355,12 +540,42 @@ fused_fwd_kernel(const float* __restrict__ psi_re, const float* __restrict__ psi
 // ---------------------------------------------------------------------------
 // K2: discrete adjoint over the steps in reverse (lean interval form)
 // ---------------------------------------------------------------------------
-// Block-wide sums of the per-thread cotangent partials into out[0 .. nrow).
+// Block-wide sums of the per-thread cotangent partials into out[0 .. nrow):
+// the parts' (2 pr + 2 pc), then each kron pair's (za_bar, zb_bar) of the
+// stage cotangent g against the stage input u (us: (2, nb, da, db), global),
+// from the products of g that the transpose application left in the kron
+// scratch:  za_bar = <g_x, T1(u_y)> - <g_y, T1(u_x)> = <T1(g_x), u_y> - <T1(g_y), u_x>,
+//           zb_bar = <g_x, T2(u_x)> + <g_y, T2(u_y)> = -<T2(g_x), u_x> - <T2(g_y), u_y>
+// (T1 is self-adjoint, T2 anti-self-adjoint).  The Pallas _kron_cotangents
+// gives zb_bar the opposite sign; no XY gradient reaches it (the kron
+// streams are constants), and the port takes the derivative's sign.
+template <bool KRON>
 __device__ __forceinline__ void reduce_rows(const Smem& sh, const float* acc_r, const float* acc_c,
-                                            const Geo& g, float* out) {
-    const int nrow = 2 * g.pr + 2 * g.pc;
+                                            const Geo& g, const Kron& kz, const float* us,
+                                            float* out) {
+    const int nrow = 2 * g.pr + 2 * g.pc + 2 * kz.K;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = (blockDim.x + 31) >> 5;
+    const size_t N = (size_t)g.nb * g.da * g.db;
+    const float* KP = kz.scratch + (size_t)4 * kz.K * N;
+    for (int q = 0; KRON && q < kz.K; ++q) {
+        float va = 0.f, vb = 0.f;
+        for (size_t e = threadIdx.x; e < N; e += blockDim.x) {
+            const float* P = KP + (size_t)4 * q * N + e;
+            const float x1 = P[0], x2 = P[N], y1 = P[2 * N], y2 = P[3 * N];
+            const float ux = us[e], uy = us[N + e];
+            va = va + ((x1 + x2) * uy - (y1 + y2) * ux);
+            vb = vb + ((x2 - x1) * ux + (y2 - y1) * uy);
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+            va += __shfl_down_sync(0xffffffffu, va, off);
+            vb += __shfl_down_sync(0xffffffffu, vb, off);
+        }
+        if (lane == 0) {
+            sh.red[warp * nrow + 2 * g.pr + 2 * g.pc + 2 * q] = va;
+            sh.red[warp * nrow + 2 * g.pr + 2 * g.pc + 2 * q + 1] = vb;
+        }
+    }
 #pragma unroll
     for (int q = 0; q < 2 * MAX_P; ++q) {
         if (q < 2 * g.pr) {
@@ -391,8 +606,10 @@ __device__ __forceinline__ void reduce_rows(const Smem& sh, const float* acc_r, 
 //   col side  Wc = sum_b u_y^T g_x - u_x^T g_y,  Vc = sum_b u_x^T g_x + u_y^T g_y  (db, db)
 //   out = (<Sym_p, W>, <Asym_p, V>)_p, then (<Sym_p, Wc>, -<Asym_p, Vc>)_p
 // (the column side is stored transposed, and P^T - P = -Asym).
+template <bool KRON>
 __device__ void stage_cotangents(const Smem& sh, const float* usx, const float* usy,
-                                 const Parts& pt, const Geo& g, float* out) {
+                                 const Parts& pt, const Geo& g, const Kron& kz, const float* us,
+                                 float* out) {
     const int da = g.da, db = g.db, nb = g.nb, ldu = db + 1;
     float acc_r[2 * MAX_P] = {}, acc_c[2 * MAX_P] = {};
     const Tiles tr = tiles(da, da, 1);
@@ -516,9 +733,121 @@ __device__ void stage_cotangents(const Smem& sh, const float* usx, const float* 
             }
         }
     }
-    reduce_rows(sh, acc_r, acc_c, g, out);
+    reduce_rows<KRON>(sh, acc_r, acc_c, g, kz, us, out);
 }
 
+// The part-matrix cotangents of one stage (_kron_matrix_cotangents), from
+// the stage cotangent g (sh.ux / sh.uy, padded) and the stage input u (us,
+// global).  Per term j and state b, with the coefficient fields
+//   B1 = zb gx - za gy,  B2 = -zb gx - za gy,  D1 = za gx + zb gy,  D2 = za gx - zb gy,
+//   krbar_j += B1 C ux^T + (ux C) B2^T + D1 C uy^T + (uy C) D2^T
+//   kcbar_j += B1^T (R ux) + ux^T (R B2) + D1^T (R uy) + uy^T (R D2)
+// added in that order, state after state.  Work lives in the run's kron
+// scratch after the products: the fields F (4 K N), then the level-1
+// products P (8 K N).  Ends with a block barrier.
+__device__ void kron_matrix_cotangents(const Smem& sh, const Kron& kz, const Geo& g, int r,
+                                       const float* us) {
+    const int da = g.da, db = g.db, nb = g.nb, K = kz.K;
+    const size_t M = (size_t)da * db, N = nb * M;
+    const float* kr = kz.kr + (size_t)r * K * da * da;
+    const float* kc = kz.kc + (size_t)r * K * db * db;
+    float* F = kz.scratch + (size_t)8 * K * N;
+    float* P = F + (size_t)4 * K * N;
+    for (size_t e = threadIdx.x; e < N; e += blockDim.x) {
+        const int u = uidx(g, (int)e);
+        const float gx = sh.ux[u], gy = sh.uy[u];
+        for (int j = 0; j < K; ++j) {
+            const float za = sh.zk[j], zb = sh.zk[K + j];
+            float* f = F + (size_t)4 * j * N + e;
+            f[0] = zb * gx - za * gy;
+            f[N] = -zb * gx - za * gy;
+            f[2 * N] = za * gx + zb * gy;
+            f[3 * N] = za * gx - zb * gy;
+        }
+    }
+    __syncthreads();
+    // level 1: B1 C, ux C, D1 C, uy C (q = 0..3), R ux, R B2, R uy, R D2 (q = 4..7)
+    const Tiles tl = tiles(da, db, 1);
+    const int jobs = 8 * K * nb;
+    for (int t = threadIdx.x; t < jobs * tl.count; t += blockDim.x) {
+        const int job = t / tl.count, q = (job / nb) % 8, j = job / (8 * nb), b = job % nb;
+        const float* f = F + (size_t)4 * j * N + b * M;
+        const float* ub = us + b * M;
+        // the left (q < 4) or right (q >= 4) operand: B1, ux, D1, uy / ux, B2, uy, D2
+        const float* opnd[8] = {f, ub, f + 2 * N, ub + N, ub, f + N, ub + N, f + 3 * N};
+        const Mat X = {opnd[q], db, 1};
+        float* out = P + (8 * j + q) * N + b * M;
+        if (q < 4) {
+            const Mat C = {kc + (size_t)j * db * db, db, 1};
+            tile_store(X, C, da, db, db, tl, t % tl.count, out, db);
+        } else {
+            const Mat R = {kr + (size_t)j * da * da, da, 1};
+            tile_store(R, X, da, db, da, tl, t % tl.count, out, db);
+        }
+    }
+    __syncthreads();
+    // level 2, accumulated into the outputs
+    const Tiles tr = tiles(da, da, 1), tc = tiles(db, db, 1);
+    for (int t = threadIdx.x; t < K * (tr.count + tc.count); t += blockDim.x) {
+        const int j = t / (tr.count + tc.count);
+        int tt = t % (tr.count + tc.count);
+        const bool row = tt < tr.count;
+        if (!row) tt -= tr.count;
+        const int n = row ? da : db;
+        const Tiles& tl2 = row ? tr : tc;
+        int ii[TI], jj[TJ];
+        tile_at(tl2, tt, n, n, ii, jj);
+        float* dst = row ? kz.krbar + ((size_t)r * K + j) * da * da
+                         : kz.kcbar + ((size_t)r * K + j) * db * db;
+        float acc[TI][TJ];
+        const int ti = tt / tl2.js, tj = tt % tl2.js;
+#pragma unroll
+        for (int a = 0; a < TI; ++a)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) acc[a][c] = dst[(size_t)ii[a] * n + jj[c]];
+        for (int b = 0; b < nb; ++b) {
+            const float* f = F + (size_t)4 * j * N + b * M;
+            const float* ub = us + b * M;
+            const float* p = P + (size_t)8 * j * N + b * M;
+            // (left, right) operands of the four products, in order
+            Mat L[4], Rt[4];
+            int kd;
+            if (row) {  // (da, db) x (db, da): P_q times ux^T, B2^T, uy^T, D2^T
+                const float* rhs[4] = {ub, f + N, ub + N, f + 3 * N};
+                for (int q = 0; q < 4; ++q) {
+                    L[q] = Mat{p + q * N, db, 1};
+                    Rt[q] = Mat{rhs[q], 1, db};
+                }
+                kd = db;
+            } else {  // (db, da) x (da, db): B1^T, ux^T, D1^T, uy^T times P_{4+q}
+                const float* lhs[4] = {f, ub, f + 2 * N, ub + N};
+                for (int q = 0; q < 4; ++q) {
+                    L[q] = Mat{lhs[q], 1, db};
+                    Rt[q] = Mat{p + (4 + q) * N, db, 1};
+                }
+                kd = da;
+            }
+            for (int q = 0; q < 4; ++q) {
+                float tq[TI][TJ];
+                tile_mm(L[q], Rt[q], kd, ii, jj, tq);
+#pragma unroll
+                for (int a = 0; a < TI; ++a)
+#pragma unroll
+                    for (int c = 0; c < TJ; ++c) acc[a][c] = acc[a][c] + tq[a][c];
+            }
+        }
+#pragma unroll
+        for (int a = 0; a < TI; ++a)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) {
+                const int i = ti * TI + a, jc = tj + c * tl2.js;
+                if (i < n && jc < n) dst[(size_t)i * n + jc] = acc[a][c];
+            }
+    }
+    __syncthreads();
+}
+
+template <bool KRON>
 __global__ void __launch_bounds__(NTHREADS)
 fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_im,
                  const float* __restrict__ lam_re, const float* __restrict__ lam_im,
@@ -529,13 +858,14 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
                  const int* __restrict__ slots,
                  float* __restrict__ lam0_re, float* __restrict__ lam0_im,
                  float* __restrict__ zbar, float* __restrict__ dbar,
-                 float* __restrict__ scratch, Geo g, Tab tab, int harea) {
+                 float* __restrict__ scratch, Kron kz, Geo g, Tab tab, int harea) {
     extern __shared__ float sm[];
-    const Smem sh = carve(sm, g, harea);
+    const Smem sh = carve(sm, g, harea, kz.K);
     const int r = blockIdx.x, S = tab.S;
     const int da = g.da, db = g.db, nb = g.nb, ldu = db + 1;
     const int M = da * db, N = nb * M;
-    const int nrow = 2 * g.pr + 2 * g.pc;
+    const int nrow = 2 * g.pr + 2 * g.pc + 2 * kz.K;
+    kz.scratch += (size_t)r * 20 * kz.K * N;  // this run's kron products and cotangent work
     const size_t twoN = (size_t)2 * N;
     float* X = scratch + (size_t)r * (4 + 6 * S) * N;  // x, y
     float* L = X + twoN;                                // lx, ly
@@ -559,6 +889,12 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
         L[e] = lre[o]; L[N + e] = lim[o];
     }
     for (int m = threadIdx.x; m < M; m += blockDim.x) db_out[m] = 0.f;
+    if constexpr (KRON) {
+        for (size_t m = threadIdx.x; m < (size_t)kz.K * da * da; m += blockDim.x)
+            kz.krbar[(size_t)r * kz.K * da * da + m] = 0.f;
+        for (size_t m = threadIdx.x; m < (size_t)kz.K * db * db; m += blockDim.x)
+            kz.kcbar[(size_t)r * kz.K * db * db + m] = 0.f;
+    }
 
     for (int it = 0; it < g.n_steps; ++it) {
         const int k = g.n_steps - 1 - it;
@@ -579,8 +915,10 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
                 sh.ux[u] = xs; sh.uy[u] = ys;
             }
             assemble(sh, pt, zb.z, false, g, S, r, k, s);
+            if constexpr (KRON) assemble_kron(sh, kz, false, g, S, r, k, s);
             __syncthreads();
-            apply_block(sh, g, dg, dl, RK + s * twoN, RK + s * twoN + N, 1.f);
+            if constexpr (KRON) kron_products(sh, kz, g, r);
+            apply_block<KRON>(sh, g, dg, dl, RK + s * twoN, RK + s * twoN + N, 1.f, kz);
             __syncthreads();
         }
         for (int e = threadIdx.x; e < N; e += blockDim.x) {
@@ -611,8 +949,10 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
             }
             if (s == S - 1) break;
             assemble(sh, pt, zf.z, true, g, S, r, k, s);
+            if constexpr (KRON) assemble_kron(sh, kz, true, g, S, r, k, s);
             __syncthreads();
-            apply_block(sh, g, dg, dl, RK + s * twoN, RK + s * twoN + N, 1.f);
+            if constexpr (KRON) kron_products(sh, kz, g, r);
+            apply_block<KRON>(sh, g, dg, dl, RK + s * twoN, RK + s * twoN + N, 1.f, kz);
             __syncthreads();
         }
         __syncthreads();
@@ -636,8 +976,10 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
                 sh.ux[u] = gx; sh.uy[u] = gy;
             }
             assemble(sh, pt, zf.z, true, g, S, r, k, s);
+            if constexpr (KRON) assemble_kron(sh, kz, true, g, S, r, k, s);
             __syncthreads();
-            apply_block(sh, g, dg, dl, WS + s * twoN, WS + s * twoN + N, -1.f);
+            if constexpr (KRON) kron_products(sh, kz, g, r);
+            apply_block<KRON>(sh, g, dg, dl, WS + s * twoN, WS + s * twoN + N, -1.f, kz);
             for (int m = threadIdx.x; m < M; m += blockDim.x) {
                 float acc = 0.f;
                 for (int b = 0; b < nb; ++b) {
@@ -655,9 +997,10 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
                 sm[nb * da * ldu + u] = US[s * twoN + N + e];
             }
             __syncthreads();
-            stage_cotangents(sh, usx_sh, usy_sh, pt, g,
+            stage_cotangents<KRON>(sh, usx_sh, usy_sh, pt, g, kz, US + s * twoN,
                              zbar + (((size_t)r * g.n_steps + k) * S + s) * nrow);
             __syncthreads();
+            if constexpr (KRON) kron_matrix_cotangents(sh, kz, g, r, US + s * twoN);
         }
         // 4. costate update, then 5. the stored state / slot cotangent at grid point k
         const int slot = slots[k];
@@ -684,8 +1027,9 @@ fused_bwd_kernel(const float* __restrict__ st_re, const float* __restrict__ st_i
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes).  Every function returns 0 on success, a negative
-// code for a shape the kernel does not take, or the cudaError_t of the
-// launch.  Launches go to the caller's stream; nothing synchronises.
+// code for a shape the kernel does not take (-1 tableau, -2 parts, -4 kron
+// pairs), or the cudaError_t of the launch.  Launches go to the caller's
+// stream; nothing synchronises.
 // ---------------------------------------------------------------------------
 static int make_tab(Tab* tab, int S, const double* a, const int* bnz) {
     if (S < 1 || S > MAX_S) return -1;
@@ -703,16 +1047,42 @@ static int h_area(int nb, int da, int db) {
     return hsz > usz ? hsz : usz;
 }
 
-extern "C" size_t pdt_fused_smem_bytes(int bwd, int nb, int da, int db, int pr, int pc) {
+// shared memory: the H area, the padded stage vector, the 2K kron stream
+// values and (K2) the reduction partials
+extern "C" size_t pdt_fused_smem_bytes(int bwd, int nb, int da, int db, int pr, int pc, int K) {
     const size_t harea = (size_t)h_area(nb, da, db);
     const size_t usz = (size_t)2 * nb * da * (db + 1);
-    const size_t red = bwd ? (size_t)NWARPS * (2 * pr + 2 * pc) : 0;
-    return (harea + usz + red) * sizeof(float);
+    const size_t red = bwd ? (size_t)NWARPS * (2 * pr + 2 * pc + 2 * K) : 0;
+    return (harea + usz + 2 * (size_t)K + red) * sizeof(float);
 }
 
-extern "C" size_t pdt_fused_scratch_floats(int bwd, int R, int S, int nb, int da, int db) {
-    const size_t N = (size_t)nb * da * db;
+// the state and stage buffers of every run, then every run's kron scratch
+static size_t base_floats(int bwd, int R, int S, size_t N) {
     return (size_t)R * (bwd ? (4 + 6 * S) : (4 + 2 * S)) * N;
+}
+
+extern "C" size_t pdt_fused_scratch_floats(int bwd, int R, int S, int nb, int da, int db, int K) {
+    const size_t N = (size_t)nb * da * db;
+    return base_floats(bwd, R, S, N) + (size_t)R * (bwd ? 20 : 8) * K * N;
+}
+
+// kron inputs: kr, kc, the four forward-node and (K2) two mirror-node streams
+static Kron make_kron(const float* const* kin, float* krbar, float* kcbar, float* kscratch, int K,
+                      int bwd) {
+    Kron kz = {};
+    kz.K = K;
+    kz.scratch = kscratch;
+    if (!K) return kz;
+    kz.kr = kin[0];
+    kz.kc = kin[1];
+    for (int i = 0; i < 4; ++i) kz.zf[i] = kin[2 + i];
+    if (bwd) {
+        kz.zb[0] = kin[6];
+        kz.zb[1] = kin[7];
+        kz.krbar = krbar;
+        kz.kcbar = kcbar;
+    }
+    return kz;
 }
 
 extern "C" int pdt_fused_fwd(const float* psi_re, const float* psi_im,
@@ -721,24 +1091,30 @@ extern "C" int pdt_fused_fwd(const float* psi_re, const float* psi_im,
                              const float* const* zf,
                              const float* hb_hi, const float* hb_lo, const float* hs,
                              const float* diag, const float* diag_lo, const int* slots,
-                             float* out_re, float* out_im, float* scratch,
+                             float* out_re, float* out_im, float* lo_re, float* lo_im,
+                             float* scratch, const float* const* kron_in, int K,
                              int R, int n_steps, int nb, int da, int db, int pr, int pc,
                              int n_eval, int S, const double* a, const int* bnz,
                              void* stream) {
     Tab tab;
     if (make_tab(&tab, S, a, bnz)) return -1;
     if (pr > MAX_P || pc > MAX_P) return -2;
-    const size_t smem = pdt_fused_smem_bytes(0, nb, da, db, pr, pc);
-    cudaError_t err = cudaFuncSetAttribute(fused_fwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (K < 0 || K > MAX_K) return -4;
+    const size_t smem = pdt_fused_smem_bytes(0, nb, da, db, pr, pc, K);
+    // the kron-pair branch is its own instantiation
+    auto kern = K ? fused_fwd_kernel<true> : fused_fwd_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     Geo g = {R, n_steps, nb, da, db, pr, pc, n_eval, 0};
     Parts pt = {rsym, rasym, csym, casym};
     FwdStreams z;
     for (int i = 0; i < 8; ++i) z.z[i] = zf[i];
-    fused_fwd_kernel<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(
+    const Kron kz = make_kron(kron_in, 0, 0,
+                              scratch + base_floats(0, R, S, (size_t)nb * da * db), K, 0);
+    kern<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(
         psi_re, psi_im, pt, z, hb_hi, hb_lo, hs, diag, diag_lo, slots,
-        out_re, out_im, scratch, g, tab, h_area(nb, da, db));
+        out_re, out_im, lo_re, lo_im, scratch, kz, g, tab, h_area(nb, da, db));
     return (int)cudaGetLastError();
 }
 
@@ -751,15 +1127,18 @@ extern "C" int pdt_fused_bwd(const float* st_re, const float* st_im,
                              const float* diag, const float* diag_lo, const int* slots,
                              float* lam0_re, float* lam0_im, float* zbar, float* dbar,
                              float* scratch,
+                             const float* const* kron_in, float* krbar, float* kcbar, int K,
                              int R, int n_steps, int nb, int da, int db, int pr, int pc,
                              int n_eval, int last_slot, int S, const double* a, const int* bnz,
                              void* stream) {
     Tab tab;
     if (make_tab(&tab, S, a, bnz)) return -1;
     if (pr > MAX_P || pc > MAX_P) return -2;
-    const size_t smem = pdt_fused_smem_bytes(1, nb, da, db, pr, pc);
-    cudaError_t err = cudaFuncSetAttribute(fused_bwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (K < 0 || K > MAX_K) return -4;
+    const size_t smem = pdt_fused_smem_bytes(1, nb, da, db, pr, pc, K);
+    auto kern = K ? fused_bwd_kernel<true> : fused_bwd_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     Geo g = {R, n_steps, nb, da, db, pr, pc, n_eval, last_slot};
     Parts pt = {rsym, rasym, csym, casym};
@@ -767,8 +1146,10 @@ extern "C" int pdt_fused_bwd(const float* st_re, const float* st_im,
     MirStreams m;
     for (int i = 0; i < 8; ++i) f.z[i] = zf[i];
     for (int i = 0; i < 4; ++i) m.z[i] = zb[i];
-    fused_bwd_kernel<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(
+    const Kron kz = make_kron(kron_in, krbar, kcbar,
+                              scratch + base_floats(1, R, S, (size_t)nb * da * db), K, 1);
+    kern<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(
         st_re, st_im, lam_re, lam_im, pt, f, m, hb_hi, hb_lo, hs, diag, diag_lo, slots,
-        lam0_re, lam0_im, zbar, dbar, scratch, g, tab, h_area(nb, da, db));
+        lam0_re, lam0_im, zbar, dbar, scratch, kz, g, tab, h_area(nb, da, db));
     return (int)cudaGetLastError();
 }

@@ -1,16 +1,21 @@
-"""Time-dependent Rydberg Hamiltonian assembly (counterpart of
+"""Time-dependent Rydberg / XY Hamiltonian assembly (counterpart of
 pulser_diff_tpu/hamiltonian.py).
 
 The sampled sequence becomes a :class:`FactoredHamiltonian`: static
 stacks of small real part matrices (row-group / column-group lifts) plus
-complex coefficient streams, and the van der Waals diagonal on the
-(da, db) grid.  Physics as in the JAX package:
+complex coefficient streams, and the interaction: the van der Waals
+diagonal on the (da, db) grid (ising), or the XY dipole flip-flop terms
+as kron pairs.  Physics as in the JAX package:
   - amplitude coeff 0.5*amp*exp(-i*phase) on the lowering op, hermitized;
   - detuning coeff -0.5*det on the occupation projector, hermitized;
-  - van der Waals C6/r^6 n_i n_j.
-This slice is noiseless, global and ising-only: the ground-rydberg basis
-of the global Rydberg channel (no local channels, other bases or XY kron
-pairs).
+  - van der Waals C6/r^6 n_i n_j;
+  - XY C3 (1 - 3 cos^2 theta)/r^3 (sigma+ sigma- + h.c.), theta the angle
+    between the pair and the magnetic field.
+The port is noiseless and global: the ground-rydberg basis of the global
+Rydberg channel and the XY basis of the global microwave channel (no
+local channels, digital or all bases, SLM masks).  The interaction
+weights are differentiable in the qubit coordinates, or in the pair
+distances set through ``_dist_override``.
 """
 
 from __future__ import annotations
@@ -28,19 +33,25 @@ from pulser_diff_torch.core.sampler import SequenceSamples
 from pulser_diff_torch.ops.apply import FactoredHamiltonian
 from pulser_diff_torch.simconfig import NoiseModel
 
-# the ground-rydberg basis: dimension, basis labels, and the operator ids
-# (amplitude, detuning) of its channels
-_BASIS = "ground-rydberg"
-_DIM = 2
-_LABELS = ["r", "g"]
-_OP_IDS = ("sigma_gr", "sigma_rr")
+# basis tables: (dimension, labels); the digital and all bases are a
+# later slice
+_BASIS_TABLE = {
+    "XY": (2, ["u", "d"]),
+    "ground-rydberg": (2, ["r", "g"]),
+}
+
+# operator ids (amplitude, detuning) per sampled basis
+_OP_IDS = {
+    "ground-rydberg": ("sigma_gr", "sigma_rr"),
+    "XY": ("sigma_du", "sigma_uu"),
+}
 
 
-def _local_op_np(name: str) -> np.ndarray:
+def _local_op_np(dim: int, basis: list[str], name: str) -> np.ndarray:
     """|b1><b2| as a dense real numpy matrix from a 'sigma_xy' name."""
     b1, b2 = name[6], name[7]
-    m = np.zeros((_DIM, _DIM))
-    m[_LABELS.index(b1), _LABELS.index(b2)] = 1.0
+    m = np.zeros((dim, dim))
+    m[basis.index(b1), basis.index(b2)] = 1.0
     return m
 
 
@@ -86,9 +97,11 @@ class Hamiltonian:
         }
         self._device = device
         self._sampling_rate = sampling_rate
-        self.basis_name = _BASIS
-        self.dim = _DIM
-        self._basis_labels = _LABELS
+        self._dist_override: dict[str, torch.Tensor] = {}
+        self._last_dist: tuple = ((), None)  # (qubit ids, (n, n) distances) of the last build
+        self._interaction = "XY" if samples_obj._in_xy else "ising"
+        self.basis_name = "XY" if self._interaction == "XY" else "ground-rydberg"
+        self.dim, self._basis_labels = _BASIS_TABLE[self.basis_name]
         self._size = len(self._qdict)
         self._duration = samples_obj.max_duration
         # host-side numpy: the grid structure
@@ -126,18 +139,57 @@ class Hamiltonian:
         return sum(len(cs.slots) for cs in self.samples_obj.channel_samples.values())
 
     def _interaction_weights(self, good: torch.Tensor) -> torch.Tensor:
-        """(n, n) upper-triangular pair weights W_ij = C6/r^6 (rad/us),
-        zeroed for bad atoms."""
+        """(n, n) upper-triangular pair weights W_ij (rad/us), zeroed for
+        bad atoms.  ising: C6/r^6.  XY: C3 (1 - 3cos^2 theta)/r^3.
+
+        The pair distances are kept for ``_dist_dict``; ``_dist_override``
+        entries ('q1-q2' keys) replace the distance of their pair."""
         n = self._size
-        coords = torch.stack(list(self._qdict.values()))
+        qids = list(self._qdict)
+        coords = torch.stack([self._qdict[q] for q in qids])
         diff = coords[:, None, :] - coords[None, :, :]
         d2 = (diff * diff).sum(-1)
         eye = torch.eye(n, dtype=torch.bool, device=coords.device)
         # grad-safe diagonal: sqrt'(0) is inf, and the diagonal is masked
         dist = torch.sqrt(torch.where(eye, torch.ones_like(d2), d2))
-        w = self._device.interaction_coeff / dist**6
+        if self._dist_override:
+            ii, jj, vals = [], [], []
+            for i in range(n):
+                for j in range(i + 1, n):
+                    key = f"{qids[i]}-{qids[j]}"
+                    if key in self._dist_override:
+                        ii.append(i)
+                        jj.append(j)
+                        vals.append(torch.as_tensor(self._dist_override[key], dtype=DTYPE,
+                                                    device=coords.device))
+            if vals:
+                dist = dist.index_put((torch.as_tensor(ii, device=coords.device),
+                                       torch.as_tensor(jj, device=coords.device)),
+                                      torch.stack(vals))
+        self._last_dist = (qids, dist)
+        if self._interaction == "ising":
+            w = self._device.interaction_coeff / dist**6
+        else:
+            mag = torch.as_tensor(self.samples_obj._magnetic_field[: coords.shape[-1]],
+                                  dtype=DTYPE, device=coords.device)
+            mag_norm = torch.linalg.norm(mag)
+            # double where: a plain where still propagates the unselected
+            # branch's NaN through the gradient when mag_norm == 0 (the
+            # default out-of-plane field), poisoning every coordinate
+            # gradient
+            degenerate = mag_norm < 1e-8
+            safe_denom = torch.where(degenerate, torch.ones_like(dist), dist * mag_norm)
+            cosine = torch.where(degenerate, torch.zeros_like(dist), (diff @ mag) / safe_denom)
+            w = self._device.interaction_coeff_xy * (1 - 3 * cosine**2) / dist**3
         tri = torch.triu(torch.ones(n, n, dtype=DTYPE, device=coords.device), diagonal=1)
         return w * tri * (good[:, None] * good[None, :])
+
+    @property
+    def _dist_dict(self) -> dict[str, torch.Tensor]:
+        """Pair distances 'q1-q2' of the last build (overrides included)."""
+        qids, dist = self._last_dist
+        return {f"{qids[i]}-{qids[j]}": dist[i, j]
+                for i in range(len(qids)) for j in range(i + 1, len(qids))}
 
     def build_data(self, draws: NoiseDraws) -> FactoredHamiltonian:
         """Nested samples + draws -> FactoredHamiltonian."""
@@ -158,8 +210,8 @@ class Hamiltonian:
             return out
 
         def add_term(op_name, sites, amp_stream, det_stream, det_op_name) -> None:
-            op_np = _local_op_np(op_name)
-            det_np = _local_op_np(det_op_name)
+            op_np = _local_op_np(d, self._basis_labels, op_name)
+            det_np = _local_op_np(d, self._basis_labels, det_op_name)
             rsites = [s_ for s_ in sites if s_ < a]
             csites = [s_ for s_ in sites if s_ >= a]
             if amp_stream is not None:
@@ -191,10 +243,11 @@ class Hamiltonian:
                 det_stream = self._adapt_to_sampling_rate(-0.5 * det)
             return amp_stream, det_stream
 
-        qty = samples["Global"].get(_BASIS)
-        if qty:
-            amp_s, det_s = _coeffs(qty)
-            add_term(_OP_IDS[0], list(range(n)), amp_s, det_s, _OP_IDS[1])
+        for basis_key, qty in samples["Global"].items():
+            if qty:
+                amp_op, det_op = _OP_IDS[basis_key]
+                amp_s, det_s = _coeffs(qty)
+                add_term(amp_op, list(range(n)), amp_s, det_s, det_op)
 
         n_samples = int(self._sampling_rate * self._duration)
         sample_dt = 0.001 / self._sampling_rate
@@ -215,8 +268,13 @@ class Hamiltonian:
         cp, cs = _stack_parts(col_parts, col_streams, b)
 
         int_diag = torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
+        kron_row = kron_col = kron_streams = None
         if n > 1:
-            int_diag = self._ising_diag(self._interaction_weights(good))
+            W = self._interaction_weights(good)
+            if self._interaction == "ising":
+                int_diag = self._ising_diag(W)
+            else:
+                kron_row, kron_col, kron_streams = self._xy_kron_terms(W, n_samples)
 
         return FactoredHamiltonian(
             row_parts=rp,
@@ -226,6 +284,9 @@ class Hamiltonian:
             int_diag=int_diag,
             sample_dt=sample_dt,
             n_samples=n_samples,
+            kron_row=kron_row,
+            kron_col=kron_col,
+            kron_streams=kron_streams,
         )
 
     def _ising_diag(self, W: torch.Tensor) -> torch.Tensor:
@@ -252,3 +313,58 @@ class Hamiltonian:
             else torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
         )
         return diag_r[:, None] + diag_c[None, :] + cross
+
+    def _xy_kron_terms(self, W: torch.Tensor, n_samples: int):
+        """Factor the XY dipole flip-flop interaction
+        sum_{i<j} W_ij (sigma_ud^i sigma_du^j + h.c.) into kron-pair terms
+        z_k(t) (R_k (x) C_k) + h.c., applied as R @ Psi @ C^T:
+
+          - within-row-group pairs  -> (sum_{i<j<a} W_ij s+_i s-_j, I_db)
+          - within-col-group pairs  -> (I_da, sum_{a<=i<j} W_ij s+_i s-_j)
+          - cross pairs, grouped by row site i -> (s+_i lift,
+            sum_{j>=a} W_ij s-_j lift)
+
+        W carries the coordinates' gradient into R_k / C_k.  This is the
+        unmasked branch: the JAX package time-windows the terms with on/off
+        streams under an SLM mask, and the port has no SLM mask yet."""
+        d, a, b = self.dim, self._a, self._b
+        da, db = d**a, d**b
+        dev = W.device
+        sig_ud = _local_op_np(d, self._basis_labels, "sigma_ud")
+        sig_du = _local_op_np(d, self._basis_labels, "sigma_du")
+
+        def lift(op: np.ndarray, loc: int, g: int) -> np.ndarray:
+            return np.kron(np.kron(np.eye(d**loc), op), np.eye(d ** (g - loc - 1)))
+
+        def t(x: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(x, dtype=DTYPE, device=dev)
+
+        ud_row = [lift(sig_ud, i, a) for i in range(a)]
+        du_row = [lift(sig_du, i, a) for i in range(a)]
+        ud_col = [lift(sig_ud, j, b) for j in range(b)]
+        du_col = [lift(sig_du, j, b) for j in range(b)]
+        rows, cols = [], []
+        # within-row pairs
+        if a >= 2:
+            m = torch.zeros(da, da, dtype=DTYPE, device=dev)
+            for i in range(a):
+                for j in range(i + 1, a):
+                    m = m + W[i, j] * t(ud_row[i] @ du_row[j])
+            rows.append(m)
+            cols.append(torch.eye(db, dtype=DTYPE, device=dev))
+        # within-col pairs
+        if b >= 2:
+            m = torch.zeros(db, db, dtype=DTYPE, device=dev)
+            for i in range(b):
+                for j in range(i + 1, b):
+                    m = m + W[a + i, a + j] * t(ud_col[i] @ du_col[j])
+            rows.append(torch.eye(da, dtype=DTYPE, device=dev))
+            cols.append(m)
+        # cross pairs grouped by row site
+        if a and b:
+            du_col_j = t(np.stack(du_col))  # (b, db, db)
+            for i in range(a):
+                rows.append(t(ud_row[i]))
+                cols.append(torch.einsum("j,jcd->cd", W[i, a:], du_col_j))
+        zs = torch.ones(len(rows), n_samples, dtype=DTYPE, device=dev)
+        return torch.stack(rows), torch.stack(cols), Cplx(zs, torch.zeros_like(zs))

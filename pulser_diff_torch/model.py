@@ -7,9 +7,11 @@ differentiates with ``jax.value_and_grad``; here ``torch.autograd``
 differentiates it.  Parameters are the declared sequence variables and
 the custom-waveform callables ``{"name": ((p0, p1, ...), fn)}``, which
 register one parameter per argument as ``name_0``, ``name_1``, ...
+A qubit id with a value makes that qubit's coordinates trainable: the
+register is rebuilt from the parameters on every call, so the gradient
+reaches them through the interaction weights.
 
-Duration optimisation, coordinate gradients, noise and ``fit`` are later
-slices.
+Duration optimisation, noise and ``fit`` are later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 from pulser_diff_torch.backend import TorchEmulator
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
+from pulser_diff_torch.core.register import Register
 from pulser_diff_torch.core.sequence import Sequence
 from pulser_diff_torch.core.variables import Expr
 from pulser_diff_torch.ops.linalg import expect as _expect
@@ -69,11 +72,16 @@ class QuantumModel(nn.Module):
 
         self.params = nn.ParameterDict()
         declared = set(seq.declared_variables)
+        qids = {str(q): q for q in self.register.qubit_ids}
+        # qubit id -> its trainable coordinates' parameter name
+        self.trainable_qubits: dict = {}
         for name, val in trainable_param_values.items():
-            if name in self.register.qubit_ids:
-                raise NotImplementedError("Coordinate gradients are not ported yet.")
-            if name not in declared:
-                raise ValueError(f"'{name}' is not a declared sequence variable.")
+            if name in qids:
+                self.trainable_qubits[qids[name]] = name
+            elif name not in declared:
+                raise ValueError(
+                    f"'{name}' is neither a declared sequence variable nor a register qubit id."
+                )
             self.params[name] = nn.Parameter(self._tensor(val))
         for name, ptuple in callable_params.items():
             for i, v in enumerate(ptuple):
@@ -97,8 +105,30 @@ class QuantumModel(nn.Module):
             values[name] = fn(*args)
         return values
 
+    def _construct_register(self, params: Mapping[str, Any]) -> Register:
+        """The register with the trainable coordinates from ``params``, all
+        on the module's device."""
+        coords = {q: c.to(self.torch_device) for q, c in self.register.qubits.items()}
+        for qid, name in self.trainable_qubits.items():
+            coords[qid] = params[name]
+        return Register(coords)
+
+    def _clone_with_register(self, register: Register) -> Sequence:
+        """The sequence replayed on another register: the magnetic field,
+        the XY mode, the variables and every call carried over."""
+        new = Sequence(register, self.device)
+        new._magnetic_field = self._seq._magnetic_field.copy()
+        new._in_xy = self._seq._in_xy
+        new._variables = dict(self._seq._variables)
+        for call in self._seq._calls:
+            getattr(new, call.name)(*call.args, **call.kwargs)
+        new._to_build_calls = list(self._seq._to_build_calls)
+        return new
+
     def _make_emulator(self, params: Mapping[str, Any]) -> TorchEmulator:
         seq = self._seq
+        if self.trainable_qubits:
+            seq = self._clone_with_register(self._construct_register(params))
         built = seq.build(**self._build_values(params)) if seq.is_parametrized() else seq
         sim = TorchEmulator.from_sequence(
             built,

@@ -3,15 +3,17 @@
 The N-qudit state is a (d^a, d^b) split-complex matrix Psi, and
 
     H(t) = Hrow(t) (x) I  +  I (x) Hcol(t)  +  diag(U)
+           + sum_k z_k(t) (R_k (x) C_k) + h.c.
 
 with Hrow, Hcol assembled from static stacks of real part matrices and
-complex coefficient streams.  This slice ports the ising path: no kron
-pairs (the XY flip-flop terms are a later slice).
+complex coefficient streams, U the static van der Waals diagonal (ising)
+and the (R_k, C_k) kron pairs the XY dipole flip-flop terms, applied as
+R @ Psi @ C^T without building the dim x dim matrix.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,6 +30,10 @@ class FactoredHamiltonian(NamedTuple):
     int_diag: torch.Tensor  # (da, db) real static diagonal (vdW)
     sample_dt: float  # us between stream samples
     n_samples: int  # Ts
+    # XY flip-flop terms z_k (R_k (x) C_k) + h.c., or None
+    kron_row: Optional[torch.Tensor] = None  # (K, da, da) real
+    kron_col: Optional[torch.Tensor] = None  # (K, db, db) real
+    kron_streams: Optional[Cplx] = None  # (K, Ts)
 
     @property
     def da(self) -> int:
@@ -47,9 +53,9 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
 
     Follows the JAX package's index rule, which departs from upstream's:
     the full grid is interpolated (idx2 = idx1 + 1 <= Ts-1), so the last
-    sample is read.  Returns (zr, zc) with leading axes = t.shape and the
-    part axis last (the JAX package's third stream, for kron pairs, is
-    not ported yet).
+    sample is read.  Returns (zr, zc, zk) with leading axes = t.shape and
+    the part axis last; zk (the kron-pair streams) is None without kron
+    pairs.
     """
     Ts = h.n_samples
     dt = h.sample_dt
@@ -66,7 +72,8 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
             out.append(z.movedim(0, -1))
         return Cplx(*out)
 
-    return _take(h.row_streams), _take(h.col_streams)
+    zk = _take(h.kron_streams) if h.kron_streams is not None else None
+    return _take(h.row_streams), _take(h.col_streams), zk
 
 
 def assemble_side(parts: torch.Tensor, z: Cplx, transpose: bool = False) -> Cplx:
@@ -81,7 +88,28 @@ def assemble_side(parts: torch.Tensor, z: Cplx, transpose: bool = False) -> Cplx
     return Cplx(h_re, h_im)
 
 
-def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, psi: Cplx) -> Cplx:
+def _kron_terms_batched(h: FactoredHamiltonian, zk: Cplx, x: torch.Tensor, y: torch.Tensor):
+    """Contribution of sum_k z_k (R_k (x) C_k) + h.c. to (H psi) for a
+    batched state (nb, da, db), in real and imaginary parts.
+
+    With T1_k(u) = R u C^T + R^T u C (self-adjoint) and
+    T2_k(u) = R u C^T - R^T u C (anti-self-adjoint), z = a + ib:
+      re += sum_k a_k T1_k(x) - b_k T2_k(y)
+      im += sum_k a_k T1_k(y) + b_k T2_k(x)
+    """
+    KR, KC = h.kron_row, h.kron_col
+    x1 = torch.einsum("kij,bjc,kdc->kbid", KR, x, KC)
+    x2 = torch.einsum("kji,bjc,kcd->kbid", KR, x, KC)
+    y1 = torch.einsum("kij,bjc,kdc->kbid", KR, y, KC)
+    y2 = torch.einsum("kji,bjc,kcd->kbid", KR, y, KC)
+    a, b = zk.re, zk.im
+    add_re = torch.einsum("k,kbid->bid", a, x1 + x2) - torch.einsum("k,kbid->bid", b, y1 - y2)
+    add_im = torch.einsum("k,kbid->bid", a, y1 + y2) + torch.einsum("k,kbid->bid", b, x1 - x2)
+    return add_re, add_im
+
+
+def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx],
+                    psi: Cplx) -> Cplx:
     """H(t) @ psi for a batched state (nb, da, db)."""
     hr = assemble_side(h.row_parts, zr)
     gc = assemble_side(h.col_parts, zc, transpose=True)
@@ -90,4 +118,31 @@ def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, psi: Cplx) -> Cp
     ry = hr.re @ y + hr.im @ x
     cx = x @ gc.re - y @ gc.im
     cy = x @ gc.im + y @ gc.re
-    return Cplx(rx + cx + h.int_diag * x, ry + cy + h.int_diag * y)
+    out_re = rx + cx + h.int_diag * x
+    out_im = ry + cy + h.int_diag * y
+    if h.kron_row is not None and zk is not None:
+        add_re, add_im = _kron_terms_batched(h, zk, x, y)
+        out_re = out_re + add_re
+        out_im = out_im + add_im
+    return Cplx(out_re, out_im)
+
+
+def h_matrix(h: FactoredHamiltonian, t: torch.Tensor) -> Cplx:
+    """The dense (dim, dim) H(t), for introspection and tests."""
+    zr, zc, zk = interp_streams(h, t)
+    hr = assemble_side(h.row_parts, zr)
+    hc = assemble_side(h.col_parts, zc)
+    eye_a = torch.eye(h.da, dtype=h.int_diag.dtype, device=h.int_diag.device)
+    eye_b = torch.eye(h.db, dtype=h.int_diag.dtype, device=h.int_diag.device)
+    full_re = torch.kron(hr.re, eye_b) + torch.kron(eye_a, hc.re)
+    full_im = torch.kron(hr.im, eye_b) + torch.kron(eye_a, hc.im)
+    full_re = full_re + torch.diag(h.int_diag.reshape(-1))
+    if h.kron_row is not None and zk is not None:
+        # M = sum_k z_k R_k (x) C_k;  H += M + M^H
+        kr_full = torch.stack([torch.kron(h.kron_row[k], h.kron_col[k])
+                               for k in range(h.kron_row.shape[0])])
+        m_re = torch.einsum("k,kij->ij", zk.re, kr_full)
+        m_im = torch.einsum("k,kij->ij", zk.im, kr_full)
+        full_re = full_re + m_re + m_re.T
+        full_im = full_im + m_im - m_im.T
+    return Cplx(full_re, full_im)

@@ -19,6 +19,15 @@ its gradient in ONE launch of the adjoint kernel (K2:
     grid point that carries an evaluation slot it reloads the stored
     state and adds that slot's cotangent.
 
+With kron pairs (the XY flip-flop terms, K3) every stage adds
+sum_k za_k T1_k - zb_k T2_k (and the imaginary counterpart) after the
+side and diagonal terms, and the adjoint also emits the kron streams'
+cotangents (two more zbar columns per term) and the part matrices'
+cotangents ``krbar`` / ``kcbar`` (R, K, da, da) / (R, K, db, db), through
+which a coordinate gradient reaches the interaction weights.  The data
+dict then carries ``kr``, ``kc`` and the kron streams; without them every
+kernel takes the ising path unchanged.
+
 The checkpointed pair runs the same stage arithmetic where the state no
 longer fits one block (the JAX package takes it from dim 2^16): K4
 (``csrc/fused_ckpt.cu``: ``fused_fwd_ckpt_kernel``, for
@@ -39,8 +48,8 @@ counts kernel launches (the plain versions never count).
 Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
 ``prepare_fused_inputs``, ``_unpack_zbar``, ``_zero_like_aux``) follows
 the JAX package key by key.  ``zbar`` is written directly as
-``(R, n_steps, S, 2pr + 2pc)``: the ``(1, 128)`` row packing of the Pallas
-kernel was a TPU layout workaround.
+``(R, n_steps, S, 2pr + 2pc + 2K)``: the ``(1, 128)`` row packing of the
+Pallas kernel was a TPU layout workaround.
 """
 
 from __future__ import annotations
@@ -71,6 +80,9 @@ _ZF_KEYS = (
     "zch_re", "zch_im", "zcl_re", "zcl_im",
 )
 _ZB_KEYS = ("zbr_re", "zbr_im", "zbc_re", "zbc_im")
+# the kron pairs' forward-node (hi/lo) and mirror-node streams
+_ZKF_KEYS = ("zkh_re", "zkh_im", "zkl_re", "zkl_im")
+_ZKB_KEYS = ("zkb_re", "zkb_im")
 
 # inputs of the autograd Function, in order; the first eight plus diag /
 # diag_lo / psi carry gradients, the rest are structural constants
@@ -78,6 +90,13 @@ _FN_KEYS = _ZF_KEYS + (
     "diag", "diag_lo", "psi_re", "psi_im",
     "rp", "cp", "hb_hi", "hb_lo", "hs",
 ) + _ZB_KEYS
+# with kron pairs: the part matrices and the forward streams carry
+# gradients, the mirror streams are structural
+_KRON_FN_KEYS = ("kr", "kc") + _ZKF_KEYS + _ZKB_KEYS
+
+# kron pairs the kernels take (12 atoms XY: 8; an SLM-masked 16-atom XY
+# sequence: 20)
+_K_MAX = 32
 
 # kernel launches since the last reset (plain versions never count)
 LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
@@ -92,14 +111,15 @@ _SMEM_LIMIT = 232448
 def _precompute_stage_z(ham: FactoredHamiltonian, grid_times: torch.Tensor,
                         c_nodes: np.ndarray = _RK4_C):
     """Interpolate all coefficient streams at every (step, stage) time.
-    Returns (zr, zc, hs) with z shapes (n_steps, S, P)."""
+    Returns (zr, zc, zk, hs) with z shapes (n_steps, S, P); zk is None
+    without kron pairs."""
     t0s = grid_times[:-1]
     t1s = grid_times[1:]
     hs = t1s - t0s
     c = torch.as_tensor(np.asarray(c_nodes), dtype=hs.dtype, device=hs.device)
     ts = t0s[:, None] + hs[:, None] * c[None, :]
-    zr, zc = interp_streams(ham, ts)
-    return zr, zc, hs
+    zr, zc, zk = interp_streams(ham, ts)
+    return zr, zc, zk, hs
 
 
 def _split_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,8 +132,8 @@ def _split_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _stage_all(ham: FactoredHamiltonian, grid_times: torch.Tensor, method: str) -> dict:
     """Forward-node (hi/lo split) + mirror-node staged streams."""
     C, _, B = _TABLEAUS[method]
-    zr, zc, hs = _precompute_stage_z(ham, grid_times, C)
-    zbr, zbc, _ = _precompute_stage_z(ham, grid_times, 1.0 - C)
+    zr, zc, zk, hs = _precompute_stage_z(ham, grid_times, C)
+    zbr, zbc, zbk, _ = _precompute_stage_z(ham, grid_times, 1.0 - C)
     hb = hs[:, None] * torch.as_tensor(B, dtype=hs.dtype, device=hs.device)[None, :]
     f32 = torch.float32
     out = {}
@@ -126,6 +146,11 @@ def _stage_all(ham: FactoredHamiltonian, grid_times: torch.Tensor, method: str) 
     out["zbr_im"] = zbr.im.to(f32)
     out["zbc_re"] = zbc.re.to(f32)
     out["zbc_im"] = zbc.im.to(f32)
+    if zk is not None:
+        out["zkh_re"], out["zkl_re"] = _split_hi_lo(zk.re)
+        out["zkh_im"], out["zkl_im"] = _split_hi_lo(zk.im)
+        out["zkb_re"] = zbk.re.to(f32)
+        out["zkb_im"] = zbk.im.to(f32)
     out["hb_hi"], out["hb_lo"] = _split_hi_lo(hb)
     out["hs"] = hs.to(f32)
     return out
@@ -155,6 +180,10 @@ def prepare_fused_inputs(
     data["diag_lo"] = diag_lo[None]
     data["psi_re"] = psi0.re.to(f32)[None]
     data["psi_im"] = psi0.im.to(f32)[None]
+    if ham.kron_row is not None:
+        # differentiable casts: the coordinate gradient flows through them
+        data["kr"] = ham.kron_row.to(f32)[None]
+        data["kc"] = ham.kron_col.to(f32)[None]
     # the kernels index dense row-major buffers
     return {k: v.contiguous() for k, v in data.items()}
 
@@ -165,6 +194,16 @@ def _dims(data: dict) -> tuple[int, ...]:
     pr = int(data["rp"].shape[0])
     pc = int(data["cp"].shape[0])
     return R, n_steps, pr, pc, nb, da, db
+
+
+def _n_kron(data: dict) -> int:
+    """K, the number of kron pairs (0 without them)."""
+    return int(data["kr"].shape[1]) if "kr" in data else 0
+
+
+def _fn_keys(data: dict) -> tuple[str, ...]:
+    """The autograd Functions' data keys for ``data``."""
+    return _FN_KEYS + (_KRON_FN_KEYS if "kr" in data else ())
 
 
 def _check_shapes(data: dict, S: int, *states, slots: torch.Tensor | None = None,
@@ -183,6 +222,13 @@ def _check_shapes(data: dict, S: int, *states, slots: torch.Tensor | None = None
     }
     for k in _ZF_KEYS + _ZB_KEYS:
         want[k] = (R, n_steps, S, pr if k.startswith(("zr", "zbr")) else pc)
+    K = _n_kron(data)
+    if K:
+        if K > _K_MAX:
+            raise ValueError(f"The fused kernels take up to {_K_MAX} kron pairs, got {K}.")
+        want["kr"], want["kc"] = (R, K, da, da), (R, K, db, db)
+        for k in _ZKF_KEYS + _ZKB_KEYS:
+            want[k] = (R, n_steps, S, K)
     got = {k: tuple(data[k].shape) for k in want}
     lead = n_steps
     if slots is not None:
@@ -213,6 +259,12 @@ def _unpack_zbar(zbar: torch.Tensor, pr: int, pc: int):
     )
 
 
+def _unpack_zbar_kron(zbar: torch.Tensor, pr: int, pc: int):
+    """The kron columns of the cotangent rows: (zbar_kr, zbar_ki), each
+    (R, n_steps, S, K)."""
+    return zbar[..., 2 * pr + 2 * pc :: 2], zbar[..., 2 * pr + 2 * pc + 1 :: 2]
+
+
 def _parts_sym(data: dict):
     """(P + P^T, P - P^T) of the row and of the column part stacks."""
     rp, cp = data["rp"], data["cp"]
@@ -223,13 +275,18 @@ def _parts_sym(data: dict):
     )
 
 
-def _zero_like_aux(data: dict, zbar, dbar, lam0_re, lam0_im) -> dict:
-    """The cotangent dict: streams / diag / psi carry gradients, everything
-    structural (parts, step sizes, mirror streams) is zero.  Hi and lo
-    words are summed in-kernel, so they get identical cotangents; so do
-    diag and diag_lo."""
+def _zero_like_aux(data: dict, zbar, dbar, lam0_re, lam0_im, kron=None) -> dict:
+    """The cotangent dict: streams / diag / psi (and the kron part matrices
+    and streams: ``kron`` = (zbar_kr, zbar_ki, krbar, kcbar)) carry
+    gradients, everything structural (parts, step sizes, mirror streams)
+    is zero.  Hi and lo words are summed in-kernel, so they get identical
+    cotangents; so do diag and diag_lo."""
     zbar_rr, zbar_ri, zbar_cr, zbar_ci = zbar
     out = {k: torch.zeros_like(v) for k, v in data.items()}
+    if kron is not None:
+        zbar_kr, zbar_ki, out["kr"], out["kc"] = kron
+        out["zkh_re"], out["zkh_im"] = zbar_kr, zbar_ki
+        out["zkl_re"], out["zkl_im"] = zbar_kr, zbar_ki
     out["zrh_re"], out["zrh_im"] = zbar_rr, zbar_ri
     out["zrl_re"], out["zrl_im"] = zbar_rr, zbar_ri
     out["zch_re"], out["zch_im"] = zbar_cr, zbar_ci
@@ -250,7 +307,7 @@ def _f32(x) -> np.float32:
 class _PlainRun:
     """One run's constants for the plain versions: symmetric and
     antisymmetric part stacks, host copies of the stream scalars, the
-    two-word diagonal."""
+    two-word diagonal, and the kron part matrices."""
 
     def __init__(self, data: dict, r: int, mirror: bool) -> None:
         self.rsym, self.rasym, self.csym, self.casym = _parts_sym(data)
@@ -258,6 +315,11 @@ class _PlainRun:
         self.zb = [data[k][r].detach().cpu().numpy() for k in _ZB_KEYS] if mirror else None
         self.d = data["diag"][r]
         self.dlo = data["diag_lo"][r]
+        self.K = _n_kron(data)
+        if self.K:
+            self.kr, self.kc = data["kr"][r], data["kc"][r]
+            self.zkf = [data[k][r].detach().cpu().numpy() for k in _ZKF_KEYS]
+            self.zkb = [data[k][r].detach().cpu().numpy() for k in _ZKB_KEYS] if mirror else None
 
     @staticmethod
     def _assemble(parts: torch.Tensor, z: np.ndarray) -> torch.Tensor:
@@ -267,7 +329,9 @@ class _PlainRun:
         return acc
 
     def side(self, k: int, s: int, mirror: bool = False):
-        """(Hrow re, Hrow im, Hcol^T re, Hcol^T im) at step k, stage s."""
+        """(Hrow re, Hrow im, Hcol^T re, Hcol^T im, kron) at step k, stage
+        s; kron is None or the lists (za, zb) of the kron streams (hi + lo
+        in f32; the mirror's hi word)."""
         a = self._assemble
         if mirror:
             z = self.zb
@@ -281,16 +345,64 @@ class _PlainRun:
             him = a(self.rasym, z[1][k, s]) + a(self.rasym, z[3][k, s])
             gre = a(self.csym, z[4][k, s]) + a(self.csym, z[6][k, s])
             gim = -(a(self.casym, z[5][k, s]) + a(self.casym, z[7][k, s]))
-        return hre, him, gre, gim
+        kron = None
+        if self.K:
+            if mirror:
+                za = [float(v) for v in self.zkb[0][k, s]]
+                zb = [float(v) for v in self.zkb[1][k, s]]
+            else:
+                zf = self.zkf
+                za = [float(_f32(h) + _f32(lo)) for h, lo in zip(zf[0][k, s], zf[2][k, s])]
+                zb = [float(_f32(h) + _f32(lo)) for h, lo in zip(zf[1][k, s], zf[3][k, s])]
+            kron = (za, zb)
+        return hre, him, gre, gim, kron
+
+    def kron_products(self, u: torch.Tensor):
+        """Per term (R u C^T, R^T u C) for u (nb, da, db), R first."""
+        return [((R @ u) @ C.T, (R.T @ u) @ C) for R, C in zip(self.kr, self.kc)]
 
     def apply_minus_iH(self, side, x: torch.Tensor, y: torch.Tensor):
-        """k = -i H u for u = (x, y) of shape (nb, da, db)."""
-        hre, him, gre, gim = side
+        """k = -i H u for u = (x, y) of shape (nb, da, db); the kron terms
+        are added term by term after the side and diagonal terms."""
+        hre, him, gre, gim, kron = side
         a1, a2, a3, a4 = hre @ x, him @ y, him @ x, hre @ y
         c1, c2, c3, c4 = x @ gre, y @ gim, x @ gim, y @ gre
         h_re = (((a1 - a2) + (c1 - c2)) + self.d * x) + self.dlo * x
         h_im = (((a3 + a4) + (c3 + c4)) + self.d * y) + self.dlo * y
+        if kron is not None:
+            za, zb = kron
+            for j, ((x1, x2), (y1, y2)) in enumerate(
+                    zip(self.kron_products(x), self.kron_products(y))):
+                h_re = h_re + ((x1 + x2) * za[j] - (y1 - y2) * zb[j])
+                h_im = h_im + ((y1 + y2) * za[j] + (x1 - x2) * zb[j])
         return h_im, -h_re
+
+    def kron_cotangents(self, kron, gx, gy, ux, uy, krbar, kcbar) -> list:
+        """One stage's kron cotangents for the stage cotangent g = (gx, gy)
+        and the stage input u = (ux, uy): the stream rows (za_bar, zb_bar)
+        per term (returned), and the part-matrix cotangents added to
+        ``krbar`` / ``kcbar`` (K, da, da) / (K, db, db) in place, as K2's
+        kron_matrix_cotangents adds them.  zb_bar = <g, d(-iHu)/dzb> takes
+        the sign of the derivative, the opposite of the Pallas
+        ``_kron_cotangents`` (T2 is anti-self-adjoint)."""
+        za, zb = kron
+        rows = []
+        for (x1, x2), (y1, y2) in zip(self.kron_products(gx), self.kron_products(gy)):
+            rows += [((x1 + x2) * uy - (y1 + y2) * ux).sum(),
+                     ((x2 - x1) * ux + (y2 - y1) * uy).sum()]
+        for j, (R, C) in enumerate(zip(self.kr, self.kc)):
+            dR, dC = krbar[j], kcbar[j]
+            for b in range(gx.shape[0]):
+                B1 = gx[b] * zb[j] - gy[b] * za[j]
+                B2 = gx[b] * -zb[j] - gy[b] * za[j]
+                D1 = gx[b] * za[j] + gy[b] * zb[j]
+                D2 = gx[b] * za[j] - gy[b] * zb[j]
+                dR = (dR + (B1 @ C) @ ux[b].T + (ux[b] @ C) @ B2.T
+                      + (D1 @ C) @ uy[b].T + (uy[b] @ C) @ D2.T)
+                dC = (dC + B1.T @ (R @ ux[b]) + ux[b].T @ (R @ B2)
+                      + D1.T @ (R @ uy[b]) + uy[b].T @ (R @ D2))
+            krbar[j], kcbar[j] = dR, dC
+        return rows
 
 
 def _combine(x, y, ks, coeffs, sign: float = 1.0):
@@ -311,7 +423,8 @@ def _stage_coeffs(A, s: int, h: np.float32) -> list[float]:
 
 
 def _fwd_plain_steps(data: dict, method: str, r: int):
-    """Run r's forward evolution: yields (x, y) after every step.  The
+    """Run r's forward evolution: yields (x, y, cx, cy) after every step,
+    the state and its Kahan carries (the state's low word is -c).  The
     shared body of K1's and K4's plain versions, so their states agree bit
     for bit."""
     A, B, S = _tableau(method)
@@ -351,46 +464,59 @@ def _fwd_plain_steps(data: dict, method: str, r: int):
         t = y + yk
         cy = (t - y) - yk
         y = t
-        yield x, y
+        yield x, y, cx, cy
 
 
-def fused_fwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+def fused_fwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
+                    lo: bool = False):
     """Plain version of K1: the states at every evaluation slot,
-    (R, n_eval, nb, da, db) re/im in f32."""
+    (R, n_eval, nb, da, db) re/im in f32; with ``lo`` also their low words
+    (the negated Kahan carries: the compensated state is hi + lo)."""
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     sl = [int(v) for v in slots.tolist()]
     like = data["psi_re"]
-    out_re = torch.zeros((R, n_eval, nb, da, db), dtype=like.dtype, device=like.device)
-    out_im = torch.zeros_like(out_re)
+    outs = [torch.zeros((R, n_eval, nb, da, db), dtype=like.dtype, device=like.device)
+            for _ in range(4 if lo else 2)]
     for r in range(R):
         if sl[0] < n_eval:
-            out_re[r, sl[0]], out_im[r, sl[0]] = data["psi_re"][r], data["psi_im"][r]
-        for k, (x, y) in enumerate(_fwd_plain_steps(data, method, r)):
+            outs[0][r, sl[0]], outs[1][r, sl[0]] = data["psi_re"][r], data["psi_im"][r]
+        for k, words in enumerate(_fwd_plain_steps(data, method, r)):
             if sl[k + 1] < n_eval:
-                out_re[r, sl[k + 1]], out_im[r, sl[k + 1]] = x, y
-    return out_re, out_im
+                for o, w in zip(outs, _words(words)):
+                    o[r, sl[k + 1]] = w
+    return tuple(outs)
 
 
-def fused_fwd_ckpt_plain(data: dict, method: str):
+def _words(step) -> tuple:
+    """(hi re, hi im, lo re, lo im) of a step of :func:`_fwd_plain_steps`."""
+    x, y, cx, cy = step
+    return x, y, -cx, -cy
+
+
+def fused_fwd_ckpt_plain(data: dict, method: str, lo: bool = False):
     """Plain version of K4: the state after every step,
-    (R, n_steps, nb, da, db) re/im in f32 (index k holds grid point k + 1)."""
+    (R, n_steps, nb, da, db) re/im in f32 (index k holds grid point k + 1);
+    with ``lo`` also their low words, as :func:`fused_fwd_plain`."""
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     like = data["psi_re"]
-    out_re = torch.zeros((R, n_steps, nb, da, db), dtype=like.dtype, device=like.device)
-    out_im = torch.zeros_like(out_re)
+    outs = [torch.zeros((R, n_steps, nb, da, db), dtype=like.dtype, device=like.device)
+            for _ in range(4 if lo else 2)]
     for r in range(R):
-        for k, (x, y) in enumerate(_fwd_plain_steps(data, method, r)):
-            out_re[r, k], out_im[r, k] = x, y
-    return out_re, out_im
+        for k, words in enumerate(_fwd_plain_steps(data, method, r)):
+            for o, w in zip(outs, _words(words)):
+                o[r, k] = w
+    return tuple(outs)
 
 
 def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B, S,
-                        zrow: torch.Tensor):
+                        zrow: torch.Tensor, kbar=None):
     """Phases 2-3 of one adjoint step from the step's START state (x, y):
     the forward stage recompute and the reversed transpose recursion with
-    each stage's cotangent rows (written to ``zrow``, (S, 2pr + 2pc)), then
-    the costate update.  Shared by K2's and K5's plain versions, as the
-    JAX package shares ``_adjoint_core``.  Returns (lx', ly', dacc')."""
+    each stage's cotangent rows (written to ``zrow``, (S, 2pr + 2pc + 2K)),
+    then the costate update; with kron pairs the part-matrix cotangents
+    accumulate into ``kbar`` = (krbar, kcbar) of the run.  Shared by K2's
+    and K5's plain versions, as the JAX package shares ``_adjoint_core``.
+    Returns (lx', ly', dacc')."""
     nb = x.shape[0]
     pr, pc = run.rsym.shape[0], run.csym.shape[0]
     # forward stage inputs (the last stage's product is dead)
@@ -413,7 +539,8 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
                 gx = gx + w[rr][0] * c
                 gy = gy + w[rr][1] * c
         # F^T = -F for the real form of -iH (H hermitian)
-        kx, ky = run.apply_minus_iH(run.side(k, s), gx, gy)
+        side = run.side(k, s)
+        kx, ky = run.apply_minus_iH(side, gx, gy)
         w[s] = (-kx, -ky)
         ux, uy = us[s]
         dacc = dacc + (gx * uy - gy * ux).sum(0)
@@ -431,6 +558,8 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
             rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
         for p in range(pc):
             rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
+        if run.K:
+            rows += run.kron_cotangents(side[4], gx, gy, ux, uy, *kbar)
         zrow[s] = torch.stack(rows)
     # costate update
     for s in range(S):
@@ -439,10 +568,17 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
 
 
 def _bwd_outputs(data: dict, S: int):
+    """(lam0_re, lam0_im, zbar, dbar), then (krbar, kcbar) with kron pairs
+    (zeroed: they accumulate)."""
     R, n_steps, pr, pc, nb, da, db = _dims(data)
+    K = _n_kron(data)
     like = data["psi_re"]
-    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc), dtype=like.dtype, device=like.device)
-    return torch.empty_like(like), torch.empty_like(like), zbar, torch.empty_like(data["diag"])
+    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc + 2 * K), dtype=like.dtype,
+                       device=like.device)
+    outs = (torch.empty_like(like), torch.empty_like(like), zbar, torch.empty_like(data["diag"]))
+    if K:
+        outs += (torch.zeros_like(data["kr"]), torch.zeros_like(data["kc"]))
+    return outs
 
 
 def _step_weights(data: dict, S: int):
@@ -458,13 +594,16 @@ def _step_weights(data: dict, S: int):
 def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
                     last_slot: int, st_re, st_im, lam_re, lam_im):
     """Plain version of K2.  Returns (lam0_re, lam0_im, zbar, dbar) with
-    zbar (R, n_steps, S, 2pr + 2pc) and dbar (R, da, db)."""
+    zbar (R, n_steps, S, 2pr + 2pc + 2K) and dbar (R, da, db), then
+    (krbar, kcbar) with kron pairs."""
     A, B, S = _tableau(method)
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     sl = [int(v) for v in slots.tolist()]
     hs, bhl_all = _step_weights(data, S)
-    lam0_re, lam0_im, zbar, dbar = _bwd_outputs(data, S)
+    outs = _bwd_outputs(data, S)
+    lam0_re, lam0_im, zbar, dbar = outs[:4]
     for r in range(R):
+        kbar = tuple(o[r] for o in outs[4:])
         run = _PlainRun(data, r, mirror=True)
         x, y = st_re[r, last_slot], st_im[r, last_slot]
         lx, ly = lam_re[r, last_slot], lam_im[r, last_slot]
@@ -481,25 +620,27 @@ def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
                             sign=-1.0)
             # 2-3. stage recompute, transpose recursion, costate update
             lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, h, bhl, A, B, S,
-                                               zbar[r, k])
+                                               zbar[r, k], kbar)
             # 4. the stored state / slot cotangent
             if sl[k] < n_eval:
                 x, y = st_re[r, sl[k]], st_im[r, sl[k]]
                 lx, ly = lx + lam_re[r, sl[k]], ly + lam_im[r, sl[k]]
         lam0_re[r], lam0_im[r], dbar[r] = lx, ly, dacc
-    return lam0_re, lam0_im, zbar, dbar
+    return outs
 
 
 def fused_bwd_ckpt_plain(data: dict, method: str, st_re, st_im, lam_re, lam_im):
     """Plain version of K5: the adjoint of :func:`fused_fwd_ckpt_plain`
     for per-step cotangents ``lam`` (R, n_steps, nb, da, db), from the
     stored start states (no mirror pass).  Returns (lam0_re, lam0_im,
-    zbar, dbar) as K2's plain version does."""
+    zbar, dbar[, krbar, kcbar]) as K2's plain version does."""
     A, B, S = _tableau(method)
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     hs, bhl_all = _step_weights(data, S)
-    lam0_re, lam0_im, zbar, dbar = _bwd_outputs(data, S)
+    outs = _bwd_outputs(data, S)
+    lam0_re, lam0_im, zbar, dbar = outs[:4]
     for r in range(R):
+        kbar = tuple(o[r] for o in outs[4:])
         run = _PlainRun(data, r, mirror=False)
         lx = torch.zeros_like(data["psi_re"][r])
         ly = torch.zeros_like(lx)
@@ -513,9 +654,9 @@ def fused_bwd_ckpt_plain(data: dict, method: str, st_re, st_im, lam_re, lam_im):
             else:
                 x, y = st_re[r, k - 1], st_im[r, k - 1]
             lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, _f32(hs[k]),
-                                               bhl_all[k], A, B, S, zbar[r, k])
+                                               bhl_all[k], A, B, S, zbar[r, k], kbar)
         lam0_re[r], lam0_im[r], dbar[r] = lx, ly, dacc
-    return lam0_re, lam0_im, zbar, dbar
+    return outs
 
 
 # ----------------------------------------------------------------------
@@ -528,16 +669,17 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("fused_evolution")
     if not getattr(lib, "_pdt_declared", False):
-        lib.pdt_fused_smem_bytes.argtypes = [_I] * 6
+        lib.pdt_fused_smem_bytes.argtypes = [_I] * 7
         lib.pdt_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.pdt_fused_scratch_floats.argtypes = [_I] * 6
+        lib.pdt_fused_scratch_floats.argtypes = [_I] * 7
         lib.pdt_fused_scratch_floats.restype = ctypes.c_size_t
         lib.pdt_fused_fwd.argtypes = (
-            [_P] * 6 + [_P] + [_P] * 6 + [_P] * 3 + [_I] * 9 + [_P, _P, _P]
+            [_P] * 6 + [_P] + [_P] * 6 + [_P] * 5 + [_P, _I] + [_I] * 9 + [_P, _P, _P]
         )
         lib.pdt_fused_fwd.restype = _I
         lib.pdt_fused_bwd.argtypes = (
-            [_P] * 8 + [_P, _P] + [_P] * 6 + [_P] * 5 + [_I] * 10 + [_P, _P, _P]
+            [_P] * 8 + [_P, _P] + [_P] * 6 + [_P] * 5 + [_P, _P, _P, _I] + [_I] * 10
+            + [_P, _P, _P]
         )
         lib.pdt_fused_bwd.restype = _I
         lib._pdt_declared = True
@@ -571,18 +713,21 @@ def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
         raise ValueError(f"{what}: at most 8 row and 8 column parts are supported (pr={pr}, pc={pc}).")
     if err == -3:
         raise RuntimeError(f"{what}: the device does not support cooperative launches.")
+    if err == -4:
+        raise ValueError(f"{what}: at most {_K_MAX} kron pairs are supported.")
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}.")
 
 
-def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int) -> None:
+def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int, K: int) -> None:
     """Both side matrices and the padded (nb, da, db + 1) stage input live
-    in one block's shared memory, so the limit is on nb * da * db.  The
-    checkpointed kernels (K4/K5) keep them in device memory instead."""
-    need = int(lib.pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc))
+    in one block's shared memory, so the limit is on nb * da * db (the
+    kron branch adds only its 2K stream values there).  The checkpointed
+    kernels (K4/K5) keep them in device memory instead."""
+    need = int(lib.pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc, K))
     if need > _SMEM_LIMIT:
         fits = [n for n in range(1, nb)
-                if lib.pdt_fused_smem_bytes(bwd, n, da, db, pr, pc) <= _SMEM_LIMIT]
+                if lib.pdt_fused_smem_bytes(bwd, n, da, db, pr, pc, K) <= _SMEM_LIMIT]
         most = f"state batches up to nb={fits[-1]}" if fits else "no state batch"
         raise ValueError(
             f"The fused kernel needs {need} bytes of shared memory for "
@@ -593,18 +738,30 @@ def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int) -> N
         )
 
 
-def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int):
+def _kron_ptrs(data: dict, bwd: bool):
+    """The kron inputs' pointers (kr, kc, forward streams, then K2's mirror
+    streams; null without kron pairs) and the names the launch checks."""
+    names = ("kr", "kc") + _ZKF_KEYS + (_ZKB_KEYS if bwd else ())
+    if "kr" not in data:
+        return (_P * 8)(), ()
+    return (_P * 8)(*[data[k].data_ptr() for k in names]), names
+
+
+def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int, lo: bool):
     device = data["psi_re"].device
     R, n_steps, pr, pc, nb, da, db = _dims(data)
+    K = _n_kron(data)
+    kron, knames = _kron_ptrs(data, False)
     names = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS
-    _check_cuda({**{k: data[k] for k in names}, "slots": slots}, device)
+    _check_cuda({**{k: data[k] for k in names + knames}, "slots": slots}, device)
     lib = _library()
-    _smem_check(lib, 0, nb, da, db, pr, pc)
+    _smem_check(lib, 0, nb, da, db, pr, pc, K)
     a_arr, bnz, S = _tableau_c(method)
     rsym, rasym, csym, casym = _parts_sym(data)
-    out_re = torch.empty((R, n_eval, nb, da, db), dtype=torch.float32, device=device)
-    out_im = torch.empty_like(out_re)
-    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(0, R, S, nb, da, db)),
+    outs = tuple(torch.empty((R, n_eval, nb, da, db), dtype=torch.float32, device=device)
+                 for _ in range(4 if lo else 2))
+    lo_ptrs = (outs[2].data_ptr(), outs[3].data_ptr()) if lo else (None, None)
+    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(0, R, S, nb, da, db, K)),
                           dtype=torch.float32, device=device)
     zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
     # the library's runtime launches on its current device: make it the data's
@@ -616,34 +773,35 @@ def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int):
             zf,
             data["hb_hi"].data_ptr(), data["hb_lo"].data_ptr(), data["hs"].data_ptr(),
             data["diag"].data_ptr(), data["diag_lo"].data_ptr(), slots.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(), scratch.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), *lo_ptrs, scratch.data_ptr(), kron, K,
             R, n_steps, nb, da, db, pr, pc, n_eval, S,
             a_arr, bnz, stream,
         )
     _launch_check(err, "fused_fwd_kernel", pr, pc)
     LAUNCHES["fused_fwd"] += 1
-    return out_re, out_im
+    return outs
 
 
 def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
                     last_slot: int, st_re, st_im, lam_re, lam_im):
     device = data["psi_re"].device
     R, n_steps, pr, pc, nb, da, db = _dims(data)
+    K = _n_kron(data)
+    kron, knames = _kron_ptrs(data, True)
     names = ("rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS + _ZB_KEYS
     _check_cuda(
-        {**{k: data[k] for k in names}, "slots": slots, "st_re": st_re,
+        {**{k: data[k] for k in names + knames}, "slots": slots, "st_re": st_re,
          "st_im": st_im, "lam_re": lam_re, "lam_im": lam_im},
         device,
     )
     lib = _library()
-    _smem_check(lib, 1, nb, da, db, pr, pc)
+    _smem_check(lib, 1, nb, da, db, pr, pc, K)
     a_arr, bnz, S = _tableau_c(method)
     rsym, rasym, csym, casym = _parts_sym(data)
-    lam0_re = torch.empty((R, nb, da, db), dtype=torch.float32, device=device)
-    lam0_im = torch.empty_like(lam0_re)
-    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc), dtype=torch.float32, device=device)
-    dbar = torch.empty((R, da, db), dtype=torch.float32, device=device)
-    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(1, R, S, nb, da, db)),
+    outs = _bwd_outputs(data, S)
+    lam0_re, lam0_im, zbar, dbar = outs[:4]
+    krbar, kcbar = (o.data_ptr() for o in outs[4:]) if K else (None, None)
+    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(1, R, S, nb, da, db, K)),
                           dtype=torch.float32, device=device)
     zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
     zb = (_P * 4)(*[data[k].data_ptr() for k in _ZB_KEYS])
@@ -656,35 +814,38 @@ def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
             data["hb_hi"].data_ptr(), data["hb_lo"].data_ptr(), data["hs"].data_ptr(),
             data["diag"].data_ptr(), data["diag_lo"].data_ptr(), slots.data_ptr(),
             lam0_re.data_ptr(), lam0_im.data_ptr(), zbar.data_ptr(), dbar.data_ptr(),
-            scratch.data_ptr(),
+            scratch.data_ptr(), kron, krbar, kcbar, K,
             R, n_steps, nb, da, db, pr, pc, n_eval, last_slot, S,
             a_arr, bnz, stream,
         )
     _launch_check(err, "fused_bwd_kernel", pr, pc)
     LAUNCHES["fused_bwd"] += 1
-    return lam0_re, lam0_im, zbar, dbar
+    return outs
 
 
-def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int):
-    """K1: forward evolution writing every evaluation-slot state.
+def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int, lo: bool = False):
+    """K1: forward evolution writing every evaluation-slot state; with
+    ``lo`` also the states' low words (their Kahan carries, negated).
 
-    Replaces ``_fwd_kernel`` (pallas_evolution.py) with ``states=True``
-    and no kron pairs.  CPU tensors take :func:`fused_fwd_plain`; CUDA
-    tensors launch ``fused_fwd_kernel``."""
+    Replaces ``_fwd_kernel`` (pallas_evolution.py) with ``states=True``,
+    with its kron-pair branch when ``data`` has kron pairs.  CPU tensors
+    take :func:`fused_fwd_plain`; CUDA tensors launch
+    ``fused_fwd_kernel``."""
     _check_shapes(data, _tableau(method)[2], slots=slots, n_eval=n_eval)
     dev = data["psi_re"].device
     if dev.type == "cpu":
-        return fused_fwd_plain(data, method, slots, n_eval)
+        return fused_fwd_plain(data, method, slots, n_eval, lo)
     if dev.type == "cuda":
-        return _fused_fwd_cuda(data, method, slots, n_eval)
+        return _fused_fwd_cuda(data, method, slots, n_eval, lo)
     raise ValueError(f"No fused kernel for device type '{dev.type}'.")
 
 
 def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
               last_slot: int, st_re, st_im, lam_re, lam_im):
     """K2: discrete adjoint of :func:`fused_fwd` for the slot cotangents
-    ``lam``.  Replaces ``_bwd_kernel`` (lean interval form).  CPU tensors
-    take :func:`fused_bwd_plain`; CUDA tensors launch
+    ``lam``.  Replaces ``_bwd_kernel`` (lean interval form).  Returns
+    (lam0_re, lam0_im, zbar, dbar), then (krbar, kcbar) with kron pairs.
+    CPU tensors take :func:`fused_bwd_plain`; CUDA tensors launch
     ``fused_bwd_kernel``."""
     _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im,
                   slots=slots, n_eval=n_eval)
@@ -715,13 +876,13 @@ _CKPT_DATA_KEYS = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag
 def _ckpt_library() -> ctypes.CDLL:
     lib = kernel_build.load("fused_ckpt")
     if not getattr(lib, "_pdt_declared", False):
-        lib.pdt_ckpt_scratch_floats.argtypes = [_I] * 6
+        lib.pdt_ckpt_scratch_floats.argtypes = [_I] * 7
         lib.pdt_ckpt_scratch_floats.restype = ctypes.c_size_t
-        lib.pdt_ckpt_blocks.argtypes = [_I] * 5
+        lib.pdt_ckpt_blocks.argtypes = [_I] * 6
         lib.pdt_ckpt_blocks.restype = _I
-        lib.pdt_ckpt_fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P, _P, _P]
+        lib.pdt_ckpt_fwd.argtypes = [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_P, _P, _P]
         lib.pdt_ckpt_fwd.restype = _I
-        lib.pdt_ckpt_bwd.argtypes = [_P] * 7 + [_I] * 8 + [_P, _P, _P]
+        lib.pdt_ckpt_bwd.argtypes = [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P, _P, _P]
         lib.pdt_ckpt_bwd.restype = _I
         lib._pdt_declared = True
     return lib
@@ -732,44 +893,50 @@ def ckpt_blocks(data: dict, bwd: bool) -> int:
     or K5 launches for ``data`` on its CUDA device."""
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     with torch.cuda.device(data["psi_re"].device):
-        return int(_ckpt_library().pdt_ckpt_blocks(int(bwd), R, nb, da, db))
+        return int(_ckpt_library().pdt_ckpt_blocks(int(bwd), R, nb, da, db, _n_kron(data)))
 
 
 def _ckpt_launch(fn_name: str, bwd: int, data: dict, method: str, tensors: dict, outs) -> None:
     """Check, then launch K4 or K5 as one cooperative grid on the data's
-    device and torch's current stream; raise if the launch is refused."""
+    device and torch's current stream; raise if the launch is refused.
+    ``outs``: K4's states, or K5's (lam0_re, lam0_im, zbar, dbar[, krbar,
+    kcbar])."""
     device = data["psi_re"].device
     R, n_steps, pr, pc, nb, da, db = _dims(data)
-    _check_cuda(tensors, device)
+    K = _n_kron(data)
+    kron, knames = _kron_ptrs(data, False)
+    _check_cuda({**tensors, **{k: data[k] for k in knames}}, device)
     lib = _ckpt_library()
     a_arr, bnz, S = _tableau_c(method)
     rsym, rasym, csym, casym = _parts_sym(data)
     ins = {**tensors, "rsym": rsym, "rasym": rasym, "csym": csym, "casym": casym}
     order = _CKPT_BWD_IN if bwd else _CKPT_FWD_IN
     in_ptrs = (_P * len(order))(*[ins[k].data_ptr() for k in order])
-    scratch = torch.empty(int(lib.pdt_ckpt_scratch_floats(bwd, R, S, nb, da, db)),
+    scratch = torch.empty(int(lib.pdt_ckpt_scratch_floats(bwd, R, S, nb, da, db, K)),
                           dtype=torch.float32, device=device)
     # the grid barrier's arrival count and generation; the count starts at 0
     barrier = torch.zeros(2, dtype=torch.int32, device=device)
-    out_ptrs = [t.data_ptr() for t in outs]
+    out_ptrs = [t.data_ptr() for t in outs[:4]]
+    if bwd:
+        out_ptrs += [t.data_ptr() for t in outs[4:]] if K else [None, None]
+    elif len(outs) == 2:
+        out_ptrs += [None, None]  # no low words
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn_name)(
-            in_ptrs, *out_ptrs, scratch.data_ptr(), barrier.data_ptr(),
+            in_ptrs, kron, K, *out_ptrs, scratch.data_ptr(), barrier.data_ptr(),
             R, n_steps, nb, da, db, pr, pc, S, a_arr, bnz, stream,
         )
     _launch_check(err, fn_name, pr, pc)
 
 
-def _fused_fwd_ckpt_cuda(data: dict, method: str):
+def _fused_fwd_ckpt_cuda(data: dict, method: str, lo: bool):
     R, n_steps, pr, pc, nb, da, db = _dims(data)
-    out_re = torch.empty((R, n_steps, nb, da, db), dtype=torch.float32,
-                         device=data["psi_re"].device)
-    out_im = torch.empty_like(out_re)
-    _ckpt_launch("pdt_ckpt_fwd", 0, data, method, {k: data[k] for k in _CKPT_DATA_KEYS},
-                 (out_re, out_im))
+    outs = tuple(torch.empty((R, n_steps, nb, da, db), dtype=torch.float32,
+                             device=data["psi_re"].device) for _ in range(4 if lo else 2))
+    _ckpt_launch("pdt_ckpt_fwd", 0, data, method, {k: data[k] for k in _CKPT_DATA_KEYS}, outs)
     LAUNCHES["fused_fwd_ckpt"] += 1
-    return out_re, out_im
+    return outs
 
 
 def _fused_bwd_ckpt_cuda(data: dict, method: str, st_re, st_im, lam_re, lam_im):
@@ -781,26 +948,28 @@ def _fused_bwd_ckpt_cuda(data: dict, method: str, st_re, st_im, lam_re, lam_im):
     return outs
 
 
-def fused_fwd_ckpt(data: dict, method: str):
+def fused_fwd_ckpt(data: dict, method: str, lo: bool = False):
     """K4: forward evolution storing the state after every step,
-    (R, n_steps, nb, da, db) re/im.
+    (R, n_steps, nb, da, db) re/im; with ``lo`` also their low words.
 
-    Replaces ``_fwd_ckpt_kernel`` (pallas_evolution.py) with no kron
-    pairs.  CPU tensors take :func:`fused_fwd_ckpt_plain`; CUDA tensors
-    launch ``fused_fwd_ckpt_kernel`` (csrc/fused_ckpt.cu)."""
+    Replaces ``_fwd_ckpt_kernel`` (pallas_evolution.py), with its
+    kron-pair branch when ``data`` has kron pairs.  CPU tensors take
+    :func:`fused_fwd_ckpt_plain`; CUDA tensors launch
+    ``fused_fwd_ckpt_kernel`` (csrc/fused_ckpt.cu)."""
     _check_shapes(data, _tableau(method)[2])
     dev = data["psi_re"].device
     if dev.type == "cpu":
-        return fused_fwd_ckpt_plain(data, method)
+        return fused_fwd_ckpt_plain(data, method, lo)
     if dev.type == "cuda":
-        return _fused_fwd_ckpt_cuda(data, method)
+        return _fused_fwd_ckpt_cuda(data, method, lo)
     raise ValueError(f"No fused kernel for device type '{dev.type}'.")
 
 
 def fused_bwd_ckpt(data: dict, method: str, st_re, st_im, lam_re, lam_im):
     """K5: adjoint of :func:`fused_fwd_ckpt` for the per-step cotangents
     ``lam``, from the stored states ``st``.  Replaces ``_bwd_ckpt_kernel``.
-    CPU tensors take :func:`fused_bwd_ckpt_plain`; CUDA tensors launch
+    Returns what :func:`fused_bwd` returns.  CPU tensors take
+    :func:`fused_bwd_ckpt_plain`; CUDA tensors launch
     ``fused_bwd_ckpt_kernel``."""
     _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im)
     dev = data["psi_re"].device
@@ -814,32 +983,65 @@ def fused_bwd_ckpt(data: dict, method: str, st_re, st_im, lam_re, lam_im):
 # ----------------------------------------------------------------------
 # autograd
 # ----------------------------------------------------------------------
+def _states_out(outs) -> tuple:
+    """A forward kernel's states as the autograd Functions return them:
+    the f32 hi words, or with kron pairs (outs carries the low words) the
+    compensated state hi + lo, exactly, in f64.
+
+    Why only with kron pairs: the XY main path's observable (12 atoms,
+    total magnetization ~11.9 from a state within a few 1e-3 of |u...u>)
+    moves by up to ~7e-7 under the f32 rounding of the state alone, half
+    of the 1e-6 bar, and the hi words missed the bar (1.08e-6); with the
+    low words that term is gone.  The ising path keeps the Pallas kernels'
+    single-word states: with low words the 4-atom ising model of
+    tests/test_torch_model.py and tests/test_torch_ckpt.py moves 2.14e-7
+    from the JAX package's fused value (which returns the hi words), past
+    the 1e-7 parity those tests hold, for no bar the ising path misses."""
+    if len(outs) == 2:
+        return outs
+    f64 = torch.float64
+    return outs[0].to(f64) + outs[2].to(f64), outs[1].to(f64) + outs[3].to(f64)
+
+
+def _f32_cot(g: torch.Tensor) -> torch.Tensor:
+    """A state cotangent as the adjoint kernels take it.  A low word is the
+    forward's rounding remainder: its derivative is taken as zero, so the
+    cotangent of hi + lo is the cotangent of hi."""
+    return g.to(torch.float32).contiguous()
+
+
+def _cotangents(data: dict, outs) -> dict:
+    """An adjoint kernel's outputs as the cotangent of every data key."""
+    lam0_re, lam0_im, zbar, dbar = outs[:4]
+    pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
+    kron = (*_unpack_zbar_kron(zbar, pr, pc), *outs[4:]) if len(outs) > 4 else None
+    return _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im, kron)
+
+
 class _FusedEvolveStates(torch.autograd.Function):
     """Counterpart of the JAX custom VJP ``fused_evolve_states``: forward
     is K1, backward is K2."""
 
     @staticmethod
-    def forward(ctx, method, slots, n_eval, last_slot, *tensors):
-        data = dict(zip(_FN_KEYS, tensors))
-        out_re, out_im = fused_fwd(data, method, slots, n_eval)
-        ctx.method, ctx.n_eval, ctx.last_slot = method, n_eval, last_slot
-        ctx.save_for_backward(slots, out_re, out_im, *tensors)
-        return out_re, out_im
+    def forward(ctx, method, slots, n_eval, last_slot, keys, *tensors):
+        data = dict(zip(keys, tensors))
+        outs = fused_fwd(data, method, slots, n_eval, lo="kr" in data)
+        ctx.method, ctx.n_eval, ctx.last_slot, ctx.keys = method, n_eval, last_slot, keys
+        ctx.save_for_backward(slots, outs[0], outs[1], *tensors)
+        return _states_out(outs)
 
     @staticmethod
     def backward(ctx, g_re, g_im):
         slots, st_re, st_im, *tensors = ctx.saved_tensors
-        data = dict(zip(_FN_KEYS, tensors))
-        lam0_re, lam0_im, zbar, dbar = fused_bwd(
+        data = dict(zip(ctx.keys, tensors))
+        cot = _cotangents(data, fused_bwd(
             data, ctx.method, slots, ctx.n_eval, ctx.last_slot,
-            st_re, st_im, g_re.contiguous(), g_im.contiguous(),
-        )
-        pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
-        cot = _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im)
+            st_re, st_im, _f32_cot(g_re), _f32_cot(g_im),
+        ))
         grads = tuple(
-            cot[k] if ctx.needs_input_grad[4 + i] else None for i, k in enumerate(_FN_KEYS)
+            cot[k] if ctx.needs_input_grad[5 + i] else None for i, k in enumerate(ctx.keys)
         )
-        return (None, None, None, None) + grads
+        return (None, None, None, None, None) + grads
 
 
 def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
@@ -849,9 +1051,11 @@ def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
 
     slots: int32 tensor (n_steps + 1,) of grid write slots on the data's
     device; n_eval: number of evaluation slots; last_slot: the final grid
-    point's slot.  Returns (R, n_eval, nb, da, db) re/im."""
+    point's slot.  Returns (R, n_eval, nb, da, db) re/im: f32, or with
+    kron pairs the two-word states hi + lo in f64 (see ``_states_out``)."""
+    keys = _fn_keys(data)
     return _FusedEvolveStates.apply(
-        method, slots, int(n_eval), int(last_slot), *[data[k] for k in _FN_KEYS]
+        method, slots, int(n_eval), int(last_slot), keys, *[data[k] for k in keys]
     )
 
 
@@ -861,40 +1065,40 @@ class _FusedEvolveCkpt(torch.autograd.Function):
     it (dense, zero at every step no slot reads)."""
 
     @staticmethod
-    def forward(ctx, method, *tensors):
-        data = dict(zip(_FN_KEYS, tensors))
-        st_re, st_im = fused_fwd_ckpt(data, method)
-        ctx.method = method
-        ctx.save_for_backward(st_re, st_im, *tensors)
-        return st_re, st_im
+    def forward(ctx, method, keys, *tensors):
+        data = dict(zip(keys, tensors))
+        outs = fused_fwd_ckpt(data, method, lo="kr" in data)
+        ctx.method, ctx.keys = method, keys
+        ctx.save_for_backward(outs[0], outs[1], *tensors)
+        return _states_out(outs)
 
     @staticmethod
     def backward(ctx, g_re, g_im):
         st_re, st_im, *tensors = ctx.saved_tensors
-        data = dict(zip(_FN_KEYS, tensors))
-        lam0_re, lam0_im, zbar, dbar = fused_bwd_ckpt(
-            data, ctx.method, st_re, st_im, g_re.contiguous(), g_im.contiguous())
-        pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
-        cot = _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im)
+        data = dict(zip(ctx.keys, tensors))
+        cot = _cotangents(data, fused_bwd_ckpt(
+            data, ctx.method, st_re, st_im, _f32_cot(g_re), _f32_cot(g_im)))
         grads = tuple(
-            cot[k] if ctx.needs_input_grad[1 + i] else None for i, k in enumerate(_FN_KEYS)
+            cot[k] if ctx.needs_input_grad[2 + i] else None for i, k in enumerate(ctx.keys)
         )
-        return (None,) + grads
+        return (None, None) + grads
 
 
 def fused_evolve_ckpt(method: str, data: dict):
     """Fused f32 ERK evolution emitting EVERY step's state,
-    (R, n_steps, nb, da, db) re/im (the state after step k at index k),
-    differentiable through the checkpointed adjoint kernel, which reads
-    exact start states from this buffer instead of reconstructing them."""
-    return _FusedEvolveCkpt.apply(method, *[data[k] for k in _FN_KEYS])
+    (R, n_steps, nb, da, db) re/im (as :func:`fused_evolve_states` returns
+    them; the state after step k at index k), differentiable through the
+    checkpointed adjoint kernel, which reads exact start states (the hi
+    words the forward stepped from) instead of reconstructing them."""
+    keys = _fn_keys(data)
+    return _FusedEvolveCkpt.apply(method, keys, *[data[k] for k in keys])
 
 
 def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5",
                   ckpt: bool = False) -> Cplx:
     """Fused evolution emitting the states at the grid's evaluation slots,
-    (n_eval, nb, da, db) f32, differentiable (counterpart of
-    ``pallas_evolve_states``).  ``ckpt=True`` takes the checkpointed
+    (n_eval, nb, da, db) f32 (f64 two-word states with kron pairs),
+    differentiable (counterpart of ``pallas_evolve_states``).  ``ckpt=True`` takes the checkpointed
     kernels (K4/K5): every step's state is stored and the slots are
     gathered from it, so their cotangents scatter into the per-step
     buffer."""
@@ -913,8 +1117,8 @@ def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5
         by_slot = {int(s): g for g, s in enumerate(slots_np) if s < grid.n_eval}
         idx = torch.as_tensor([by_slot[s] for s in range(grid.n_eval)],
                               device=psi0.re.device)
-        return Cplx(torch.cat([data["psi_re"], st_re[0]]).index_select(0, idx),
-                    torch.cat([data["psi_im"], st_im[0]]).index_select(0, idx))
+        return Cplx(torch.cat([data["psi_re"].to(st_re.dtype), st_re[0]]).index_select(0, idx),
+                    torch.cat([data["psi_im"].to(st_im.dtype), st_im[0]]).index_select(0, idx))
     slots = torch.as_tensor(slots_np, device=psi0.re.device)
     out_re, out_im = fused_evolve_states(method, slots, grid.n_eval, last_slot, data)
     return Cplx(out_re[0], out_im[0])

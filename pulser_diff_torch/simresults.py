@@ -1,7 +1,7 @@
 """Simulation results (counterpart of pulser_diff_tpu/simresults.py).
 
-This slice ports the coherent results: the states at every evaluation
-time and their expectation values.
+The port has the coherent results: the states at every evaluation time
+and their expectation values, in the ground-rydberg or the XY basis.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ class CoherentResults:
         basis_name: str,
         sim_times: np.ndarray,
     ) -> None:
-        if basis_name != "ground-rydberg":
-            raise ValueError("Only the 'ground-rydberg' basis is ported.")
+        if basis_name not in ("ground-rydberg", "XY"):
+            raise ValueError("Only the 'ground-rydberg' and 'XY' bases are ported.")
         self._dim = 2
         self._size = size
         self._basis_name = basis_name

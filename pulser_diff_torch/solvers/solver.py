@@ -92,8 +92,8 @@ _RK4_B = np.array([1 / 6, 1 / 3, 1 / 3, 1 / 6])
 
 def _se_rhs(ham: FactoredHamiltonian, t: torch.Tensor, psi: Cplx) -> Cplx:
     """dpsi/dt = -i H(t) psi."""
-    zr, zc = interp_streams(ham, t)
-    return h_apply_batched(ham, zr, zc, psi).mul_neg_i()
+    zr, zc, zk = interp_streams(ham, t)
+    return h_apply_batched(ham, zr, zc, zk, psi).mul_neg_i()
 
 
 def _explicit_rk_step(rhs, t0, h, y: Cplx, c_nodes, a_coeffs, b_weights) -> Cplx:

@@ -99,7 +99,8 @@ def test_interp_streams_match_jax():
     T = float(jh.sample_dt) * (int(jh.n_samples) - 1)
     t = np.concatenate([np.linspace(0.0, T, 37), [T, 0.5 * float(jh.sample_dt)]])
     jr, jc, _ = j_interp(jh, jnp.asarray(t))
-    tr, tc = t_interp(th, torch.as_tensor(t, dtype=torch.float64))
+    tr, tc, tk = t_interp(th, torch.as_tensor(t, dtype=torch.float64))
+    assert tk is None
     for a, b in ((tr.re, jr.re), (tr.im, jr.im), (tc.re, jc.re), (tc.im, jc.im)):
         np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=0, atol=F64_TOL)
 

@@ -171,3 +171,42 @@ def test_fused_run_and_routing(monkeypatch):
         tsim.run(remat=True)
     with pytest.raises(TypeError, match="Sequence instance"):
         TorchEmulator.from_sequence(sequence(jcore, 2), device="cpu")
+
+
+def _spy_kron(monkeypatch, name):
+    """Record the number of kron pairs in the data of each ``tfe.<name>``
+    call."""
+    calls = []
+    real = getattr(tfe, name)
+
+    def spy(data, *a, **k):
+        calls.append(tfe._n_kron(data))
+        return real(data, *a, **k)
+
+    monkeypatch.setattr(tfe, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("ckpt", [None, True])
+def test_xy_fused_routing(monkeypatch, ckpt):
+    """An XY sequence with DP5_PALLAS at small dim reaches the K1/K2
+    wrappers with its kron pairs (K > 0), value and distance gradient
+    alike; ckpt=True takes K4/K5 instead; DP5_SE on the CPU stays on the
+    f64 stepper."""
+    from tests.torch_port_cases import xy_emulators
+
+    _, tsim = xy_emulators(3, duration=40, seed=8, field=(1.0, 1.0, 0.0))
+    names = ("fused_fwd", "fused_bwd", "fused_fwd_ckpt", "fused_bwd_ckpt")
+    calls = {n: _spy_kron(monkeypatch, n) for n in names}
+    opts = {} if ckpt is None else {"ckpt": ckpt}
+    d = torch.tensor([8.5, 16.2, 8.3], dtype=torch.float64, requires_grad=True)
+    fn = tsim.expectation_fn_of_dists(total_magnetization(3), solver="DP5_PALLAS", **opts)
+    fn(d)[-1].backward()
+    assert bool(torch.isfinite(d.grad).all()) and float(d.grad.abs().max()) > 0
+    used = ("fused_fwd_ckpt", "fused_bwd_ckpt") if ckpt else ("fused_fwd", "fused_bwd")
+    assert {n: len(c) for n, c in calls.items()} == {n: int(n in used) for n in names}
+    assert all(k == 2 for n in used for k in calls[n])  # within-column + one cross term
+    tsim.run(solver="DP5_PALLAS", **opts)
+    assert len(calls[used[0]]) == 2
+    tsim.run()
+    assert len(calls[used[0]]) == 2 and sum(len(c) for c in calls.values()) == 3

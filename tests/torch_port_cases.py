@@ -47,6 +47,42 @@ def sequence(core, n_atoms: int, duration: int = 100, seed: int = 0, phase: floa
     return seq
 
 
+def xy_coords(n_atoms: int, seed: int) -> list[tuple[float, float]]:
+    """A zig-zag line 8 um apart with a seeded jitter: no two pairs share a
+    distance or an angle to an in-plane field."""
+    rng = np.random.default_rng(seed)
+    jit = rng.uniform(-0.5, 0.5, size=(n_atoms, 2))
+    return [(8.0 * i + jit[i, 0], 2.0 * (i % 2) + jit[i, 1]) for i in range(n_atoms)]
+
+
+def xy_sequence(core, n_atoms: int, duration: int = 80, seed: int = 0,
+                field: tuple | None = None, phase: float = 0.3):
+    """One microwave_global pulse with custom amplitude and detuning (XY
+    mode), in the package ``core``; ``field`` sets the magnetic field."""
+    amp, det = pulse_samples(duration, seed)
+    reg = core.Register.from_coordinates(xy_coords(n_atoms, seed), prefix="q")
+    seq = core.Sequence(reg, core.MockDevice)
+    seq.declare_channel("mw", "microwave_global")
+    if field is not None:
+        seq.set_magnetic_field(*field)
+    seq.add(core.Pulse(core.CustomWaveform(amp), core.CustomWaveform(0.5 * det), phase), "mw")
+    return seq
+
+
+def xy_emulators(n_atoms: int, duration: int = 80, seed: int = 0, field: tuple | None = None,
+                 sampling_rate: float = 0.5, evaluation_times="Minimal"):
+    """(JAX emulator, port emulator on the CPU) for the same XY sequence."""
+    jsim = TpuEmulator.from_sequence(
+        xy_sequence(jcore, n_atoms, duration, seed, field),
+        sampling_rate=sampling_rate, evaluation_times=evaluation_times,
+    )
+    tsim = TorchEmulator.from_sequence(
+        xy_sequence(tcore, n_atoms, duration, seed, field),
+        sampling_rate=sampling_rate, evaluation_times=evaluation_times, device="cpu",
+    )
+    return jsim, tsim
+
+
 def emulators(n_atoms: int, duration: int = 100, seed: int = 0,
               sampling_rate: float = 0.5, evaluation_times="Minimal"):
     """(JAX emulator, port emulator on the CPU) for the same sequence."""
@@ -95,6 +131,16 @@ def factored_fields(ham) -> dict[str, np.ndarray]:
         "int_diag": to_numpy(ham.int_diag),
         "sample_dt": np.asarray(float(ham.sample_dt)),
         "n_samples": np.asarray(int(ham.n_samples)),
+    }
+
+
+def kron_fields(ham) -> dict[str, np.ndarray]:
+    """The kron-pair fields of a FactoredHamiltonian of either package."""
+    return {
+        "kron_row": to_numpy(ham.kron_row),
+        "kron_col": to_numpy(ham.kron_col),
+        "kron_streams_re": to_numpy(ham.kron_streams.re),
+        "kron_streams_im": to_numpy(ham.kron_streams.im),
     }
 
 
