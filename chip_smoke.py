@@ -6,14 +6,18 @@
 Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the hand-written kernels, from csrc/, into the ignored build
-     directory, one nvcc per source, all started together;
+     directory, one nvcc per source, all started together, with ptxas's
+     registers and spill bytes for each kernel instantiation;
   3. kernels against their plain PyTorch versions on the card: K1
      (fused_fwd_kernel) on every evaluation-slot state and K2
-     (fused_bwd_kernel) on lam0, every stream cotangent and dbar; K4
+     (fused_bwd_kernel) on lam0, every stream cotangent and dbar, each
+     launched as one thread-block cluster per run (its cluster size, the
+     host plan's shared memory against the kernel's own count, and two K2
+     runs equal bit for bit, printed); K4
      (fused_fwd_ckpt_kernel) on every step's state and K5
      (fused_bwd_ckpt_kernel) on the same outputs as K2; at the main paths'
      shapes and at small shapes that cover the direct form, da != db, a
-     state batch, the RK4 tableau and (K4/K5) two runs.  K1/K2 refuse what
+     state batch, the RK4 tableau and two runs.  K1/K2 refuse what
      does not fit a block's shared memory and name ckpt=True, which a
      14-atom step then takes on K4/K5.  The kron-pair branches (K3, the
      XY terms) of all four kernels at small XY shapes (2, 3, 4 atoms, an
@@ -74,8 +78,9 @@ HBM_BYTES_PER_S = 3.35e12
 # kernel vs plain version, both f32 on the card in a different summation
 # order: K1 states are unit-norm, ~1000 dependent stages of ~6e-8
 # rounding random-walk to ~2e-6, so 1e-5 absolute; K2 outputs are sums
-# over up to da*db*nb terms per stage, so 1e-4 relative to the largest
-# magnitude of each output
+# over up to da*db*nb terms per stage (its stream and kcbar cotangents
+# summed per block over the block's rows, then across the cluster in rank
+# order), so 1e-4 relative to the largest magnitude of each output
 K1_TOL = 1e-5
 K2_TOL_REL = 1e-4
 # the BASELINE bars of the fused f32 path against the f64 path
@@ -442,8 +447,10 @@ def _xy_kernel_phase(torch, fe, device, gen):
     _log(f"  12 atoms XY: K = {K} kron pairs, {int(data['hs'].shape[0])} steps, "
          f"substeps {substeps}, kr {tuple(data['kr'].shape)}, kc {tuple(data['kc'].shape)}")
     times = {}
+    plan = _log_plan(fe, fe._library(), data, "DP5", "12 atoms XY (main path)")
     k1_err, k2_err, _, k2_in = _check_kernels(
         torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms XY (main path)", times)
+    _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, "12 atoms XY")
     k4_err, k5_err, _, k5_in = _check_ckpt(
         torch, fe, data, "DP5", gen, "12 atoms XY (ckpt=True)", times)
     ck = fe.fused_fwd_ckpt(data, "DP5", lo=True)
@@ -457,7 +464,7 @@ def _xy_kernel_phase(torch, fe, device, gen):
         raise RuntimeError(f"12 atoms XY: K4 differs from K1 at the slots by {k4_vs_k1:.3e}")
     return {"model": model, "c1": c1, "data": data, "slots": slots, "n_eval": n_eval,
             "last_slot": last_slot, "k1_err": k1_err, "k2_err": k2_err, "k4_err": k4_err,
-            "k5_err": k5_err, "k2_in": k2_in, "k5_in": k5_in, "plain": times}
+            "k5_err": k5_err, "k2_in": k2_in, "k5_in": k5_in, "plain": times, "plan": plan}
 
 
 def _xy_step_phase(torch, fe, device, xy):
@@ -507,7 +514,7 @@ def _xy_step_phase(torch, fe, device, xy):
     from pulser_diff_torch.ops.linalg import expect, total_magnetization
 
     outs = fe.fused_fwd(xy["data"], "DP5", xy["slots"], xy["n_eval"], lo=True)
-    mag = total_magnetization(N_QUBITS, dense=False)
+    mag = total_magnetization(N_QUBITS, dense=False, device=device)
     ls = xy["last_slot"]
 
     def _value(re, im):
@@ -525,6 +532,65 @@ def _xy_step_phase(torch, fe, device, xy):
                            f"|dg| {dg:.3e}, |dc| {dc:.3e}")
     return {"launches": launches, "first_ms": first_ms, "f64_ms": f64_ms, "f64_peak": f64_peak,
             "dv": dv, "dg": dg, "dc": dc}
+
+
+def _ptxas_summary(report: str) -> dict:
+    """Registers and spill bytes (stores, loads) of each kernel entry in a
+    ``ptxas -v`` report, by mangled name."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = [None, None, None]
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[name][1] = int(words[words.index("spill") - 2])
+            out[name][2] = int(words[words.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[name][0] = int(words[words.index("registers") - 1])
+    return out
+
+
+def _instantiation(mangled: str) -> str:
+    """fused_fwd_kernel<true> for _Z16fused_fwd_kernelILb1EE..."""
+    for base in ("fused_fwd_kernel", "fused_bwd_kernel", "fused_fwd_ckpt_kernel",
+                 "fused_bwd_ckpt_kernel"):
+        tag = f"{len(base)}{base}"
+        if tag in mangled:
+            rest = mangled.split(tag, 1)[1]
+            return base + ("<true>" if rest.startswith("ILb1E") else
+                           "<false>" if rest.startswith("ILb0E") else "")
+    return mangled
+
+
+def _log_plan(fe, lib, data, method, label) -> dict:
+    """K1's and K2's cluster plans for ``data``; the host's shared memory
+    must equal the kernel's own count."""
+    R, n_steps, pr, pc, nb, da, db = fe._dims(data)
+    S = fe._tableau(method)[2]
+    plans = {}
+    for bwd in (False, True):
+        plan = fe.fused_plan(data, method, bwd)
+        own = int(lib.pdt_fused_smem_bytes(int(bwd), nb, da, db, pr, pc, fe._n_kron(data), S,
+                                           plan["C"]))
+        if own != plan["smem_bytes"]:
+            raise RuntimeError(f"{label}: host plan {plan['smem_bytes']} B vs kernel {own} B")
+        plans["K2" if bwd else "K1"] = plan
+    _log(f"  {label}: K1 cluster C = {plans['K1']['C']} ({plans['K1']['blocks_per_run']} blocks "
+         f"per run, {plans['K1']['smem_bytes']} B shared memory a block), K2 cluster C = "
+         f"{plans['K2']['C']} ({plans['K2']['blocks_per_run']} blocks per run, "
+         f"{plans['K2']['smem_bytes']} B), runs {plans['K1']['runs']}")
+    return plans
+
+
+def _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, label) -> None:
+    """Two K2 launches on the same inputs give the same bits."""
+    a = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *k2_in)
+    b = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *k2_in)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{label}: two K2 runs differ")
+    _log(f"  {label}: two K2 runs equal bit for bit")
 
 
 def _reset(fe) -> None:
@@ -574,9 +640,9 @@ def main() -> int:
     _log(f"phase 2 build: fused_evolution.cu and fused_ckpt.cu in "
          f"{time.perf_counter() - t0:.1f} s")
     for src, report in reports.items():
-        for line in report.splitlines():
-            if any(w in line for w in ("Function properties", "registers", "spill", "smem")):
-                _log(f"  ptxas [{src}]: {line.strip()}")
+        for mangled, (regs, st, ld) in _ptxas_summary(report).items():
+            _log(f"  ptxas [{src}] {_instantiation(mangled)}: {regs} registers, spill stores "
+                 f"{st} B, spill loads {ld} B")
 
     # 3. kernels against their plain versions
     _log("phase 3 kernels vs plain versions")
@@ -585,13 +651,17 @@ def main() -> int:
     with torch.no_grad():
         sim = fused_model._make_emulator(dict(fused_model.params))
     data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
+    plan12 = _log_plan(fe, fe._library(), data, "DP5", "12 atoms (main path)")
     k1_err, k2_err, _, (st_re, st_im, lam_re, lam_im) = _check_kernels(
         torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms (main path)")
+    _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, (st_re, st_im, lam_re, lam_im),
+                 "12 atoms")
     small = []
     for label, small_sim, method in _small_cases(torch, device):
         sd, ss, sn, sl = _kernel_inputs(torch, small_sim, 1, device, method)
+        _log_plan(fe, fe._library(), sd, method, label)
         _check_kernels(torch, fe, sd, ss, sn, sl, method, gen, label)
-        small.append((label, sd, method))
+        small.append((label, sd, method, ss, sn, sl))
     # K4 runs K1's arithmetic: its states at the slots equal K1's
     ck_re, ck_im = fe.fused_fwd_ckpt(data, "DP5")
     k1_re, k1_im = fe.fused_fwd(data, "DP5", slots, n_eval)
@@ -602,10 +672,14 @@ def main() -> int:
     if k4_vs_k1 > K1_TOL:
         raise RuntimeError(f"K4 vs K1 {k4_vs_k1:.3e} > {K1_TOL:.0e}")
     del ck_re, ck_im, k1_re, k1_im
-    for label, sd, method in small:
+    for label, sd, method, *_ in small:
         _check_ckpt(torch, fe, sd, method, gen, label)
-    label, sd, method = small[1]
+    label, sd, method, ss, sn, sl = small[1]
     _check_ckpt(torch, fe, _two_runs(torch, fe, sd), method, gen, f"{label} R=2")
+    # two runs: two clusters, one per run (cotangents of their own draw, so
+    # the later checks keep theirs)
+    _check_kernels(torch, fe, _two_runs(torch, fe, sd), ss, sn, sl, method,
+                   torch.Generator().manual_seed(SEED + 1), f"{label} R=2")
     # shared memory bounds nb * da * db: at 12 atoms a batch of 4 states
     # must be refused, naming nb = 3 as the largest that fits and ckpt=True
     batch4 = {**data, "psi_re": data["psi_re"].repeat(1, 4, 1, 1),
@@ -739,8 +813,10 @@ def main() -> int:
     k4_bound, k4_by = _bound_ms(fe, d16, None, (st16_re, st16_im), S, "fwd_ckpt")
     k5_bound, k5_by = _bound_ms(fe, d16, None, (st16_re, st16_im, lam16_re, lam16_im, *k5_out),
                                 S, "bwd_ckpt")
-    _log(f"  K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms, bound {k1_bound:.4f} ms by {k1_by})")
-    _log(f"  K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms, bound {k2_bound:.4f} ms by {k2_by})")
+    _log(f"  K1 {k1_ms:.3f} ms on {plan12['K1']['C']} blocks (plain {k1_plain_ms:.1f} ms, bound "
+         f"{k1_bound:.4f} ms by {k1_by})")
+    _log(f"  K2 {k2_ms:.3f} ms on {plan12['K2']['C']} blocks (plain {k2_plain_ms:.1f} ms, bound "
+         f"{k2_bound:.4f} ms by {k2_by})")
     _log(f"  K4 {k4_ms:.3f} ms (plain {k4_plain_ms:.1f} ms, bound {k4_bound:.4f} ms by {k4_by})")
     _log(f"  K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.1f} ms, bound {k5_bound:.4f} ms by {k5_by})")
     _log(f"  12-atom value+grad step {step_ms:.2f} ms (first {first_step_s * 1e3:.1f} ms); "
@@ -750,7 +826,7 @@ def main() -> int:
     # the XY kernels (K = 8) at the 12-atom XY shapes; their plain versions
     # ran once in phase 3 (Python loops of small launches, ~3 s and ~15 s)
     xd, xs, xn, xl = xy["data"], xy["slots"], xy["n_eval"], xy["last_slot"]
-    n_xy = 3
+    n_xy = 5
     k1x_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(xd, "DP5", xs, xn, lo=True), n_xy)
     k2x_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(xd, "DP5", xs, xn, xl, *xy["k2_in"]), n_xy)
     k4x_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(xd, "DP5", lo=True), n_xy)
@@ -764,9 +840,11 @@ def main() -> int:
     k5x_out = fe.fused_bwd_ckpt(xd, "DP5", *xy["k5_in"])
     k5x_bound, _ = _bound_ms(fe, xd, None, (*xy["k5_in"], *k5x_out), S, "bwd_ckpt")
     plain = xy["plain"]
-    _log(f"  K1 XY (K3 branch, K = {fe._n_kron(xd)}) {k1x_ms:.3f} ms (plain "
+    _log(f"  K1 XY (K3 branch, K = {fe._n_kron(xd)}) {k1x_ms:.3f} ms on "
+         f"{xy['plan']['K1']['C']} blocks (plain "
          f"{plain['k1_plain']:.1f} ms once, bound {k1x_bound:.4f} ms by {k1x_by})")
-    _log(f"  K2 XY (K3 branch) {k2x_ms:.3f} ms (plain {plain['k2_plain']:.1f} ms once, "
+    _log(f"  K2 XY (K3 branch) {k2x_ms:.3f} ms on {xy['plan']['K2']['C']} blocks (plain "
+         f"{plain['k2_plain']:.1f} ms once, "
          f"bound {k2x_bound:.4f} ms by {k2x_by})")
     _log(f"  K4 / K5 XY (ckpt=True shapes) {k4x_ms:.3f} / {k5x_ms:.3f} ms on "
          f"{fe.ckpt_blocks(xd, False)} / {fe.ckpt_blocks(xd, True)} blocks (plain "

@@ -12,7 +12,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.ops.apply import FactoredHamiltonian
 
@@ -39,13 +39,15 @@ def factored_from_numpy(
     kron_row: Any = None,
     kron_col: Any = None,
     kron_streams: Any = None,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> FactoredHamiltonian:
-    """The port's FactoredHamiltonian from the JAX one's fields.
+    """The port's FactoredHamiltonian from the JAX one's fields, on
+    ``device`` (CUDA unless given).
 
     ``row_streams`` / ``col_streams`` / ``kron_streams`` are (re, im)
     pairs of (P, Ts) arrays; the JAX ``Cplx`` is such a pair.  The kron
     fields (XY) are None for an ising Hamiltonian."""
+    device = resolve_device(device)
     kron = kron_row is not None
     return FactoredHamiltonian(
         row_parts=_tensor(row_parts, device),
@@ -62,10 +64,12 @@ def factored_from_numpy(
 
 
 def params_from_numpy(
-    params: Mapping[str, Any], device: DeviceLike = "cpu", requires_grad: bool = False
+    params: Mapping[str, Any], device: DeviceLike = None, requires_grad: bool = False
 ) -> dict[str, torch.Tensor]:
     """A JAX ``QuantumModel.params`` dict as the port's parameter dict
-    (f64 tensors on ``device``), ready for ``expectation_fn(obs)(params)``."""
+    (f64 tensors on ``device``, CUDA unless given), ready for
+    ``expectation_fn(obs)(params)``."""
+    device = resolve_device(device)
     return {
         name: _tensor(v, device).requires_grad_(requires_grad)
         for name, v in params.items()

@@ -14,7 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.core.channels import Channel
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sequence import Sequence
@@ -161,12 +161,13 @@ def _sample_channel(seq: Sequence, name: str, ch: Channel, total: int,
 def sample(
     seq: Sequence,
     extended_duration: Optional[int] = None,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> SequenceSamples:
-    """Sample a (concrete) Sequence into per-channel tensors on ``device``."""
+    """Sample a (concrete) Sequence into per-channel tensors on ``device``
+    (CUDA unless given)."""
     if seq.is_parametrized():
         raise ValueError("Cannot sample a parametrized sequence; build() it.")
-    device = torch.device(device)
+    device = resolve_device(device)
     total = seq.get_duration()
     chs = {
         name: _sample_channel(seq, name, ch, total, device)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
+from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
@@ -63,7 +63,9 @@ class NoiseDraws(NamedTuple):
     amp_factors: torch.Tensor  # (n_slots_total,) >= 0
 
 
-def zero_noise_draws(n_qubits: int, n_slots: int, device="cpu") -> NoiseDraws:
+def zero_noise_draws(n_qubits: int, n_slots: int, device: DeviceLike = None) -> NoiseDraws:
+    """The draws of a noiseless run, on ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
     return NoiseDraws(
         bad_atoms=torch.zeros(n_qubits, dtype=DTYPE, device=device),
         doppler=torch.zeros(n_qubits, dtype=DTYPE, device=device),

@@ -165,7 +165,8 @@ class QuantumModel(nn.Module):
     ) -> Callable[[Mapping[str, Any]], tuple]:
         """Function: params -> (eval_times, real expectation values)."""
         if obs is None:
-            obs = total_magnetization(len(self.register.qubit_ids), dense=False)
+            obs = total_magnetization(len(self.register.qubit_ids), dense=False,
+                                      device=self.torch_device)
         obs = as_cplx(obs, dtype=DTYPE).to(device=self.torch_device)
 
         def fn(params: Mapping[str, Any]):

@@ -4,7 +4,10 @@
 The whole Schrodinger evolution runs in ONE launch of a hand-written
 CUDA kernel (K1, ``csrc/fused_evolution.cu``: ``fused_fwd_kernel``) and
 its gradient in ONE launch of the adjoint kernel (K2:
-``fused_bwd_kernel``).  They compute what the Pallas kernels
+``fused_bwd_kernel``), each one thread-block cluster of C blocks per run
+(``cluster_plan`` picks C and the shared memory; each block keeps its
+rows of the state in shared memory and reads its peers' through
+distributed shared memory).  They compute what the Pallas kernels
 ``_fwd_kernel`` and ``_bwd_kernel`` (lean interval form) compute:
 
   - the state is split-complex f32 ``(R, nb, da, db)``; every stage
@@ -28,8 +31,8 @@ which a coordinate gradient reaches the interaction weights.  The data
 dict then carries ``kr``, ``kc`` and the kron streams; without them every
 kernel takes the ising path unchanged.
 
-The checkpointed pair runs the same stage arithmetic where the state no
-longer fits one block (the JAX package takes it from dim 2^16): K4
+The checkpointed pair runs the same stage arithmetic where the state
+no longer fits a cluster (the JAX package takes it from dim 2^16): K4
 (``csrc/fused_ckpt.cu``: ``fused_fwd_ckpt_kernel``, for
 ``_fwd_ckpt_kernel``) stores the state after every step, and K5
 (``fused_bwd_ckpt_kernel``, for ``_bwd_ckpt_kernel``) runs the adjoint
@@ -103,6 +106,11 @@ LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt
 
 # shared memory one block can use on Hopper (bytes)
 _SMEM_LIMIT = 232448
+# K1/K2's launch (csrc/fused_evolution.cu): threads a block, and the
+# largest cluster (above 8 blocks only as a non-portable size)
+_NTHREADS = 256
+_NWARPS = _NTHREADS // 32
+_C_MAX = 16
 
 
 # ----------------------------------------------------------------------
@@ -669,17 +677,17 @@ _I = ctypes.c_int
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("fused_evolution")
     if not getattr(lib, "_pdt_declared", False):
-        lib.pdt_fused_smem_bytes.argtypes = [_I] * 7
+        lib.pdt_fused_smem_bytes.argtypes = [_I] * 9
         lib.pdt_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.pdt_fused_scratch_floats.argtypes = [_I] * 7
+        lib.pdt_fused_scratch_floats.argtypes = [_I] * 5
         lib.pdt_fused_scratch_floats.restype = ctypes.c_size_t
         lib.pdt_fused_fwd.argtypes = (
-            [_P] * 6 + [_P] + [_P] * 6 + [_P] * 5 + [_P, _I] + [_I] * 9 + [_P, _P, _P]
+            [_P] * 6 + [_P] + [_P] * 6 + [_P] * 4 + [_P, _I] + [_I] * 9 + [_P, _P, _I, _P]
         )
         lib.pdt_fused_fwd.restype = _I
         lib.pdt_fused_bwd.argtypes = (
             [_P] * 8 + [_P, _P] + [_P] * 6 + [_P] * 5 + [_P, _P, _P, _I] + [_I] * 10
-            + [_P, _P, _P]
+            + [_P, _P, _I, _P]
         )
         lib.pdt_fused_bwd.restype = _I
         lib._pdt_declared = True
@@ -715,27 +723,70 @@ def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
         raise RuntimeError(f"{what}: the device does not support cooperative launches.")
     if err == -4:
         raise ValueError(f"{what}: at most {_K_MAX} kron pairs are supported.")
+    if err == -5:
+        raise RuntimeError(f"{what}: the device cannot schedule the planned thread-block cluster.")
+    if err == -6:
+        raise ValueError(f"{what}: the kernel refused the cluster plan.")
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}.")
 
 
-def _smem_check(lib, bwd: int, nb: int, da: int, db: int, pr: int, pc: int, K: int) -> None:
-    """Both side matrices and the padded (nb, da, db + 1) stage input live
-    in one block's shared memory, so the limit is on nb * da * db (the
-    kron branch adds only its 2K stream values there).  The checkpointed
-    kernels (K4/K5) keep them in device memory instead."""
-    need = int(lib.pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc, K))
-    if need > _SMEM_LIMIT:
-        fits = [n for n in range(1, nb)
-                if lib.pdt_fused_smem_bytes(bwd, n, da, db, pr, pc, K) <= _SMEM_LIMIT]
-        most = f"state batches up to nb={fits[-1]}" if fits else "no state batch"
-        raise ValueError(
-            f"The fused kernel needs {need} bytes of shared memory for "
-            f"nb={nb}, da={da}, db={db} (limit {_SMEM_LIMIT}); at this da, db "
-            f"it takes {most}. Pass ckpt=True to run the state on the "
-            "checkpointed kernels K4/K5, which keep it in device memory; or "
-            "split the batch, or pass fused=False for the f64 stepper."
-        )
+def _smem_floats(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int, S: int,
+                 C: int) -> int:
+    """Shared memory (floats) of one K1/K2 block, as ``smem_floats`` in
+    csrc/fused_evolution.cu computes it: Hcol (db, db) x 2, the block's
+    Hrow rows (da / C, da) x 2, the gathered stage vector (nb, da, db + 1)
+    x 2, two published slabs, the state and stage slabs (each
+    (nb, da / C, db)); with kron pairs the 2K stream values, R_k's rows and
+    columns, C_k (db, db + 1) and the products of the block's rows (K2 also
+    the gathered stage input); K2's reduction rows."""
+    rpb = da // C
+    slab, full = nb * rpb * db, nb * da * (db + 1)
+    f = 2 * db * db + 2 * rpb * da + 2 * full + 4 * slab + ((4 + 4 * S) if bwd else (4 + 2 * S)) * slab
+    if K:
+        f += 2 * K + 2 * rpb * da + db * (db + 1) + 8 * rpb * db
+        if bwd:
+            f += 2 * full
+    if bwd:
+        f += (_NWARPS + 2) * (2 * pr + 2 * pc + 2 * K)
+    return f
+
+
+def _cluster_size(da: int) -> int:
+    """min(da, 16): the most blocks a run can take (each owns da / C rows).
+    On the card 16 blocks (a non-portable size) were as fast as 8 at 12
+    atoms and faster with kron pairs (PERF.md), and they need the
+    least shared memory a block."""
+    return min(da, _C_MAX)
+
+
+def cluster_plan(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
+                 S: int) -> tuple[int, int]:
+    """(C, shared-memory bytes a block): the thread-block cluster that K1
+    (``bwd=False``) or K2 launches for one run of this shape.  Raises
+    ValueError, naming ``ckpt=True``, where a block's shared memory does
+    not hold the plan."""
+    C = _cluster_size(da)
+    need = 4 * _smem_floats(bwd, nb, da, db, pr, pc, K, S, C)
+    if need <= _SMEM_LIMIT:
+        return C, need
+    fits = [n for n in range(1, nb) if 4 * _smem_floats(bwd, n, da, db, pr, pc, K, S, C) <= _SMEM_LIMIT]
+    most = f"state batches up to nb={fits[-1]}" if fits else "no state batch"
+    raise ValueError(
+        f"The fused {'adjoint' if bwd else 'forward'} kernel needs {need} bytes of shared "
+        f"memory per block for nb={nb}, da={da}, db={db}, K={K} with a cluster of {C} blocks "
+        f"(limit {_SMEM_LIMIT}); at this da, db it takes {most}. Pass ckpt=True to run the "
+        "state on the checkpointed kernels K4/K5, which keep it in device memory; or split "
+        "the batch, or pass fused=False for the f64 stepper."
+    )
+
+
+def fused_plan(data: dict, method: str, bwd: bool) -> dict:
+    """K1's (``bwd=False``) or K2's launch for ``data``: the cluster size C,
+    the blocks of one run (C), the runs (R) and the shared memory a block."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    C, smem = cluster_plan(bwd, nb, da, db, pr, pc, _n_kron(data), _tableau(method)[2])
+    return {"C": C, "blocks_per_run": C, "runs": R, "smem_bytes": smem}
 
 
 def _kron_ptrs(data: dict, bwd: bool):
@@ -754,15 +805,13 @@ def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int, l
     kron, knames = _kron_ptrs(data, False)
     names = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS
     _check_cuda({**{k: data[k] for k in names + knames}, "slots": slots}, device)
-    lib = _library()
-    _smem_check(lib, 0, nb, da, db, pr, pc, K)
     a_arr, bnz, S = _tableau_c(method)
+    C, _ = cluster_plan(False, nb, da, db, pr, pc, K, S)
+    lib = _library()
     rsym, rasym, csym, casym = _parts_sym(data)
     outs = tuple(torch.empty((R, n_eval, nb, da, db), dtype=torch.float32, device=device)
                  for _ in range(4 if lo else 2))
     lo_ptrs = (outs[2].data_ptr(), outs[3].data_ptr()) if lo else (None, None)
-    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(0, R, S, nb, da, db, K)),
-                          dtype=torch.float32, device=device)
     zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
     # the library's runtime launches on its current device: make it the data's
     with torch.cuda.device(device):
@@ -773,9 +822,9 @@ def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int, l
             zf,
             data["hb_hi"].data_ptr(), data["hb_lo"].data_ptr(), data["hs"].data_ptr(),
             data["diag"].data_ptr(), data["diag_lo"].data_ptr(), slots.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(), *lo_ptrs, scratch.data_ptr(), kron, K,
+            outs[0].data_ptr(), outs[1].data_ptr(), *lo_ptrs, kron, K,
             R, n_steps, nb, da, db, pr, pc, n_eval, S,
-            a_arr, bnz, stream,
+            a_arr, bnz, C, stream,
         )
     _launch_check(err, "fused_fwd_kernel", pr, pc)
     LAUNCHES["fused_fwd"] += 1
@@ -794,14 +843,15 @@ def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
          "st_im": st_im, "lam_re": lam_re, "lam_im": lam_im},
         device,
     )
-    lib = _library()
-    _smem_check(lib, 1, nb, da, db, pr, pc, K)
     a_arr, bnz, S = _tableau_c(method)
+    C, _ = cluster_plan(True, nb, da, db, pr, pc, K, S)
+    lib = _library()
     rsym, rasym, csym, casym = _parts_sym(data)
     outs = _bwd_outputs(data, S)
     lam0_re, lam0_im, zbar, dbar = outs[:4]
     krbar, kcbar = (o.data_ptr() for o in outs[4:]) if K else (None, None)
-    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(1, R, S, nb, da, db, K)),
+    # the per-block kcbar partials (R, C, K, db, db)
+    scratch = torch.empty(int(lib.pdt_fused_scratch_floats(1, R, db, K, C)),
                           dtype=torch.float32, device=device)
     zf = (_P * 8)(*[data[k].data_ptr() for k in _ZF_KEYS])
     zb = (_P * 4)(*[data[k].data_ptr() for k in _ZB_KEYS])
@@ -816,7 +866,7 @@ def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
             lam0_re.data_ptr(), lam0_im.data_ptr(), zbar.data_ptr(), dbar.data_ptr(),
             scratch.data_ptr(), kron, krbar, kcbar, K,
             R, n_steps, nb, da, db, pr, pc, n_eval, last_slot, S,
-            a_arr, bnz, stream,
+            a_arr, bnz, C, stream,
         )
     _launch_check(err, "fused_bwd_kernel", pr, pc)
     LAUNCHES["fused_bwd"] += 1

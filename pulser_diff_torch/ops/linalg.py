@@ -13,7 +13,7 @@ from math import pi, prod, sin
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx, ckron
 
 IMAT = as_cplx(np.eye(2))
@@ -38,10 +38,12 @@ def _total_magnetization_diag_np(n_qubits: int) -> np.ndarray:
 
 
 def total_magnetization(
-    n_qubits: int, dense: bool | None = None, device: DeviceLike = "cpu"
+    n_qubits: int, dense: bool | None = None, device: DeviceLike = None
 ) -> Cplx:
     """sum_i Z_i: the dense diagonal matrix up to 12 qubits, else (or with
-    ``dense=False``) its 1-D diagonal, which ``expect`` accepts."""
+    ``dense=False``) its 1-D diagonal, which ``expect`` accepts; on
+    ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
     d = torch.as_tensor(
         _total_magnetization_diag_np(n_qubits), dtype=DTYPE, device=device
     )
@@ -83,8 +85,11 @@ def expect(obs: Cplx, states: Cplx) -> Cplx:
     return Cplx(re, im)
 
 
-def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...]) -> Cplx:
-    """Ket of a Fock state / tensor product of Fock states, shape (n, 1)."""
+def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...],
+                device: DeviceLike = None) -> Cplx:
+    """Ket of a Fock state / tensor product of Fock states, shape (n, 1),
+    on ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
     dim = (dim,) if isinstance(dim, int) else dim
     number = (number,) if isinstance(number, int) else number
     if len(dim) != len(number):
@@ -97,7 +102,7 @@ def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...]) -> Cp
         n = d * n + s_
     ket = np.zeros((prod(dim), 1))
     ket[n] = 1.0
-    return as_cplx(ket)
+    return as_cplx(ket, device=device)
 
 
 def _s(t: float) -> float:
@@ -120,9 +125,11 @@ def _interpolate_sine_np(num_values: int, duration: int) -> np.ndarray:
     return mat
 
 
-def interpolate_sine(num_values: int, duration: int, device: DeviceLike = "cpu") -> torch.Tensor:
-    """(duration, num_values) sine-interpolation weight matrix; the caller
-    applies it as ``interpolate_sine(n, T) @ values``."""
+def interpolate_sine(num_values: int, duration: int, device: DeviceLike = None) -> torch.Tensor:
+    """(duration, num_values) sine-interpolation weight matrix on
+    ``device`` (CUDA unless given); the caller applies it as
+    ``interpolate_sine(n, T) @ values``."""
+    device = resolve_device(device)
     return torch.as_tensor(
         _interpolate_sine_np(num_values, duration), dtype=DTYPE, device=device
     )

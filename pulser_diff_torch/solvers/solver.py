@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, cstack
 from pulser_diff_torch.ops.apply import FactoredHamiltonian, h_apply_batched, interp_streams
 
@@ -39,9 +39,11 @@ class TimeGrid:
     n_eval: int
 
     @staticmethod
-    def make(sampling_times, eval_times, device: DeviceLike = "cpu") -> "TimeGrid":
+    def make(sampling_times, eval_times, device: DeviceLike = None) -> "TimeGrid":
         """Build the grid host-side; ``eval_times`` sorted and unique.
-        Equal times keep the sampling entry first (stable sort)."""
+        Equal times keep the sampling entry first (stable sort).  The
+        times go to ``device`` (CUDA unless given)."""
+        device = resolve_device(device)
         s_np = np.asarray(sampling_times, dtype=np.float64)
         e_np = np.asarray(eval_times, dtype=np.float64)
         merged = np.concatenate([s_np, e_np])

@@ -145,7 +145,7 @@ def _contract_setup():
     re = np.asarray(jsim.initial_state.re).T.reshape(1, da, db)
     im = np.asarray(jsim.initial_state.im).T.reshape(1, da, db)
     jg = JGrid.make(h.sampling_times, jsim._eval_times_array)
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu")
     return h._ham_data, factored_fields(h._ham_data), re, im, jg, tg
 
 
@@ -154,7 +154,7 @@ def _port_states(f, streams_re, re, im, tg, ckpt):
         row_parts=f["row_parts"], col_parts=f["col_parts"],
         row_streams=(f["row_streams_re"], f["row_streams_im"]),
         col_streams=(f["col_streams_re"], f["col_streams_im"]),
-        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]),
+        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]), device="cpu",
     )
     th = th._replace(row_streams=Cplx(streams_re, th.row_streams.im))
     return tfe.evolve_states(th, torch_cplx(re, im), tg, "DP5", ckpt=ckpt)

@@ -85,7 +85,7 @@ def test_factored_hamiltonian_fields_match_jax(n_atoms):
         row_parts=jf["row_parts"], col_parts=jf["col_parts"],
         row_streams=(jf["row_streams_re"], jf["row_streams_im"]),
         col_streams=(jf["col_streams_re"], jf["col_streams_im"]),
-        int_diag=jf["int_diag"], sample_dt=jf["sample_dt"], n_samples=int(jf["n_samples"]),
+        int_diag=jf["int_diag"], sample_dt=jf["sample_dt"], n_samples=int(jf["n_samples"]), device="cpu",
     )
     for k, v in factored_fields(conv).items():
         np.testing.assert_allclose(v, tf[k], rtol=0, atol=F64_TOL, err_msg=k)
@@ -115,7 +115,7 @@ def test_time_grid_slots_match_jax(eval_times, substeps):
     jh, th = jsim._hamiltonian, tsim._hamiltonian
     np.testing.assert_array_equal(th.sampling_times, np.asarray(jh.sampling_times))
     jg = JGrid.make(jh.sampling_times, jsim._eval_times_array).refined(substeps)
-    tg = TGrid.make(th.sampling_times, tsim._eval_times_array).refined(substeps)
+    tg = TGrid.make(th.sampling_times, tsim._eval_times_array, device="cpu").refined(substeps)
     assert tg.n_eval == jg.n_eval
     np.testing.assert_array_equal(tg.write_slots, np.asarray(jg.write_slots))
     np.testing.assert_allclose(to_numpy(tg.times), np.asarray(jg.times), rtol=0, atol=F64_TOL)

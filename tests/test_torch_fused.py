@@ -63,11 +63,11 @@ def _setup(n_atoms, nb, method, eval_times, substeps):
         row_parts=f["row_parts"], col_parts=f["col_parts"],
         row_streams=(f["row_streams_re"], f["row_streams_im"]),
         col_streams=(f["col_streams_re"], f["col_streams_im"]),
-        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]),
+        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]), device="cpu",
     )
     re, im = batched(random_state(da * db, nb, seed=n_atoms), da, db)
     jg = JGrid.make(h.sampling_times, jsim._eval_times_array).refined(substeps)
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array).refined(substeps)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu").refined(substeps)
     jdata = jpe.prepare_fused_inputs(h._ham_data, jax_cplx(re, im), jg.times, method)
     tdata = tfe.prepare_fused_inputs(th, torch_cplx(re, im), tg.times, method)
     slots = tuple(int(s) for s in np.asarray(jg.write_slots))
@@ -93,7 +93,7 @@ def test_prepare_fused_inputs_match_jax(case):
     jsim, tsim = emulators(2, duration=40)
     with pytest.raises(ValueError, match="nb="):
         tfe.prepare_fused_inputs(tsim._hamiltonian._ham_data, big,
-                                 TGrid.make(tsim.sampling_times, tsim._eval_times_array).times)
+                                 TGrid.make(tsim.sampling_times, tsim._eval_times_array, device="cpu").times)
 
 
 def _max_rel(got, want):

@@ -84,7 +84,7 @@ def test_bench_workload_f64_matches_jax():
     jv, jg, jmodel = _jax_value_grad(fused=False)
     model = _port_model(fused=False)
     assert model._default_substeps() == jmodel._default_substeps()
-    params = params_from_numpy(jmodel.params, requires_grad=True)
+    params = params_from_numpy(jmodel.params, device="cpu", requires_grad=True)
     before = dict(tfe.LAUNCHES)
     tv, tg = _port_value_grad(model, params)
     assert tfe.LAUNCHES == before
@@ -129,7 +129,7 @@ def test_run_expectations_match_jax(eval_times):
                                rtol=0, atol=F64_TOL)
     for dense in (True, False):
         (je,) = jres.expect([j_total_mag(3, dense=dense)])
-        (te,) = tres.expect([total_magnetization(3, dense=dense)])
+        (te,) = tres.expect([total_magnetization(3, dense=dense, device="cpu")])
         np.testing.assert_allclose(to_numpy(te.re), np.asarray(je.re), rtol=0, atol=F64_TOL)
 
 
@@ -200,7 +200,7 @@ def test_xy_fused_routing(monkeypatch, ckpt):
     calls = {n: _spy_kron(monkeypatch, n) for n in names}
     opts = {} if ckpt is None else {"ckpt": ckpt}
     d = torch.tensor([8.5, 16.2, 8.3], dtype=torch.float64, requires_grad=True)
-    fn = tsim.expectation_fn_of_dists(total_magnetization(3), solver="DP5_PALLAS", **opts)
+    fn = tsim.expectation_fn_of_dists(total_magnetization(3, device="cpu"), solver="DP5_PALLAS", **opts)
     fn(d)[-1].backward()
     assert bool(torch.isfinite(d.grad).all()) and float(d.grad.abs().max()) > 0
     used = ("fused_fwd_ckpt", "fused_bwd_ckpt") if ckpt else ("fused_fwd", "fused_bwd")

@@ -72,6 +72,38 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert tconfig.resolve_device(None) == torch.device("cuda")
 
 
+
+def _no_device_calls():
+    """Every entry point that makes tensors, called without a device."""
+    from pulser_diff_torch.convert import factored_from_numpy, params_from_numpy
+    from pulser_diff_torch.core.sampler import sample
+    from pulser_diff_torch.hamiltonian import zero_noise_draws
+    from pulser_diff_torch.solvers import TimeGrid
+
+    z = np.zeros((1, 2, 2))
+    streams = (np.zeros((1, 3)), np.zeros((1, 3)))
+    return {
+        "TimeGrid.make": lambda: TimeGrid.make([0.0, 1.0], [1.0]),
+        "factored_from_numpy": lambda: factored_from_numpy(
+            row_parts=z, col_parts=z, row_streams=streams, col_streams=streams,
+            int_diag=np.zeros((2, 2)), sample_dt=1.0, n_samples=3),
+        "params_from_numpy": lambda: params_from_numpy({"a": np.ones(2)}),
+        "sample": lambda: sample(sequence(tcore, 2, 40)),
+        "interpolate_sine": lambda: tla.interpolate_sine(3, 10),
+        "basis_state": lambda: tla.basis_state(2, 1),
+        "total_magnetization": lambda: tla.total_magnetization(2),
+        "zero_noise_draws": lambda: zero_noise_draws(2, 1),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_no_device_calls()))
+def test_tensor_entry_points_default_to_cuda(monkeypatch, name):
+    """Without a device and without CUDA each raises as resolve_device(None)
+    does, instead of making its tensors on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _no_device_calls()[name]()
+
 def _rand_cplx(rng, shape):
     return rng.normal(size=shape) + 1j * rng.normal(size=shape)
 
@@ -84,10 +116,10 @@ def test_kron_and_basis_states_match_jax():
         np.testing.assert_allclose(got.to_numpy(), np.asarray(want.re) + 1j * np.asarray(want.im),
                                    rtol=0, atol=F64_TOL)
     for dim, num in ((4, 2), ((2, 3, 2), (1, 2, 0))):
-        np.testing.assert_array_equal(to_numpy(tla.basis_state(dim, num).re),
+        np.testing.assert_array_equal(to_numpy(tla.basis_state(dim, num, device="cpu").re),
                                       np.asarray(jla.basis_state(dim, num).re))
     with pytest.raises(ValueError):
-        tla.basis_state((2, 2), (1,))
+        tla.basis_state((2, 2), (1,), device="cpu")
 
 
 @pytest.mark.parametrize("n_qubits", [3, 4])
@@ -101,8 +133,8 @@ def test_expect_and_observables_match_jax(n_qubits):
     j_st = JCplx(jnp.asarray(st.real), jnp.asarray(st.imag))
     obs = _rand_cplx(rng, (dim, dim))
     cases = [
-        (tla.total_magnetization(n_qubits, dense=True), jla.total_magnetization(n_qubits, dense=True)),
-        (tla.total_magnetization(n_qubits, dense=False), jla.total_magnetization(n_qubits, dense=False)),
+        (tla.total_magnetization(n_qubits, dense=True, device="cpu"), jla.total_magnetization(n_qubits, dense=True)),
+        (tla.total_magnetization(n_qubits, dense=False, device="cpu"), jla.total_magnetization(n_qubits, dense=False)),
         (as_cplx(obs), JCplx(jnp.asarray(obs.real), jnp.asarray(obs.imag))),
     ]
     for t_obs, j_obs in cases:
@@ -114,5 +146,5 @@ def test_expect_and_observables_match_jax(n_qubits):
 
 def test_interpolate_sine_matches_jax():
     for n, T in ((8, 660), (5, 37)):
-        np.testing.assert_array_equal(to_numpy(tla.interpolate_sine(n, T)),
+        np.testing.assert_array_equal(to_numpy(tla.interpolate_sine(n, T, device="cpu")),
                                       np.asarray(jla.interpolate_sine(n, T)))

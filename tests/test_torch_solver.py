@@ -38,11 +38,11 @@ def _setup(n_atoms, nb, eval_times):
         row_parts=f["row_parts"], col_parts=f["col_parts"],
         row_streams=(f["row_streams_re"], f["row_streams_im"]),
         col_streams=(f["col_streams_re"], f["col_streams_im"]),
-        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]),
+        int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]), device="cpu",
     )
     psi = batched(random_state(da * db, nb, seed=n_atoms), da, db)
     jg = JGrid.make(h.sampling_times, jsim._eval_times_array)
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu")
     return h._ham_data, th, psi, jg, tg
 
 

@@ -72,7 +72,7 @@ def _port_hamiltonian(jh):
         col_streams=(f["col_streams_re"], f["col_streams_im"]),
         int_diag=f["int_diag"], sample_dt=f["sample_dt"], n_samples=int(f["n_samples"]),
         kron_row=k["kron_row"], kron_col=k["kron_col"],
-        kron_streams=(k["kron_streams_re"], k["kron_streams_im"]),
+        kron_streams=(k["kron_streams_re"], k["kron_streams_im"]), device="cpu",
     )
 
 
@@ -210,7 +210,7 @@ def _stepper_setup(n_atoms, nb, eval_times):
     da, db = h.dim ** h._a, h.dim ** h._b
     psi = batched(random_state(da * db, nb, seed=n_atoms), da, db)
     jg = JGrid.make(h.sampling_times, jsim._eval_times_array)
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu")
     return h._ham_data, _port_hamiltonian(h._ham_data), psi, jg, tg
 
 
@@ -380,7 +380,7 @@ def test_xy_distance_grad_matches_jax(solver):
 
     def tgrad(s):
         d = torch.tensor([d0], dtype=torch.float64, requires_grad=True)
-        v = tsim.expectation_fn_of_dists(total_magnetization(2), solver=s)(d)[-1]
+        v = tsim.expectation_fn_of_dists(total_magnetization(2, device="cpu"), solver=s)(d)[-1]
         v.backward()
         return float(v.detach()), float(d.grad[0])
 

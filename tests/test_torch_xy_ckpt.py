@@ -98,7 +98,7 @@ def test_xy_ckpt_states_and_kron_grads_match_non_ckpt():
     whose f32 error K5, reading exact stored states, does not have."""
     jsim, _ = xy_emulators(4, duration=30, seed=11, field=IN_PLANE, evaluation_times=0.5)
     h = jsim._hamiltonian
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu")
     th = _port_hamiltonian(h._ham_data)
     re, im = batched(random_state(16, 1, seed=4), th.da, th.db)
     w = torch.as_tensor(np.random.default_rng(6).normal(size=(tg.n_eval, 1, th.da, th.db)))

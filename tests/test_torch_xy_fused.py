@@ -65,7 +65,7 @@ def _setup(n_atoms, nb, method, eval_times, substeps):
     da, db = h.dim ** h._a, h.dim ** h._b
     re, im = batched(random_state(da * db, nb, seed=n_atoms), da, db)
     jg = JGrid.make(h.sampling_times, jsim._eval_times_array).refined(substeps)
-    tg = TGrid.make(h.sampling_times, jsim._eval_times_array).refined(substeps)
+    tg = TGrid.make(h.sampling_times, jsim._eval_times_array, device="cpu").refined(substeps)
     jdata = jpe.prepare_fused_inputs(h._ham_data, jax_cplx(re, im), jg.times, method)
     tdata = tfe.prepare_fused_inputs(_port_hamiltonian(h._ham_data), torch_cplx(re, im),
                                      tg.times, method)
@@ -190,7 +190,7 @@ def test_xy_kron_cotangents_are_the_derivatives():
     sign the Pallas kernel flips."""
     jsim, tsim = xy_emulators(3, duration=30, seed=9, field=IN_PLANE)
     th = tsim._hamiltonian._ham_data
-    tg = TGrid.make(tsim.sampling_times, tsim._eval_times_array)
+    tg = TGrid.make(tsim.sampling_times, tsim._eval_times_array, device="cpu")
     re, im = batched(random_state(8, 1, seed=3), th.da, th.db)
     w = torch.as_tensor(np.random.default_rng(5).normal(size=(2, th.da, th.db)))
 
