@@ -18,8 +18,13 @@ Phases (each raises on failure, so the script exits non-zero):
      (fused_bwd_ckpt_kernel) on the same outputs as K2; at the main paths'
      shapes and at small shapes that cover the direct form, da != db, a
      state batch, the RK4 tableau and two runs.  K1/K2 refuse what
-     does not fit a block's shared memory and name ckpt=True, which a
-     14-atom step then takes on K4/K5.  The kron-pair branches (K3, the
+     does not fit a block's shared memory and name ckpt=True; a 14-atom
+     value+grad step with default options then takes K4/K5 (exactly one
+     launch each, held against the f64 stepper at the bars of phase 4).
+     K4/K5's launch plan (grid, tile, jobs, barriers per step, shared
+     memory) equals the host's ckpt_plan, the kernels' own barrier counts
+     equal the plan's, two K5 runs are equal bit for bit, and no K4/K5
+     instantiation spills.  The kron-pair branches (K3, the
      XY terms) of all four kernels at small XY shapes (2, 3, 4 atoms, an
      in-plane field) and at the 12-atom XY shapes (K = 8), with K2/K5's
      kron stream and part-matrix cotangents and the states' low words; K4
@@ -453,6 +458,8 @@ def _xy_kernel_phase(torch, fe, device, gen):
     _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, "12 atoms XY")
     k4_err, k5_err, _, k5_in = _check_ckpt(
         torch, fe, data, "DP5", gen, "12 atoms XY (ckpt=True)", times)
+    ckpt_plans = _ckpt_plans(torch, fe, data, "12 atoms XY (ckpt=True)")
+    _two_k5_runs(torch, fe, data, k5_in, "12 atoms XY")
     ck = fe.fused_fwd_ckpt(data, "DP5", lo=True)
     k1 = fe.fused_fwd(data, "DP5", slots, n_eval, lo=True)
     g_of = {int(s): g for g, s in enumerate(slots.tolist()) if s < n_eval}
@@ -464,7 +471,8 @@ def _xy_kernel_phase(torch, fe, device, gen):
         raise RuntimeError(f"12 atoms XY: K4 differs from K1 at the slots by {k4_vs_k1:.3e}")
     return {"model": model, "c1": c1, "data": data, "slots": slots, "n_eval": n_eval,
             "last_slot": last_slot, "k1_err": k1_err, "k2_err": k2_err, "k4_err": k4_err,
-            "k5_err": k5_err, "k2_in": k2_in, "k5_in": k5_in, "plain": times, "plan": plan}
+            "k5_err": k5_err, "k2_in": k2_in, "k5_in": k5_in, "plain": times, "plan": plan,
+            "ckpt_plans": ckpt_plans}
 
 
 def _xy_step_phase(torch, fe, device, xy):
@@ -535,13 +543,14 @@ def _xy_step_phase(torch, fe, device, xy):
 
 
 def _ptxas_summary(report: str) -> dict:
-    """Registers and spill bytes (stores, loads) of each kernel entry in a
-    ``ptxas -v`` report, by mangled name."""
+    """Registers and spill bytes (stores, loads) of each function (kernel
+    entries and out-of-line device functions) in a ``ptxas -v`` report, by
+    mangled name."""
     out, name = {}, None
     for line in report.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            out[name] = [None, None, None]
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+            out.setdefault(name, [None, None, None])
         elif name and "spill stores" in line:
             words = line.replace(",", "").split()
             out[name][1] = int(words[words.index("spill") - 2])
@@ -553,7 +562,8 @@ def _ptxas_summary(report: str) -> dict:
 
 
 def _instantiation(mangled: str) -> str:
-    """fused_fwd_kernel<true> for _Z16fused_fwd_kernelILb1EE..."""
+    """fused_fwd_kernel<true> for _Z16fused_fwd_kernelILb1EE...; other
+    functions keep their mangled name."""
     for base in ("fused_fwd_kernel", "fused_bwd_kernel", "fused_fwd_ckpt_kernel",
                  "fused_bwd_ckpt_kernel"):
         tag = f"{len(base)}{base}"
@@ -591,6 +601,41 @@ def _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, label) -> Non
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise RuntimeError(f"{label}: two K2 runs differ")
     _log(f"  {label}: two K2 runs equal bit for bit")
+
+
+def _two_k5_runs(torch, fe, data, k5_in, label) -> None:
+    """Two K5 launches on the same inputs give the same bits."""
+    a = fe.fused_bwd_ckpt(data, "DP5", *k5_in)
+    b = fe.fused_bwd_ckpt(data, "DP5", *k5_in)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{label}: two K5 runs differ")
+    _log(f"  {label}: two K5 runs equal bit for bit")
+
+
+def _ckpt_plans(torch, fe, data, label) -> dict:
+    """K4's and K5's plans on the card against the host's ckpt_plan, and
+    the grid barriers each kernel counted in its last launch (run just
+    before, on ``data``) against the plan's."""
+    R, n_steps, pr, pc, nb, da, db = fe._dims(data)
+    K, S = fe._n_kron(data), fe._tableau("DP5")[2]
+    torch.cuda.synchronize()
+    plans = {}
+    for bwd, name, fn in ((False, "K4", "pdt_ckpt_fwd"), (True, "K5", "pdt_ckpt_bwd")):
+        own = fe.ckpt_device_plan(data, "DP5", bwd)
+        host = fe.ckpt_plan(bwd, R, nb, da, db, K, S, own["sms"])
+        for key in ("blocks", "tile", "jobs_max", "barriers_per_step", "smem_bytes"):
+            if host[key] != own[key]:
+                raise RuntimeError(f"{label}: {name} plan {key}: host {host[key]} vs kernel {own[key]}")
+        counted = int(fe.CKPT_BARRIERS[fn][1])
+        if counted != 1 + n_steps * own["barriers_per_step"]:
+            raise RuntimeError(f"{label}: {name} took {counted} grid barriers, planned "
+                               f"1 + {n_steps} x {own['barriers_per_step']}")
+        _log(f"  {label}: {name} {own['blocks']} blocks of {own['sms']} SMs, tile "
+             f"{own['tile'][0]}x{own['tile'][1]}, jobs {host['jobs']}, "
+             f"{own['barriers_per_step']} grid barriers per step ({counted} in the launch), "
+             f"{own['smem_bytes']} B shared memory a block")
+        plans[name] = own
+    return plans
 
 
 def _reset(fe) -> None:
@@ -641,8 +686,11 @@ def main() -> int:
          f"{time.perf_counter() - t0:.1f} s")
     for src, report in reports.items():
         for mangled, (regs, st, ld) in _ptxas_summary(report).items():
-            _log(f"  ptxas [{src}] {_instantiation(mangled)}: {regs} registers, spill stores "
-                 f"{st} B, spill loads {ld} B")
+            kname = _instantiation(mangled)
+            _log(f"  ptxas [{src}] {kname}: {regs} registers, spill stores {st} B, spill loads "
+                 f"{ld} B")
+            if src == "fused_ckpt" and (st or ld):
+                raise RuntimeError(f"{kname} spills {st} / {ld} bytes")
 
     # 3. kernels against their plain versions
     _log("phase 3 kernels vs plain versions")
@@ -692,8 +740,9 @@ def main() -> int:
         _log(f"  12 atoms nb=4 refused as expected: {exc}")
     else:
         raise RuntimeError("12 atoms nb=4: the kernel accepted more shared memory than it has")
-    # 14 atoms: K1 refuses even one state; ckpt=True runs it on K4/K5
-    m14, _ = _bench_model(torch, device, fused=True, n_qubits=14, ckpt=True)
+    # 14 atoms: K1 refuses even one state; the default routing runs it on
+    # K4/K5, as the JAX package runs it with default options
+    m14, _ = _bench_model(torch, device, fused=None, n_qubits=14)
     with torch.no_grad():
         sim14 = m14._make_emulator(dict(m14.params))
     d14, s14, n14, _ = _kernel_inputs(torch, sim14, m14._default_substeps(), device)
@@ -705,17 +754,21 @@ def main() -> int:
         _log(f"  14 atoms refused by K1 as expected: {exc}")
     else:
         raise RuntimeError("14 atoms: K1 accepted more shared memory than it has")
-    _check_ckpt(torch, fe, d14, "DP5", gen, "14 atoms (ckpt=True)")
+    _check_ckpt(torch, fe, d14, "DP5", gen, "14 atoms")
+    _ckpt_plans(torch, fe, d14, "14 atoms")
     _reset(fe)
     v14, g14, _ = _value_and_grad(torch, m14, p0, device)
     torch.cuda.synchronize()
-    if dict(fe.LAUNCHES) != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1,
-                             "fused_bwd_ckpt": 1}:
-        raise RuntimeError(f"14 atoms ckpt=True: launches {fe.LAUNCHES}")
+    launches14 = dict(fe.LAUNCHES)
+    if launches14 != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1}:
+        raise RuntimeError(f"14 atoms (default routing): launches {launches14}")
     if not (torch.isfinite(v14) and torch.isfinite(g14).all()):
-        raise RuntimeError(f"14 atoms ckpt=True: value {v14}, grad {g14}")
-    _log(f"  14 atoms ckpt=True value+grad: value {float(v14)!r}, launches {dict(fe.LAUNCHES)}")
-    del d14, sim14, m14
+        raise RuntimeError(f"14 atoms: value {v14}, grad {g14}")
+    f64_14, _ = _bench_model(torch, device, fused=False, n_qubits=14)
+    v64_14, g64_14, _ = _value_and_grad(torch, f64_14, p0, device)
+    _log(f"  14 atoms value+grad with default options: launches {launches14}")
+    _hold_against_f64(torch, v14, g14, v64_14, g64_14, "14 atoms")
+    del d14, sim14, m14, f64_14
 
     # 16-atom main-path shapes (the default routing)
     model16, _ = _bench_model(torch, device, fused=None, n_qubits=16)
@@ -726,6 +779,8 @@ def main() -> int:
     del sim16
     k4_err, k5_err, _, (st16_re, st16_im, lam16_re, lam16_im) = _check_ckpt(
         torch, fe, d16, "DP5", gen, "16 atoms (main path)")
+    plans16 = _ckpt_plans(torch, fe, d16, "16 atoms")
+    _two_k5_runs(torch, fe, d16, (st16_re, st16_im, lam16_re, lam16_im), "16 atoms")
     # the kron-pair branches (K3) at the XY shapes (after the ising checks,
     # whose random cotangents stay the draws they were)
     xy = _xy_kernel_phase(torch, fe, device, gen)
@@ -776,7 +831,9 @@ def main() -> int:
     f64_16_peak = torch.cuda.max_memory_allocated() / 2**30
     del f64_16
     _log(f"  n_steps {int(d16['hs'].shape[0])}, substeps {substeps16}, launches {launches16}, "
-         f"K4 grid {fe.ckpt_blocks(d16, False)} blocks, K5 grid {fe.ckpt_blocks(d16, True)} blocks")
+         f"K4 grid {fe.ckpt_blocks(d16, False)} blocks, K5 grid {fe.ckpt_blocks(d16, True)} blocks, "
+         f"{plans16['K4']['barriers_per_step']} / {plans16['K5']['barriers_per_step']} grid "
+         f"barriers per step")
     _log(f"  f64 stepper value+grad {f64_16_ms:.1f} ms (once), peak device memory "
          f"{f64_16_peak:.2f} GiB")
     _hold_against_f64(torch, value16, grad16, v64_16, g64_16, "16 atoms")

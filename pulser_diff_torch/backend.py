@@ -7,7 +7,8 @@ state and the evaluation times, and routes the solve:
   - on CUDA, ``DP5_SE`` takes the fused kernels, as the JAX package does
     on a TPU, below ``_FUSED_DIM_CAP``: K1 forward and K2 adjoint below
     ``_CKPT_DIM_THRESHOLD``, the checkpointed K4 forward and K5 adjoint
-    from there (``ckpt=True`` / ``False`` overrides);
+    from there and wherever K1's or K2's cluster plan refuses the shape
+    (``ckpt=True`` / ``False`` overrides);
   - on the CPU, ``DP5_SE`` takes the f64 stepper, as the JAX package does
     on its CPU backend;
   - ``solver="DP5_PALLAS"`` / ``"RK4_PALLAS"`` force the fused path on
@@ -36,7 +37,9 @@ from pulser_diff_torch.core.sampler import SequenceSamples, sample
 from pulser_diff_torch.core.sequence import Sequence
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.hamiltonian import Hamiltonian
-from pulser_diff_torch.ops.fused_evolution import _NB_MAX, evolve_states
+from pulser_diff_torch.ops.fused_evolution import (
+    _NB_MAX, _tableau, cluster_fits, cluster_plan, evolve_states,
+)
 from pulser_diff_torch.result import QuantumResult
 from pulser_diff_torch.simconfig import SimConfig
 from pulser_diff_torch.simresults import CoherentResults
@@ -240,6 +243,30 @@ class TorchEmulator:
         h = self._hamiltonian
         return self._fused_backend_ok() and (h.dim**h._size) < self._FUSED_DIM_CAP
 
+    def _route_ckpt(self, ckpt: Optional[bool], ham_data, method: str) -> bool:
+        """Whether the fused solve takes the checkpointed kernels K4/K5.
+
+        By default they run from dim 2^16, as in the JAX package, and also
+        wherever K1 or K2 cannot hold the shape (their cluster plan, decided
+        before any launch): 14 and 15 atoms, or a state batch past nb = 2
+        at 12 atoms, which the JAX package runs on its VMEM kernels.  An
+        explicit ``ckpt=False`` on such a shape raises the plan's
+        ValueError, which names ``ckpt=True``."""
+        da, db = int(ham_data.row_parts.shape[-1]), int(ham_data.col_parts.shape[-1])
+        shape = (
+            int(self._initial_state.shape[1]), da, db, int(ham_data.row_parts.shape[0]),
+            int(ham_data.col_parts.shape[0]),
+            0 if ham_data.kron_row is None else int(ham_data.kron_row.shape[0]),
+            _tableau(method)[2],
+        )
+        if ckpt is None:
+            return da * db >= self._CKPT_DIM_THRESHOLD or not (
+                cluster_fits(False, *shape) and cluster_fits(True, *shape))
+        if not ckpt:
+            for bwd in (False, True):
+                cluster_plan(bwd, *shape)
+        return bool(ckpt)
+
     def _solve_states(
         self,
         ham_data,
@@ -270,12 +297,10 @@ class TorchEmulator:
         if solver in (SolverType.DP5_SE, SolverType.RK4_SE):
             states = sesolve(ham_data, p, grid, solver=solver, substeps=substeps)
         elif solver in self._PALLAS_METHODS:
-            # the checkpointed kernels (K4/K5) from 2^16, as in the JAX package
-            if ckpt is None:
-                ckpt = dim >= self._CKPT_DIM_THRESHOLD
+            method = self._PALLAS_METHODS[solver]
             states = evolve_states(
-                ham_data, p, grid.refined(substeps), method=self._PALLAS_METHODS[solver],
-                ckpt=bool(ckpt),
+                ham_data, p, grid.refined(substeps), method=method,
+                ckpt=self._route_ckpt(ckpt, ham_data, method),
             )
         else:
             raise ValueError(f"Solver {solver} not available.")
@@ -328,7 +353,8 @@ class TorchEmulator:
         Options: ``substeps`` / ``max_step`` (fixed-step refinement),
         ``fused`` (True / False to force the fused kernels or the f64
         stepper), ``ckpt`` (True / False to force the checkpointed fused
-        kernels K4/K5 or K1/K2; by default they run from dim 2^16)."""
+        kernels K4/K5 or K1/K2; by default they run from dim 2^16 and
+        wherever K1/K2 cannot hold the shape)."""
         unknown = set(options) - _RUN_OPTIONS
         if unknown:
             raise TypeError(

@@ -32,13 +32,15 @@ dict then carries ``kr``, ``kc`` and the kron streams; without them every
 kernel takes the ising path unchanged.
 
 The checkpointed pair runs the same stage arithmetic where the state
-no longer fits a cluster (the JAX package takes it from dim 2^16): K4
+no longer fits a cluster (the JAX package takes it from dim 2^16; the
+port also wherever K1/K2's cluster plan refuses the shape): K4
 (``csrc/fused_ckpt.cu``: ``fused_fwd_ckpt_kernel``, for
 ``_fwd_ckpt_kernel``) stores the state after every step, and K5
 (``fused_bwd_ckpt_kernel``, for ``_bwd_ckpt_kernel``) runs the adjoint
 from those exact start states, with no mirror pass, taking a cotangent
-at every step.  Each is one cooperative launch spread over the whole
-card.
+at every step.  Each is one cooperative launch of one block per SM, with
+one grid barrier per application of -iH (``ckpt_plan`` mirrors the
+kernel's plan).
 
 Beside each kernel sits its plain PyTorch version (``fused_fwd_plain``,
 ``fused_bwd_plain``, ``fused_fwd_ckpt_plain``, ``fused_bwd_ckpt_plain``),
@@ -111,6 +113,18 @@ _SMEM_LIMIT = 232448
 _NTHREADS = 256
 _NWARPS = _NTHREADS // 32
 _C_MAX = 16
+
+
+# K4/K5's launch (csrc/fused_ckpt.cu): a block's two 128-thread groups each
+# stage up to 4 A and 4 B operands through a ring of 3 k-chunks of 16
+# (rows padded to 36 and 20 floats), beside 8 exchange tiles of 32 x 16
+# and the reduction rows (8 warps x 16)
+_CKPT_SMEM = 4 * (2 * 3 * 4 * 16 * (36 + 20) + 8 * 32 * 16 + _NWARPS * 16)
+
+# the grid-barrier words of the last K4 / K5 launch (count, barriers
+# completed), by kernel: read after the launch, they give the kernel's own
+# barrier count
+CKPT_BARRIERS: dict = {}
 
 
 # ----------------------------------------------------------------------
@@ -727,6 +741,10 @@ def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
         raise RuntimeError(f"{what}: the device cannot schedule the planned thread-block cluster.")
     if err == -6:
         raise ValueError(f"{what}: the kernel refused the cluster plan.")
+    if err == -7:
+        raise RuntimeError(f"{what}: a block of the planned size does not fit an SM.")
+    if err == -8:
+        raise ValueError(f"{what}: a run's scratch exceeds 2^32 floats; split the state batch.")
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}.")
 
@@ -760,6 +778,13 @@ def _cluster_size(da: int) -> int:
     return min(da, _C_MAX)
 
 
+def cluster_fits(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
+                 S: int) -> bool:
+    """Whether K1 (``bwd=False``) or K2 takes this shape: its block's shared
+    memory holds the cluster plan (:func:`cluster_plan` raises otherwise)."""
+    return 4 * _smem_floats(bwd, nb, da, db, pr, pc, K, S, _cluster_size(da)) <= _SMEM_LIMIT
+
+
 def cluster_plan(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
                  S: int) -> tuple[int, int]:
     """(C, shared-memory bytes a block): the thread-block cluster that K1
@@ -768,7 +793,7 @@ def cluster_plan(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
     not hold the plan."""
     C = _cluster_size(da)
     need = 4 * _smem_floats(bwd, nb, da, db, pr, pc, K, S, C)
-    if need <= _SMEM_LIMIT:
+    if cluster_fits(bwd, nb, da, db, pr, pc, K, S):
         return C, need
     fits = [n for n in range(1, nb) if 4 * _smem_floats(bwd, n, da, db, pr, pc, K, S, C) <= _SMEM_LIMIT]
     most = f"state batches up to nb={fits[-1]}" if fits else "no state batch"
@@ -930,12 +955,63 @@ def _ckpt_library() -> ctypes.CDLL:
         lib.pdt_ckpt_scratch_floats.restype = ctypes.c_size_t
         lib.pdt_ckpt_blocks.argtypes = [_I] * 6
         lib.pdt_ckpt_blocks.restype = _I
+        lib.pdt_ckpt_plan.argtypes = [_I] * 7 + [_P]
+        lib.pdt_ckpt_plan.restype = _I
         lib.pdt_ckpt_fwd.argtypes = [_P, _P, _I] + [_P] * 6 + [_I] * 8 + [_P, _P, _P]
         lib.pdt_ckpt_fwd.restype = _I
         lib.pdt_ckpt_bwd.argtypes = [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P, _P, _P]
         lib.pdt_ckpt_bwd.restype = _I
         lib._pdt_declared = True
     return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ckpt_plan(bwd: bool, R: int, nb: int, da: int, db: int, K: int, S: int,
+              n_sm: int = 132) -> dict:
+    """K4's (``bwd=False``) or K5's launch on a card with ``n_sm`` SMs, as
+    the kernel plans it (``make_plan`` in csrc/fused_ckpt.cu).
+
+    A job owns an output tile of (16 rm) x (8 rn) elements: 32 x 16 where
+    those tiles (over all runs) come to at least three quarters of the
+    SMs, else 16 x 8.  The R-side kron products, the part-matrix cotangents and the
+    outer products run on double tiles (two tile heights, a group each).
+    Returns the grid (one block per SM, at most the largest phase's jobs),
+    the tile, the jobs of each product phase (all runs), the grid barriers
+    per step (one per application of -iH, two with kron pairs) and the
+    shared memory of a block."""
+    r = 2 if 4 * R * _cdiv(da, 32) * _cdiv(db, 16) >= 3 * n_sm else 1
+    tm, tn = 16 * r, 8 * r
+    tiles = _cdiv(da, tm) * _cdiv(db, tn)
+    dt = _cdiv(da, 2 * tm) * _cdiv(db, tn)
+    outer = _cdiv(da, 2 * tm) * _cdiv(da, tn) + _cdiv(db, 2 * tm) * _cdiv(db, tn)
+    first = tiles + 2 * K * nb * dt
+    if bwd:
+        phases = {"forward": first, "forward_kron": tiles,
+                  "reverse": first + 4 * K * nb * dt + outer, "reverse_kron": tiles + K * outer}
+    else:
+        phases = {"apply": first, "apply_kron": tiles}
+    jobs = {k: R * v for k, v in phases.items() if K or not k.endswith("_kron")}
+    most = max(jobs.values())
+    return {"blocks": max(1, min(most, n_sm)), "tile": (tm, tn), "jobs": jobs, "jobs_max": most,
+            "barriers_per_step": (2 * S - 1 if bwd else S) * (2 if K else 1),
+            "smem_bytes": _CKPT_SMEM}
+
+
+def ckpt_device_plan(data: dict, method: str, bwd: bool) -> dict:
+    """The plan K4 (``bwd=False``) or K5 computes for ``data`` on its CUDA
+    device (``pdt_ckpt_plan``): blocks, tile, the largest phase's jobs,
+    grid barriers per step, shared memory a block and the device's SMs."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(data["psi_re"].device):
+        err = _ckpt_library().pdt_ckpt_plan(int(bwd), R, nb, da, db, _n_kron(data),
+                                            _tableau(method)[2], out)
+    _launch_check(err, "pdt_ckpt_plan", pr, pc)
+    return {"blocks": out[0], "tile": (out[1], out[2]), "jobs_max": out[3],
+            "barriers_per_step": out[4], "smem_bytes": out[5], "sms": out[6]}
 
 
 def ckpt_blocks(data: dict, bwd: bool) -> int:
@@ -949,6 +1025,7 @@ def ckpt_blocks(data: dict, bwd: bool) -> int:
 def _ckpt_launch(fn_name: str, bwd: int, data: dict, method: str, tensors: dict, outs) -> None:
     """Check, then launch K4 or K5 as one cooperative grid on the data's
     device and torch's current stream; raise if the launch is refused.
+    The barrier words stay in ``CKPT_BARRIERS[fn_name]``.
     ``outs``: K4's states, or K5's (lam0_re, lam0_im, zbar, dbar[, krbar,
     kcbar])."""
     device = data["psi_re"].device
@@ -978,6 +1055,7 @@ def _ckpt_launch(fn_name: str, bwd: int, data: dict, method: str, tensors: dict,
             R, n_steps, nb, da, db, pr, pc, S, a_arr, bnz, stream,
         )
     _launch_check(err, fn_name, pr, pc)
+    CKPT_BARRIERS[fn_name] = barrier
 
 
 def _fused_fwd_ckpt_cuda(data: dict, method: str, lo: bool):

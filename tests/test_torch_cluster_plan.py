@@ -106,25 +106,31 @@ ptxas info    : Compiling entry function '_Z16fused_fwd_kernelILb0EEvPKfS1_' for
 ptxas info    : Function properties for _Z16fused_fwd_kernelILb0EEvPKfS1_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 1400 bytes cmem[0]
+ptxas info    : Function properties for _Z9group_mmaILi0ELi2ELi2EEvR9GroupSmemiPK3Src
+    0 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads
 """
 
 
 def test_ptxas_summary_of_the_build_log():
     """chip_smoke.py's reading of ptxas -v: registers and spill bytes per
-    kernel instantiation."""
+    kernel instantiation and per out-of-line device function."""
     import chip_smoke
 
     got = {chip_smoke._instantiation(k): v for k, v in chip_smoke._ptxas_summary(_PTXAS).items()}
-    assert got == {"fused_bwd_kernel<true>": [255, 24, 60], "fused_fwd_kernel<false>": [96, 0, 0]}
+    assert got == {"fused_bwd_kernel<true>": [255, 24, 60], "fused_fwd_kernel<false>": [96, 0, 0],
+                   "_Z9group_mmaILi0ELi2ELi2EEvR9GroupSmemiPK3Src": [None, 16, 8]}
 
 
-def test_kernel_phases_edits_match_the_source():
-    """kernel_phases.py compiles one phase of csrc/fused_evolution.cu out
-    by text edits: each must still find its line."""
+@pytest.mark.parametrize("source", ["fused_evolution", "fused_ckpt"])
+def test_kernel_phases_edits_match_the_source(source):
+    """kernel_phases.py compiles one phase of csrc/fused_evolution.cu (K1/K2)
+    or csrc/fused_ckpt.cu (K4/K5) out by text edits: each must still find
+    its line."""
     import kernel_phases
     from pulser_diff_torch.ops import kernel_build
 
-    src = (kernel_build.CSRC / "fused_evolution.cu").read_text()
-    for name, edits in kernel_phases.VARIANTS.items():
+    src = (kernel_build.CSRC / f"{source}.cu").read_text()
+    variants = kernel_phases.VARIANTS if source == "fused_evolution" else kernel_phases.CKPT_VARIANTS
+    for name, edits in variants.items():
         for old, _ in edits:
             assert old in src, (name, old)
