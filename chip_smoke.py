@@ -44,7 +44,25 @@ Phases (each raises on failure, so the script exits non-zero):
      the coordinate gradient included (the f64 step's time and peak device
      memory printed);
   7. times: each kernel's warm median (CUDA events) beside its plain
-     version's time and its bound, the value+grad steps, the f64 steps.
+     version's time and its bound, the value+grad steps, the f64 steps;
+  8. 18 atoms (dim 2^18): bench.py's step with default options takes the
+     f32 stepper DP5_SE_F32 (no fused launch), held against the f64
+     stepper at 1e-5 / 1e-5, with its time and peak device memory; the
+     same step with TF32 allowed gives the same bits; with remat=True the
+     same result; with fused=True K4/K5 (against their plain versions at
+     these shapes, their plans, times, and the step at the BASELINE bars);
+  9. population (bench_population.py): 8 candidates at 12 atoms through
+     expectation_population_fn, exactly one K1 and one K2 launch, each
+     candidate's value and gradient equal to its own step's bit for bit;
+     2 candidates at 16 atoms, one K4 and one K5 launch, values bit for bit
+     and gradients within 1e-6 relative; the kernels at those R-run shapes
+     against their plain versions, K1/K2's resident clusters, K4/K5's
+     plans, kernel times at R > 1 and R = 1, the population step against
+     the sequential steps;
+ 10. 14- and 16-atom XY: bench_xy.py's step on the default route (K4/K5
+     with 9 and 10 kron pairs), value, gradient and q1's coordinate
+     gradient against the f64 stepper at the BASELINE bars, with the
+     step's and kernels' times and bounds.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -91,6 +109,21 @@ K2_TOL_REL = 1e-4
 # the BASELINE bars of the fused f32 path against the f64 path
 VALUE_TOL = 1e-6
 GRAD_TOL = 1e-5
+# the f32 stepper's accuracy class against f64 (the route the JAX package
+# takes from 18 atoms; it records 3.4e-6 / 1.6e-6 there): wider than the
+# fused kernels' compensated arithmetic
+F32_VALUE_TOL = 1e-5
+F32_GRAD_TOL = 1e-5
+
+# the population workload of bench_population.py: P candidates around
+# bench.py's parameters, 0.3 apart (seeded); K1/K2 at 12 atoms, K4/K5 at 16
+POP_SPREAD = 0.3
+POP_12 = 8
+POP_16 = 2
+# K4/K5 at R > 1 against R = 1: the states come out equal bit for bit,
+# zbar's job partials may be summed in another order, so the gradient is
+# held to 1e-6 relative
+POP_CKPT_GRAD_REL = 1e-6
 
 
 def _log(msg: str) -> None:
@@ -653,6 +686,338 @@ def _hold_against_f64(torch, value, grad, v64, g64, label):
         raise RuntimeError(f"{label}: fused path vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
 
 
+def _peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _timed_value_and_grad(torch, model, p0, device):
+    """One value+grad with the counts reset just before: (value, grad,
+    values, launches, host ms, peak device memory GiB, allocated before
+    GiB)."""
+    from pulser_diff_torch.ops import fused_evolution as fe
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _reset(fe)
+    t0 = time.perf_counter()
+    value, grad, vals = _value_and_grad(torch, model, p0, device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return value, grad, vals, dict(fe.LAUNCHES), ms, _peak_gib(torch), before
+
+
+def _device_busy_ms(torch, fn):
+    """The ms the device spent in kernels and copies during one fn() (the
+    sum of their durations as torch.profiler records them, device activity
+    only), and how many it saw; (None, 0) where the profiler recorded no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev else None), len(dev)
+
+
+def _busy_line(busy, count, step_ms) -> str:
+    if busy is None:
+        return "device busy share not measured (the profiler saw no device activity)"
+    return (f"device busy {busy:.2f} ms in {count} kernels and copies, "
+            f"{100 * busy / step_ms:.1f} % of the warm step (idle {100 - 100 * busy / step_ms:.1f} %)")
+
+
+def _phase_18(torch, fe, device, p0, gen, n: int = 18):
+    """18 atoms (dim 2^18, the large-scale tutorial's default), bench.py's
+    step: the default route (DP5_SE_F32, no fused launch) against the f64
+    stepper, its time and peak memory, the same step with TF32 allowed
+    (bit for bit), with remat=True, and with fused=True (K4/K5 at da = db =
+    512, a measurement: the default stays the JAX package's)."""
+    import pulser_diff_torch.backend as be
+
+    solvers = []
+    real_sesolve = be.sesolve
+    be.sesolve = lambda *a, **k: solvers.append(k.get("solver")) or real_sesolve(*a, **k)
+    try:
+        model, _ = _bench_model(torch, device, fused=None, n_qubits=n)
+        v, g, vals, launches, first_ms, peak, before = _timed_value_and_grad(torch, model, p0,
+                                                                             device)
+        route = list(solvers)
+    finally:
+        be.sesolve = real_sesolve
+    if any(launches.values()) or route != ["DP5_SE_F32"]:
+        raise RuntimeError(f"18 atoms: expected DP5_SE_F32 and no fused launch, got solvers "
+                           f"{route}, launches {launches}")
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()):
+        raise RuntimeError(f"18 atoms: bad output: values {vals}, grad {g}")
+    step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model, p0, device), 3)
+    busy = _device_busy_ms(torch, lambda: _value_and_grad(torch, model, p0, device))
+    _log(f"  18 atoms default route: solvers {route}, launches {launches}; value+grad "
+         f"{step_ms:.2f} ms warm median of 3 (first {first_ms:.1f} ms), peak device memory "
+         f"{peak:.2f} GiB ({before:.2f} GiB allocated before); {_busy_line(*busy, step_ms)}")
+    # TF32 allowed by the caller: the f32 route pins its products, forward
+    # and backward, so the value and gradient are the same bits
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        v_t, g_t, _ = _value_and_grad(torch, model, p0, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_equal = bool(torch.equal(v_t, v) and torch.equal(g_t, g))
+    _log(f"  18 atoms with allow_tf32 = True: value and gradient equal bit for bit: {tf32_equal}")
+    if not tf32_equal:
+        raise RuntimeError(f"18 atoms: TF32 changed the f32 route: |dv| "
+                           f"{abs(float(v_t - v)):.3e}, max|dg| {float((g_t - g).abs().max()):.3e}")
+    # checkpointed integration
+    remat_model, _ = _bench_model(torch, device, fused=None, n_qubits=n, remat=True)
+    v_r, g_r, _, _, remat_ms, remat_peak, _ = _timed_value_and_grad(torch, remat_model, p0,
+                                                                    device)
+    dv_r, dg_r = abs(float(v_r - v)), float((g_r - g).abs().max())
+    _log(f"  18 atoms remat=True: {remat_ms:.1f} ms (once, warm), peak {remat_peak:.2f} GiB; "
+         f"|dv| {dv_r:.3e}, max|dg| {dg_r:.3e} from the default")
+    if dv_r > 1e-6 * abs(float(v)) or dg_r > 1e-6 * float(g.abs().max()):
+        raise RuntimeError(f"18 atoms: remat=True moved the result: {dv_r:.3e} / {dg_r:.3e}")
+    del remat_model
+    # the f64 oracle
+    f64_model, _ = _bench_model(torch, device, fused=False, n_qubits=n)
+    v64, g64, _, _, f64_ms, f64_peak, _ = _timed_value_and_grad(torch, f64_model, p0, device)
+    del f64_model
+    dv, dg = abs(float(v) - float(v64)), float((g - g64).abs().max())
+    _log(f"  18 atoms f64 stepper value+grad {f64_ms:.1f} ms (once), peak {f64_peak:.2f} GiB")
+    _log(f"  18 atoms f32 route: value {float(v)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} "
+         f"(tol {F32_VALUE_TOL:.0e}); max|dg| {dg:.3e} (tol {F32_GRAD_TOL:.0e})")
+    if dv > F32_VALUE_TOL or dg > F32_GRAD_TOL:
+        raise RuntimeError(f"18 atoms: f32 route vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
+    # K4/K5 forced (fused=True): kernels against their plain versions at
+    # these shapes, then the step through QuantumModel
+    k_model, _ = _bench_model(torch, device, fused=True, n_qubits=n)
+    with torch.no_grad():
+        sim = k_model._make_emulator(dict(k_model.params))
+    d18, _, _, _ = _kernel_inputs(torch, sim, k_model._default_substeps(), device)
+    del sim
+    times = {}
+    k4_err, k5_err, _, k5_in = _check_ckpt(torch, fe, d18, "DP5", gen, "18 atoms", times)
+    plans = _ckpt_plans(torch, fe, d18, "18 atoms")
+    v_k, g_k, _, k_launches, k_first, k_peak, _ = _timed_value_and_grad(torch, k_model, p0, device)
+    if k_launches != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1}:
+        raise RuntimeError(f"18 atoms fused=True: launches {k_launches}")
+    k_step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, k_model, p0, device), 3)
+    k_busy = _device_busy_ms(torch, lambda: _value_and_grad(torch, k_model, p0, device))
+    n_k = 3
+    k4_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(d18, "DP5"), n_k)
+    k5_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(d18, "DP5", *k5_in), n_k)
+    k5_out = fe.fused_bwd_ckpt(d18, "DP5", *k5_in)
+    k4_bound, k4_by = _bound_ms(fe, d18, None, k5_in[:2], 6, "fwd_ckpt")
+    k5_bound, k5_by = _bound_ms(fe, d18, None, (*k5_in, *k5_out), 6, "bwd_ckpt")
+    R, _, _, _, nb, da, db = fe._dims(d18)
+    rounds = {name: -(-fe.ckpt_plan(bwd, R, nb, da, db, 0, 6, plans[name]["sms"])["jobs_max"]
+                      // plans[name]["blocks"]) for bwd, name in ((False, "K4"), (True, "K5"))}
+    _log(f"  18 atoms fused=True: launches {k_launches}, value+grad {k_step_ms:.2f} ms warm "
+         f"median of 3 (first {k_first:.1f} ms), peak {k_peak:.2f} GiB, n_steps "
+         f"{int(d18['hs'].shape[0])}; K4 {k4_ms:.3f} ms (plain {times['k4_plain']:.1f} ms once, "
+         f"bound {k4_bound:.4f} ms by {k4_by}), K5 {k5_ms:.3f} ms (plain "
+         f"{times['k5_plain']:.1f} ms once, bound {k5_bound:.4f} ms by {k5_by}); rounds of the "
+         f"largest phase on {plans['K4']['sms']} SMs: {rounds}; {_busy_line(*k_busy, k_step_ms)}")
+    _hold_against_f64(torch, v_k, g_k, v64, g64, "18 atoms fused=True (K4/K5)")
+    del k_model
+    k4_entry = dict(launches=k_launches["fused_fwd_ckpt"], err=k4_err, ms=k4_ms,
+                    plain_ms=times["k4_plain"], bound=k4_bound, by=k4_by)
+    k5_entry = dict(launches=k_launches["fused_bwd_ckpt"], err=k5_err, ms=k5_ms,
+                    plain_ms=times["k5_plain"], bound=k5_bound, by=k5_by)
+    del d18, k5_in, k5_out
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "f64_ms": f64_ms, "dv": dv, "dg": dg, "K4": k4_entry,
+            "K5": k5_entry}
+
+
+def _population_inputs(torch, fe, model, cands, device):
+    """The fused kernels' inputs for the candidates on the runs axis, as
+    expectation_population_fn stages them."""
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.solvers import TimeGrid
+
+    with torch.no_grad():
+        sims = [model._make_emulator({"amp_samples_0": torch.as_tensor(c, device=device)})
+                for c in cands]
+        h = sims[0]._hamiltonian
+        da, db = h.dim**h._a, h.dim**h._b
+        grid = TimeGrid.make(h.sampling_times, sims[0]._eval_times_array, device).refined(
+            model._default_substeps())
+        psi0 = sims[0].initial_state
+        p = Cplx(psi0.re.T.reshape(1, da, db), psi0.im.T.reshape(1, da, db))
+        data = fe.prepare_mc_inputs([s._hamiltonian._ham_data for s in sims], p, grid.times,
+                                    "DP5")
+    data = {k: v.detach().contiguous() for k, v in data.items()}
+    slots = torch.as_tensor(np.asarray(grid.write_slots, np.int32), device=device)
+    return data, slots, grid.n_eval, int(grid.write_slots[-1])
+
+
+def _population_phase(torch, fe, device, p0, gen, n_qubits: int, n_pop: int):
+    """bench_population.py's step: n_pop candidates' summed loss, value and
+    gradient through expectation_population_fn (default routing), counts
+    reset just before and read just after (one forward and one adjoint
+    launch with the candidates on the runs axis), each candidate held
+    against its own R = 1 step; the kernels at these R-run shapes against
+    their plain versions; the population step against n_pop sequential
+    steps."""
+    ckpt = n_qubits >= 14
+    label = f"population {n_qubits} atoms P={n_pop}"
+    model, _ = _bench_model(torch, device, fused=None, n_qubits=n_qubits)
+    rng = np.random.default_rng(SEED)
+    cands = p0[None, :] + POP_SPREAD * rng.normal(size=(n_pop, N_PARAMS))
+    pfn = model.expectation_population_fn()
+
+    def pop_step():
+        stack = torch.tensor(cands, dtype=torch.float64, device=device, requires_grad=True)
+        _, vals = pfn({"amp_samples_0": stack})
+        vals[:, -1].sum().backward()
+        return vals.detach(), stack.grad.detach()
+
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, grads = pop_step()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fe.LAUNCHES)
+    want = ({"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1} if ckpt
+            else {"fused_fwd": 1, "fused_bwd": 1, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0})
+    if launches != want:
+        raise RuntimeError(f"{label}: expected {want}, got {launches}")
+    if vals.shape != (n_pop, 2) or not (torch.isfinite(vals).all() and torch.isfinite(grads).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grads {grads}")
+    # each candidate against its own step (R = 1)
+    dv_max = dg_max = 0.0
+    for i, c in enumerate(cands):
+        v1, g1, _ = _value_and_grad(torch, model, c, device)
+        dv = abs(float(vals[i, -1]) - float(v1))
+        dg = float((grads[i] - g1).abs().max() / g1.abs().max())
+        dv_max, dg_max = max(dv_max, dv), max(dg_max, dg)
+    _log(f"  {label}: launches {launches}; against each candidate's R = 1 step: max|dv| "
+         f"{dv_max:.3e}, max relative |dg| {dg_max:.3e}")
+    if dv_max != 0.0 or dg_max > (POP_CKPT_GRAD_REL if ckpt else 0.0):
+        raise RuntimeError(f"{label}: a candidate differs from its R = 1 step: |dv| {dv_max:.3e}, "
+                           f"relative |dg| {dg_max:.3e}")
+    pop_ms, _ = _host_time_ms(torch, pop_step, 3)
+    seq_ms, _ = _host_time_ms(
+        torch, lambda: [_value_and_grad(torch, model, c, device) for c in cands], 3)
+    _log(f"  {label}: population step {pop_ms:.2f} ms, {n_pop} sequential steps {seq_ms:.2f} ms "
+         f"(warm medians of 3, first population step {first_ms:.1f} ms)")
+    # the kernels at the R-run shapes, and at R = 1 (run 0's inputs)
+    data, slots, n_eval, last_slot = _population_inputs(torch, fe, model, cands, device)
+    shared = ("rp", "cp", "hb_hi", "hb_lo", "hs")
+    one = {k: v if k in shared else v[:1] for k, v in data.items()}
+    times = {}
+    S = 6
+    if ckpt:
+        fwd_err, bwd_err, _, k_in = _check_ckpt(torch, fe, data, "DP5", gen, label, times)
+        plans = _ckpt_plans(torch, fe, data, label)
+        fwd_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(data, "DP5"), 5)
+        bwd_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(data, "DP5", *k_in), 5)
+        fwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(one, "DP5"), 5)
+        bwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(
+            one, "DP5", *[t[:1].contiguous() for t in k_in]), 5)
+        out = fe.fused_bwd_ckpt(data, "DP5", *k_in)
+        fwd_bound = _bound_ms(fe, data, None, k_in[:2], S, "fwd_ckpt")
+        bwd_bound = _bound_ms(fe, data, None, (*k_in, *out), S, "bwd_ckpt")
+        _log(f"  {label}: K4 plan {plans['K4']['blocks']} blocks, tile {plans['K4']['tile']}; "
+             f"K5 {plans['K5']['blocks']} blocks, tile {plans['K5']['tile']}")
+        names = ("fused_fwd_ckpt", "fused_bwd_ckpt")
+        plain = (times["k4_plain"], times["k5_plain"])
+    else:
+        plan = _log_plan(fe, fe._library(), data, "DP5", label)
+        fwd_err, bwd_err, _, k_in = _check_kernels(torch, fe, data, slots, n_eval, last_slot,
+                                                   "DP5", gen, label, times)
+        resident = {name: fe.resident_clusters(data, "DP5", bwd)
+                    for bwd, name in ((False, "K1"), (True, "K2"))}
+        fwd_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(data, "DP5", slots, n_eval), 5)
+        bwd_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(data, "DP5", slots, n_eval, last_slot,
+                                                           *k_in), 5)
+        in1 = [t[:1].contiguous() for t in k_in]
+        fwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(one, "DP5", slots, n_eval), 5)
+        bwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(one, "DP5", slots, n_eval, last_slot,
+                                                            *in1), 5)
+        out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *k_in)
+        fwd_bound = _bound_ms(fe, data, slots, k_in[:2], S, "fwd")
+        bwd_bound = _bound_ms(fe, data, slots, (*k_in, *out), S, "bwd")
+        _log(f"  {label}: {n_pop} clusters of C = {plan['K1']['C']} blocks; resident at once "
+             f"{resident} clusters, so {-(-n_pop // resident['K1'])} / "
+             f"{-(-n_pop // resident['K2'])} waves")
+        names = ("fused_fwd", "fused_bwd")
+        plain = (times["k1_plain"], times["k2_plain"])
+    kind = "K4/K5" if ckpt else "K1/K2"
+    _log(f"  {label}: {kind} at R = {n_pop} {fwd_ms:.3f} / {bwd_ms:.3f} ms, at R = 1 "
+         f"{fwd1_ms:.3f} / {bwd1_ms:.3f} ms (CUDA events, warm medians of 5); bounds at R = "
+         f"{n_pop} {fwd_bound[0]:.4f} ms by {fwd_bound[1]} / {bwd_bound[0]:.4f} ms by "
+         f"{bwd_bound[1]}")
+    del data, k_in, out, one, model
+    torch.cuda.empty_cache()
+    return [dict(launches=launches[names[0]], err=fwd_err, ms=fwd_ms, plain_ms=plain[0],
+                 bound=fwd_bound[0], by=fwd_bound[1]),
+            dict(launches=launches[names[1]], err=bwd_err, ms=bwd_ms, plain_ms=plain[1],
+                 bound=bwd_bound[0], by=bwd_bound[1])]
+
+
+def _xy_ckpt_phase(torch, fe, device, n: int):
+    """bench_xy.py's step at ``n`` atoms (14: K = 9 kron pairs, 16: K = 10):
+    the default routing takes K4/K5 with kron pairs (K1/K2's clusters
+    refuse the shape); value, gradient and q1's coordinate gradient
+    against the f64 stepper at the BASELINE bars; the step's and the
+    kernels' times and bounds."""
+    label = f"{n} atoms XY"
+    model, c1 = _xy_model(torch, device, fused=None, n_qubits=n)
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value, grad, cgrad, vals = _xy_value_and_grad(torch, model, c1, device)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fe.LAUNCHES)
+    if launches != {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1}:
+        raise RuntimeError(f"{label}: expected one K4 and one K5 launch, got {launches}")
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(grad).all()
+                                  and torch.isfinite(cgrad).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grad {grad}, coords {cgrad}")
+    step_ms, _ = _host_time_ms(torch, lambda: _xy_value_and_grad(torch, model, c1, device), 3)
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    data, _, _, _ = _kernel_inputs(torch, sim, model._default_substeps(), device)
+    K = fe._n_kron(data)
+    k4_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(data, "DP5", lo=True), 3)
+    st = fe.fused_fwd_ckpt(data, "DP5", lo=True)
+    lam = [torch.randn(tuple(st[0].shape), generator=torch.Generator().manual_seed(SEED),
+                       dtype=torch.float32).to(device) for _ in range(2)]
+    k5_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(data, "DP5", st[0], st[1], *lam), 3)
+    plans = _ckpt_plans(torch, fe, data, label)
+    k5_out = fe.fused_bwd_ckpt(data, "DP5", st[0], st[1], *lam)
+    k4_bound, k4_by = _bound_ms(fe, data, None, st, 6, "fwd_ckpt")
+    k5_bound, k5_by = _bound_ms(fe, data, None, (st[0], st[1], *lam, *k5_out), 6, "bwd_ckpt")
+    del sim, st, lam, k5_out
+    f64_model, c1 = _xy_model(torch, device, fused=False, n_qubits=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v64, g64, c64, _ = _xy_value_and_grad(torch, f64_model, c1, device)
+    torch.cuda.synchronize()
+    f64_ms = (time.perf_counter() - t0) * 1e3
+    del f64_model
+    dv, dg, dc = (abs(float(value) - float(v64)), float((grad - g64).abs().max()),
+                  float((cgrad - c64).abs().max()))
+    _log(f"  {label} (K = {K}): launches {launches}; value+grad {step_ms:.2f} ms warm median "
+         f"of 3 (first {first_ms:.1f} ms), K4 {k4_ms:.3f} ms (bound {k4_bound:.4f} ms by "
+         f"{k4_by}), K5 {k5_ms:.3f} ms (bound {k5_bound:.4f} ms by {k5_by}) (CUDA events, "
+         f"{plans['K4']['blocks']} / {plans['K5']['blocks']} blocks); f64 stepper {f64_ms:.1f} ms")
+    _log(f"  {label}: value {float(value)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} (tol "
+         f"{VALUE_TOL:.0e}); max|dg| {dg:.3e}, max|dc| {dc:.3e} (tol {GRAD_TOL:.0e}), "
+         f"max|coordinate grad| {float(cgrad.abs().max()):.6e}")
+    if dv > VALUE_TOL or dg > GRAD_TOL or dc > GRAD_TOL:
+        raise RuntimeError(f"{label}: K4/K5 vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}, "
+                           f"|dc| {dc:.3e}")
+    del model, data
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "k4_ms": k4_ms, "k5_ms": k5_ms, "dv": dv, "dg": dg, "dc": dc}
+
+
 def main() -> int:
     import torch
 
@@ -910,6 +1275,25 @@ def main() -> int:
     _log(f"  12-atom XY value+grad step {stepx_ms:.2f} ms (first {xy_step['first_ms']:.1f} ms); "
          f"f64 stepper step {xy_step['f64_ms']:.1f} ms (once, peak {xy_step['f64_peak']:.2f} GiB)")
 
+    # 8. 18 atoms: the f32 route (counts reset just before, read just after)
+    _log("phase 8 18 atoms: bench.py's value+grad on the default route (DP5_SE_F32), against "
+         "the f64 stepper; with TF32 allowed; with remat=True; with fused=True (K4/K5)")
+    big = _phase_18(torch, fe, device, p0, gen)
+
+    # 9. population (bench_population.py): the candidates on the runs axis
+    _log(f"phase 9 population: {POP_12} candidates at 12 atoms (K1/K2), {POP_16} at 16 atoms "
+         "(K4/K5), through expectation_population_fn")
+    pop12 = _population_phase(torch, fe, device, p0, gen, 12, POP_12)
+    pop16 = _population_phase(torch, fe, device, p0, gen, 16, POP_16)
+
+    # 10. 14- and 16-atom XY: K3 on its default route (K4/K5 with kron pairs)
+    _log("phase 10 14- and 16-atom XY value+grad (parameters and q1's coordinates), default "
+         "routing")
+    xy14 = _xy_ckpt_phase(torch, fe, device, 14)
+    xy16 = _xy_ckpt_phase(torch, fe, device, 16)
+    _log(f"  18 atoms f32 route step {big['step_ms']:.2f} ms, f64 {big['f64_ms']:.1f} ms; "
+         f"XY steps {xy14['step_ms']:.2f} ms (14 atoms), {xy16['step_ms']:.2f} ms (16 atoms)")
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -934,6 +1318,18 @@ def main() -> int:
               xy_step["launches"]["fused_bwd"], xy["k2_err"], k2x_ms, plain["k2_plain"],
               k2x_bound, k2x_by),
     ]
+    # the runs axis (population) and K4/K5 at 18 atoms (fused=True); each
+    # with the launches of its own path's run
+    for kname, src, replaces, e in (
+        (f"fused_fwd_kernel (K1), population R = {POP_12}", "fused_evolution.cu", 594, pop12[0]),
+        (f"fused_bwd_kernel (K2), population R = {POP_12}", "fused_evolution.cu", 1026, pop12[1]),
+        (f"fused_fwd_ckpt_kernel (K4), population R = {POP_16}", "fused_ckpt.cu", 1479, pop16[0]),
+        (f"fused_bwd_ckpt_kernel (K5), population R = {POP_16}", "fused_ckpt.cu", 1511, pop16[1]),
+        ("fused_fwd_ckpt_kernel (K4), 18 atoms fused=True", "fused_ckpt.cu", 1479, big["K4"]),
+        ("fused_bwd_ckpt_kernel (K5), 18 atoms fused=True", "fused_ckpt.cu", 1511, big["K5"]),
+    ):
+        kernels.append(entry(kname, src, replaces, e["launches"], e["err"], e["ms"],
+                             e["plain_ms"], e["bound"], e["by"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

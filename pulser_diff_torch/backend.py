@@ -8,23 +8,24 @@ state and the evaluation times, and routes the solve:
     on a TPU, below ``_FUSED_DIM_CAP``: K1 forward and K2 adjoint below
     ``_CKPT_DIM_THRESHOLD``, the checkpointed K4 forward and K5 adjoint
     from there and wherever K1's or K2's cluster plan refuses the shape
-    (``ckpt=True`` / ``False`` overrides);
+    (``ckpt=True`` / ``False`` overrides); from the cap (18 atoms) it
+    takes the f32 stepper ``DP5_SE_F32``, as the JAX package does;
   - on the CPU, ``DP5_SE`` takes the f64 stepper, as the JAX package does
     on its CPU backend;
-  - ``solver="DP5_PALLAS"`` / ``"RK4_PALLAS"`` force the fused path on
-    either device (on the CPU that runs the kernels' plain versions);
+  - ``solver="DP5_PALLAS"`` / ``"RK4_PALLAS"`` and ``fused=True`` force
+    the fused path on either device (on the CPU that runs the kernels'
+    plain versions), above the cap too;
   - ``fused=False`` forces the f64 stepper.
 
 The port is noiseless and coherent: ``run()`` returns
 :class:`CoherentResults`.  ``expectation_fn_of_dists`` differentiates an
 expectation in the inter-qubit distances, through the same routing.
-The f32 XLA stepper (the JAX package's route at dim >= 2^18) is not
-ported yet; the path that would take it raises instead of rerouting.
 """
 
 from __future__ import annotations
 
 import itertools
+import warnings
 from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
@@ -45,8 +46,19 @@ from pulser_diff_torch.simconfig import SimConfig
 from pulser_diff_torch.simresults import CoherentResults
 from pulser_diff_torch.solvers import SolverType, TimeGrid, sesolve
 
-# solver options accepted by run(**options) in this slice
-_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt"}
+# solver options accepted by run(**options) (and QuantumModel) so far
+_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt", "remat", "n_segments"}
+# the options that go on to sesolve
+_SESOLVE_OPTIONS = ("remat", "n_segments")
+
+
+def check_options(options: Mapping[str, Any], where: str) -> None:
+    """Raise TypeError on a solver option the port does not know."""
+    unknown = set(options) - _RUN_OPTIONS
+    if unknown:
+        raise TypeError(
+            f"Unknown {where} option(s) {sorted(unknown)}; supported: {sorted(_RUN_OPTIONS)}."
+        )
 
 
 class TorchEmulator:
@@ -56,8 +68,12 @@ class TorchEmulator:
     _PALLAS_METHODS = {SolverType.RK4_PALLAS: "RK4", SolverType.DP5_PALLAS: "DP5"}
 
     # constants kept from the JAX package (backend.py): the fused adjoint's
-    # ceiling and the switch to the checkpointed adjoint (K4/K5)
+    # ceiling (from there DP5_SE takes the f32 stepper on CUDA), the forward
+    # kernels' ceiling for paths that never differentiate (the noisy batch,
+    # ROADMAP queue 1 item 3), and the switch to the checkpointed adjoint
+    # (K4/K5)
     _FUSED_DIM_CAP = 2**18
+    _FUSED_FWD_DIM_CAP = 2**19
     _CKPT_DIM_THRESHOLD = 2**16
 
     def __init__(
@@ -104,6 +120,8 @@ class TorchEmulator:
         )
         self.set_evaluation_times(evaluation_times)
         self.set_initial_state("all-ground")
+        # pair distances, filled by run(dist_grad=True)
+        self.dist_dict: dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
     @property
@@ -243,6 +261,12 @@ class TorchEmulator:
         h = self._hamiltonian
         return self._fused_backend_ok() and (h.dim**h._size) < self._FUSED_DIM_CAP
 
+    def _f32_xla_eligible(self) -> bool:
+        """From the fused cap the f32 stepper is the default on CUDA
+        (``fused=False`` restores f64)."""
+        h = self._hamiltonian
+        return self.torch_device.type == "cuda" and (h.dim**h._size) >= self._FUSED_DIM_CAP
+
     def _route_ckpt(self, ckpt: Optional[bool], ham_data, method: str) -> bool:
         """Whether the fused solve takes the checkpointed kernels K4/K5.
 
@@ -285,17 +309,18 @@ class TorchEmulator:
         if solver == SolverType.DP5_SE and fused is not False:
             if (fused is True and self._fused_backend_ok()) or self._fused_eligible():
                 solver = SolverType.DP5_PALLAS
-            elif self.torch_device.type == "cuda" and dim >= self._FUSED_DIM_CAP:
-                raise NotImplementedError(
-                    "At dim >= 2^18 the JAX package routes DP5_SE to its f32 "
-                    "XLA stepper (DP5_SE_F32), which is not ported yet; pass "
-                    "fused=False for the f64 stepper."
-                )
+            elif self._f32_xla_eligible():
+                # past the fused adjoint's cap, the JAX package's default:
+                # the f32 stepper (|dv| 3.4e-6, |dg| 1.6e-6 against f64 at
+                # 18 atoms there)
+                solver = SolverType.DP5_SE_F32
         psi0 = self._initial_state  # (dim, nb)
         nb = psi0.shape[1]
         p = Cplx(psi0.re.T.reshape(nb, da, db), psi0.im.T.reshape(nb, da, db))
-        if solver in (SolverType.DP5_SE, SolverType.RK4_SE):
-            states = sesolve(ham_data, p, grid, solver=solver, substeps=substeps)
+        if solver in (SolverType.DP5_SE, SolverType.RK4_SE, SolverType.DP5_SE_F32,
+                      SolverType.RK4_SE_F32):
+            states = sesolve(ham_data, p, grid, solver=solver, substeps=substeps,
+                             **{k: opts[k] for k in _SESOLVE_OPTIONS if k in opts})
         elif solver in self._PALLAS_METHODS:
             method = self._PALLAS_METHODS[solver]
             states = evolve_states(
@@ -347,20 +372,38 @@ class TorchEmulator:
 
         return fn
 
-    def run(self, solver: str = SolverType.DP5_SE, **options: Any) -> CoherentResults:
+    def run(self, time_grad: bool = False, dist_grad: bool = False,
+            solver: str = SolverType.DP5_SE, **options: Any) -> CoherentResults:
         """Simulate the sequence on the emulator's device.
+
+        ``time_grad`` / ``dist_grad`` are taken for parity with the JAX
+        package and warn, as there: gradients in the evaluation times or
+        the distances come from differentiating a function
+        (``expectation_fn_of_dists``); ``dist_grad`` fills ``dist_dict``
+        with the pair distances.
 
         Options: ``substeps`` / ``max_step`` (fixed-step refinement),
         ``fused`` (True / False to force the fused kernels or the f64
         stepper), ``ckpt`` (True / False to force the checkpointed fused
         kernels K4/K5 or K1/K2; by default they run from dim 2^16 and
-        wherever K1/K2 cannot hold the shape)."""
-        unknown = set(options) - _RUN_OPTIONS
-        if unknown:
-            raise TypeError(
-                f"Unknown run() option(s) {sorted(unknown)}; supported: {sorted(_RUN_OPTIONS)}."
-            )
+        wherever K1/K2 cannot hold the shape), ``remat`` / ``n_segments``
+        (the steppers' checkpointed integration)."""
+        check_options(options, "run()")
         h = self._hamiltonian
+        if time_grad:
+            warnings.warn(
+                "run(time_grad=True) only exposes metadata: gradients with respect "
+                "to evaluation times come from differentiating a function of them.",
+                UserWarning, stacklevel=2,
+            )
+        if dist_grad:
+            warnings.warn(
+                "run(dist_grad=True) only exposes qq_distances: gradients with respect "
+                "to inter-qubit distances flow through the function returned by "
+                "expectation_fn_of_dists().",
+                UserWarning, stacklevel=2,
+            )
+            self.dist_dict.update(h._dist_dict)
         substeps = self._auto_substeps(options)
         grid = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
         states = self._solve_states(h._ham_data, solver, substeps, grid, solver_opts=options)

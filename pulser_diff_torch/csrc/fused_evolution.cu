@@ -1396,3 +1396,38 @@ extern "C" int pdt_fused_bwd(const float* st_re, const float* st_im,
                            stream, st_re, st_im, lam_re, lam_im, pt, f, m, hb_hi, hb_lo, hs,
                            diag, diag_lo, slots, lam0_re, lam0_im, zbar, dbar, kz, g, tab);
 }
+
+// How many clusters of C blocks of K1 (bwd = 0) or K2 (bwd = 1) can be
+// resident on the card at once (cudaOccupancyMaxActiveClusters), with the
+// launch's own attributes: R runs beyond it run in waves.  Negative on error
+// (-6: a plan the launch refuses; else minus the cudaError).
+template <typename... Params>
+static int resident_clusters(void (*kern)(Params...), int C, size_t smem) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err == cudaSuccess && C > 8)
+        err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(NTHREADS);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    return err == cudaSuccess ? clusters : -(int)err;
+}
+
+extern "C" int pdt_fused_resident_clusters(int bwd, int nb, int da, int db, int pr, int pc,
+                                           int K, int S, int C) {
+    if (plan_ok(bwd, nb, da, db, pr, pc, K, S, C)) return -6;
+    const size_t smem = pdt_fused_smem_bytes(bwd, nb, da, db, pr, pc, K, S, C);
+    if (bwd) return resident_clusters(K ? fused_bwd_kernel<true> : fused_bwd_kernel<false>, C, smem);
+    return resident_clusters(K ? fused_fwd_kernel<true> : fused_fwd_kernel<false>, C, smem);
+}

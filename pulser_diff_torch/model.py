@@ -9,9 +9,14 @@ the custom-waveform callables ``{"name": ((p0, p1, ...), fn)}``, which
 register one parameter per argument as ``name_0``, ``name_1``, ...
 A qubit id with a value makes that qubit's coordinates trainable: the
 register is rebuilt from the parameters on every call, so the gradient
-reaches them through the interaction weights.
+reaches them through the interaction weights.  ``expectation_population_fn``
+evaluates a stack of P candidate parameter sets: on CUDA below the fused
+cap in one launch of the fused kernels, the candidates on their runs axis.
 
-Duration optimisation, noise and ``fit`` are later slices.
+The constructor takes the JAX package's parameters in its order.
+Duration optimisation, noise (``noise_config``), ``constraints`` and
+``fit`` are later slices: a non-default ``noise_config`` or
+``constraints`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,14 +26,17 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 from torch import nn
 
-from pulser_diff_torch.backend import TorchEmulator
+from pulser_diff_torch.backend import TorchEmulator, check_options
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.register import Register
 from pulser_diff_torch.core.sequence import Sequence
 from pulser_diff_torch.core.variables import Expr
+from pulser_diff_torch.ops.fused_evolution import evolve_mc
 from pulser_diff_torch.ops.linalg import expect as _expect
 from pulser_diff_torch.ops.linalg import total_magnetization
+from pulser_diff_torch.simconfig import SimConfig
+from pulser_diff_torch.simresults import CoherentResults
 from pulser_diff_torch.solvers import SolverType, TimeGrid
 
 
@@ -37,21 +45,38 @@ class QuantumModel(nn.Module):
         self,
         seq: Sequence,
         trainable_param_values: Optional[Mapping[str, Any]] = None,
+        constraints: Optional[Mapping[str, Any]] = None,
         sampling_rate: float = 1.0,
         solver: str = SolverType.DP5_SE,
         initial_state: Optional[Cplx] = None,
+        noise_config: Optional[SimConfig] = None,
+        time_grad: bool = False,
+        dist_grad: bool = False,
         evaluation_times: Any = "Full",
         *,
         device: DeviceLike = None,
         **options: Any,
     ) -> None:
         super().__init__()
+        if constraints:
+            raise NotImplementedError(
+                "Parameter constraints come with the training API (fit, "
+                "check_constraints), which is not ported yet (ROADMAP queue 1 item 6).")
+        if noise_config is not None and noise_config.noise:
+            raise NotImplementedError(
+                f"Noise {tuple(noise_config.noise)} is not ported yet: the port runs "
+                "noiseless simulations (ROADMAP queue 1 item 3).")
+        check_options(options, "QuantumModel")
         self.torch_device = resolve_device(device)
         trainable_param_values = dict(trainable_param_values or {})
+        self.constraints = dict(constraints or {})
         self.device = seq.device
         self.sampling_rate = sampling_rate
         self.solver = solver
         self.initial_state = initial_state
+        self.noise_config = noise_config
+        self.time_grad = time_grad
+        self.dist_grad = dist_grad
         self.evaluation_times = evaluation_times
         self.options = options
         self._substeps_cache: Optional[int] = None
@@ -133,6 +158,7 @@ class QuantumModel(nn.Module):
         sim = TorchEmulator.from_sequence(
             built,
             sampling_rate=self.sampling_rate,
+            config=self.noise_config,
             evaluation_times=self.evaluation_times,
             device=self.torch_device,
         )
@@ -149,25 +175,30 @@ class QuantumModel(nn.Module):
                 self._substeps_cache = sim._auto_substeps({})
         return self._substeps_cache
 
-    def _states_fn(self, params: Mapping[str, Any]):
-        """(eval_times, states) as a function of ``params``."""
+    def _states_fn(self, params: Mapping[str, Any], force_no_fused: bool = False):
+        """(eval_times, states) as a function of ``params``;
+        ``force_no_fused`` pins the stepper (``fused=False``)."""
         sim = self._make_emulator(params)
         h = sim._hamiltonian
         substeps = int(self.options.get("substeps", self._default_substeps()))
         grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, self.torch_device)
-        states = sim._solve_states(
-            h._ham_data, self.solver, substeps, grid, solver_opts=self.options
-        )
+        opts = {**self.options, "fused": False} if force_no_fused else self.options
+        states = sim._solve_states(h._ham_data, self.solver, substeps, grid, solver_opts=opts)
         return sim._eval_times_array, states
+
+    def _observable(self, obs: Optional[Cplx]) -> Cplx:
+        """``obs`` on the module's device; by default the total
+        magnetization in its diagonal form."""
+        if obs is None:
+            obs = total_magnetization(len(self.register.qubit_ids), dense=False,
+                                      device=self.torch_device)
+        return as_cplx(obs, dtype=DTYPE).to(device=self.torch_device)
 
     def expectation_fn(
         self, obs: Optional[Cplx] = None
     ) -> Callable[[Mapping[str, Any]], tuple]:
         """Function: params -> (eval_times, real expectation values)."""
-        if obs is None:
-            obs = total_magnetization(len(self.register.qubit_ids), dense=False,
-                                      device=self.torch_device)
-        obs = as_cplx(obs, dtype=DTYPE).to(device=self.torch_device)
+        obs = self._observable(obs)
 
         def fn(params: Mapping[str, Any]):
             times, states = self._states_fn(params)
@@ -175,6 +206,71 @@ class QuantumModel(nn.Module):
 
         return fn
 
-    def forward(self, obs: Optional[Cplx] = None):
-        """(eval_times, expectation values) at the module's parameters."""
-        return self.expectation_fn(obs)(dict(self.params))
+    def expectation_population_fn(
+        self, obs: Optional[Cplx] = None
+    ) -> Callable[[Mapping[str, Any]], tuple]:
+        """Function: a stack of P candidate parameter sets (every value with
+        a leading axis P) -> (eval_times, (P, n_eval) real expectation
+        values).
+
+        Where the solve is fused (``DP5_PALLAS`` / ``RK4_PALLAS``, or
+        ``DP5_SE`` on CUDA below the fused cap unless ``fused=False``), the
+        P Hamiltonians are staged together and solved in one launch of the
+        forward kernel and one of the adjoint, the candidates on the runs
+        axis (``evolve_mc``); K1/K2 or K4/K5 as ``TorchEmulator._route_ckpt``
+        decides for one candidate (an explicit ``ckpt`` wins).  Elsewhere
+        (the CPU by default, or from the cap) the candidates are solved one
+        after another on the stepper.  Candidates do not interact, so the
+        gradient of a loss summed over them is each candidate's gradient."""
+        obs = self._observable(obs)
+
+        def fn(param_stack: Mapping[str, Any]):
+            n_pop = len(next(iter(param_stack.values())))
+            cands = [{k: v[i] for k, v in param_stack.items()} for i in range(n_pop)]
+            sim = self._make_emulator(cands[0])
+            h = sim._hamiltonian
+            times = sim._eval_times_array
+            use_fused = self.solver in TorchEmulator._PALLAS_METHODS or (
+                self.solver == SolverType.DP5_SE
+                and self.options.get("fused") is not False
+                and sim._fused_eligible()
+            )
+            if not use_fused:
+                vals = [_expect(obs, self._states_fn(p, force_no_fused=True)[1]).re
+                        for p in cands]
+                return times, torch.stack(vals)
+            substeps = int(self.options.get("substeps", self._default_substeps()))
+            grid = TimeGrid.make(h.sampling_times, times, self.torch_device)
+            hams = [h._ham_data] + [self._make_emulator(p)._hamiltonian._ham_data
+                                    for p in cands[1:]]
+            psi0 = sim.initial_state  # (dim, nb)
+            nb = psi0.shape[1]
+            da, db = h.dim**h._a, h.dim**h._b
+            p0 = Cplx(psi0.re.T.reshape(nb, da, db), psi0.im.T.reshape(nb, da, db))
+            method = TorchEmulator._PALLAS_METHODS.get(self.solver, "DP5")
+            ckpt = sim._route_ckpt(self.options.get("ckpt"), h._ham_data, method)
+            st = evolve_mc(hams, p0, grid.refined(substeps), method=method, ckpt=ckpt)
+            n_eval = st.re.shape[1]
+            states = Cplx(st.re.reshape(n_pop, n_eval, nb, da * db).transpose(2, 3),
+                          st.im.reshape(n_pop, n_eval, nb, da * db).transpose(2, 3))
+            return times, torch.stack([_expect(obs, states[i]).re for i in range(n_pop)])
+
+        return fn
+
+    def _run(self) -> tuple[torch.Tensor, CoherentResults]:
+        sim = self._make_emulator(dict(self.params))
+        results = sim.run(time_grad=self.time_grad, dist_grad=self.dist_grad,
+                          solver=self.solver, **self.options)
+        return sim.evaluation_times, results
+
+    def forward(self) -> tuple[torch.Tensor, Cplx]:
+        """(eval_times, states (n_eval, dim, nb)) at the module's parameters,
+        through ``TorchEmulator.run``."""
+        times, results = self._run()
+        return times, results.states
+
+    def expectation(self, obs: Optional[Cplx] = None) -> tuple[torch.Tensor, Cplx]:
+        """(eval_times, complex expectation values of ``obs``) at the
+        module's parameters; by default the total magnetization."""
+        times, results = self._run()
+        return times, results.expect([self._observable(obs)])[0]

@@ -9,11 +9,17 @@ with Hrow, Hcol assembled from static stacks of real part matrices and
 complex coefficient streams, U the static van der Waals diagonal (ising)
 and the (R_k, C_k) kron pairs the XY dipole flip-flop terms, applied as
 R @ Psi @ C^T without building the dim x dim matrix.
+
+In f32 (the ``*_SE_F32`` solver modes) every product runs through
+:func:`_mm`, at full f32 precision in the forward and the backward pass
+whatever the caller's TF32 setting, as the JAX package pins the f32 solve
+to ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -28,7 +34,9 @@ class FactoredHamiltonian(NamedTuple):
     row_streams: Cplx  # (Pr, Ts)
     col_streams: Cplx  # (Pc, Ts)
     int_diag: torch.Tensor  # (da, db) real static diagonal (vdW)
-    sample_dt: float  # us between stream samples
+    # us between stream samples (an f32 0-d tensor once cast for the f32
+    # modes, so the sample index is computed in f32 as in the JAX package)
+    sample_dt: Union[float, torch.Tensor]
     n_samples: int  # Ts
     # XY flip-flop terms z_k (R_k (x) C_k) + h.c., or None
     kron_row: Optional[torch.Tensor] = None  # (K, da, da) real
@@ -76,11 +84,78 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
     return _take(h.row_streams), _take(h.col_streams), zk
 
 
+@contextlib.contextmanager
+def _f32_full_precision():
+    """cuBLAS f32 products at full f32 precision (no TF32) inside the block,
+    through whichever of PyTorch's two switches the caller set (the legacy
+    ``allow_tf32``, whose getter raises once the per-backend
+    ``fp32_precision`` was set alone); both are restored after it."""
+    m = torch.backends.cuda.matmul
+    new = getattr(m, "fp32_precision", None)
+    try:
+        prev = m.allow_tf32
+    except RuntimeError:
+        prev = None
+    if prev is None:
+        m.fp32_precision = "ieee"
+    else:
+        m.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if prev is not None:
+            m.allow_tf32 = prev
+        if new is not None:
+            m.fp32_precision = new
+
+
+class _F32Matmul(torch.autograd.Function):
+    """a @ b (both at least 2-D, broadcasting) with the forward and the
+    backward products at full f32 precision: the backward pass runs later,
+    under whatever setting the caller has then, so a context manager
+    around the forward alone would not pin it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _f32_full_precision():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with _f32_full_precision():
+            if ctx.needs_input_grad[0]:
+                ga = (g @ b.transpose(-1, -2)).sum_to_size(a.shape)
+            if ctx.needs_input_grad[1]:
+                gb = (a.transpose(-1, -2) @ g).sum_to_size(b.shape)
+        return ga, gb
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b; in f32 pinned to full precision, forward and backward."""
+    if a.dtype == torch.float32:
+        return _F32Matmul.apply(a, b)
+    return a @ b
+
+
+def _weighted_sum(z: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+    """sum_k z_k stack_k over the leading axis of a (K, i, j) or (K, b, i, j)
+    stack (an einsum in f64; in f32 a pinned product, or elementwise, so
+    that no TF32 product enters)."""
+    if stack.dtype != torch.float32:
+        return torch.einsum("p,pij->ij" if stack.ndim == 3 else "k,kbid->bid", z, stack)
+    if stack.ndim == 3:
+        return _mm(z.reshape(1, -1), stack.reshape(stack.shape[0], -1)).reshape(stack.shape[1:])
+    return (z.reshape((-1,) + (1,) * (stack.ndim - 1)) * stack).sum(0)
+
+
 def assemble_side(parts: torch.Tensor, z: Cplx, transpose: bool = False) -> Cplx:
     """Hermitian side matrix H = sum_p z_p P_p + h.c. (parts real);
     ``transpose=True`` returns H^T (= conj(H))."""
-    a_re = torch.einsum("p,pij->ij", z.re, parts)
-    a_im = torch.einsum("p,pij->ij", z.im, parts)
+    a_re = _weighted_sum(z.re, parts)
+    a_im = _weighted_sum(z.im, parts)
     h_re = a_re + a_re.T
     h_im = a_im - a_im.T
     if transpose:
@@ -98,13 +173,19 @@ def _kron_terms_batched(h: FactoredHamiltonian, zk: Cplx, x: torch.Tensor, y: to
       im += sum_k a_k T1_k(y) + b_k T2_k(x)
     """
     KR, KC = h.kron_row, h.kron_col
-    x1 = torch.einsum("kij,bjc,kdc->kbid", KR, x, KC)
-    x2 = torch.einsum("kji,bjc,kcd->kbid", KR, x, KC)
-    y1 = torch.einsum("kij,bjc,kdc->kbid", KR, y, KC)
-    y2 = torch.einsum("kji,bjc,kcd->kbid", KR, y, KC)
+    if x.dtype == torch.float32:
+        kr, kc = KR[:, None], KC[:, None]
+        krt, kct = kr.transpose(-1, -2), kc.transpose(-1, -2)
+        x1, x2 = _mm(_mm(kr, x[None]), kct), _mm(_mm(krt, x[None]), kc)
+        y1, y2 = _mm(_mm(kr, y[None]), kct), _mm(_mm(krt, y[None]), kc)
+    else:
+        x1 = torch.einsum("kij,bjc,kdc->kbid", KR, x, KC)
+        x2 = torch.einsum("kji,bjc,kcd->kbid", KR, x, KC)
+        y1 = torch.einsum("kij,bjc,kdc->kbid", KR, y, KC)
+        y2 = torch.einsum("kji,bjc,kcd->kbid", KR, y, KC)
     a, b = zk.re, zk.im
-    add_re = torch.einsum("k,kbid->bid", a, x1 + x2) - torch.einsum("k,kbid->bid", b, y1 - y2)
-    add_im = torch.einsum("k,kbid->bid", a, y1 + y2) + torch.einsum("k,kbid->bid", b, x1 - x2)
+    add_re = _weighted_sum(a, x1 + x2) - _weighted_sum(b, y1 - y2)
+    add_im = _weighted_sum(a, y1 + y2) + _weighted_sum(b, x1 - x2)
     return add_re, add_im
 
 
@@ -114,10 +195,10 @@ def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cpl
     hr = assemble_side(h.row_parts, zr)
     gc = assemble_side(h.col_parts, zc, transpose=True)
     x, y = psi.re, psi.im
-    rx = hr.re @ x - hr.im @ y
-    ry = hr.re @ y + hr.im @ x
-    cx = x @ gc.re - y @ gc.im
-    cy = x @ gc.im + y @ gc.re
+    rx = _mm(hr.re, x) - _mm(hr.im, y)
+    ry = _mm(hr.re, y) + _mm(hr.im, x)
+    cx = _mm(x, gc.re) - _mm(y, gc.im)
+    cy = _mm(x, gc.im) + _mm(y, gc.re)
     out_re = rx + cx + h.int_diag * x
     out_im = ry + cy + h.int_diag * y
     if h.kron_row is not None and zk is not None:

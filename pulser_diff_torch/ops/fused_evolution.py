@@ -52,7 +52,10 @@ counts kernel launches (the plain versions never count).
 
 Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
 ``prepare_fused_inputs``, ``_unpack_zbar``, ``_zero_like_aux``) follows
-the JAX package key by key.  ``zbar`` is written directly as
+the JAX package key by key.  Every kernel takes R runs (one cluster per
+run for K1/K2, R times the jobs for K4/K5): ``prepare_mc_inputs`` and
+``evolve_mc`` stage R Hamiltonians on that axis (population evaluation),
+``evolve_states`` is one run of it.  ``zbar`` is written directly as
 ``(R, n_steps, S, 2pr + 2pc + 2K)``: the ``(1, 128)`` row packing of the
 Pallas kernel was a TPU layout workaround.
 """
@@ -186,26 +189,48 @@ def prepare_fused_inputs(
 ) -> dict:
     """Stage-precompute + two-word f32 casts, with a leading R=1 run axis
     (the same keys, shapes and values as the JAX package's)."""
-    if int(psi0.re.shape[0]) > _NB_MAX:
+    return prepare_mc_inputs([ham], psi0, grid_times, method)
+
+
+def prepare_mc_inputs(
+    hams,
+    psi0: Cplx,
+    grid_times: torch.Tensor,
+    method: str = "DP5",
+) -> dict:
+    """The inputs of R runs, one per Hamiltonian of ``hams`` (the port's
+    counterpart of ``stage_one`` under ``jax.vmap`` in
+    ``pallas_evolve_mc``): per-run streams, stage values, interaction
+    diagonal (hi/lo) and kron part matrices, stacked on a leading run axis
+    with ``torch.stack`` (so autograd hands each run its own cotangent);
+    the part stacks, step sizes and weights shared, taken from run 0 as the
+    JAX package takes them.  ``psi0`` is (nb, da, db), shared by every run,
+    or (R, nb, da, db), one per run."""
+    if int(psi0.re.shape[-3]) > _NB_MAX:
         raise ValueError(
             f"Fused kernels support state batches up to nb={_NB_MAX}; use "
             "the f64 stepper (fused=False) for larger batches."
         )
     f32 = torch.float32
-    data = {}
-    for k, v in _stage_all(ham, grid_times, method).items():
-        data[k] = v if k in ("hb_hi", "hb_lo", "hs") else v[None]
-    diag, diag_lo = _split_hi_lo(ham.int_diag)
-    data["rp"] = ham.row_parts.to(f32)
-    data["cp"] = ham.col_parts.to(f32)
-    data["diag"] = diag[None]
-    data["diag_lo"] = diag_lo[None]
-    data["psi_re"] = psi0.re.to(f32)[None]
-    data["psi_im"] = psi0.im.to(f32)[None]
-    if ham.kron_row is not None:
+    R = len(hams)
+    staged = [_stage_all(h, grid_times, method) for h in hams]
+    data = {k: v if k in ("hb_hi", "hb_lo", "hs") else torch.stack([st[k] for st in staged])
+            for k, v in staged[0].items()}
+    diag, diag_lo = _split_hi_lo(torch.stack([h.int_diag for h in hams]))
+    data["rp"] = hams[0].row_parts.to(f32)
+    data["cp"] = hams[0].col_parts.to(f32)
+    data["diag"] = diag
+    data["diag_lo"] = diag_lo
+    if psi0.re.ndim == 3:
+        data["psi_re"] = psi0.re.to(f32).expand(R, *psi0.re.shape)
+        data["psi_im"] = psi0.im.to(f32).expand(R, *psi0.im.shape)
+    else:
+        data["psi_re"] = psi0.re.to(f32)
+        data["psi_im"] = psi0.im.to(f32)
+    if hams[0].kron_row is not None:
         # differentiable casts: the coordinate gradient flows through them
-        data["kr"] = ham.kron_row.to(f32)[None]
-        data["kc"] = ham.kron_col.to(f32)[None]
+        data["kr"] = torch.stack([h.kron_row for h in hams]).to(f32)
+        data["kc"] = torch.stack([h.kron_col for h in hams]).to(f32)
     # the kernels index dense row-major buffers
     return {k: v.contiguous() for k, v in data.items()}
 
@@ -695,6 +720,8 @@ def _library() -> ctypes.CDLL:
         lib.pdt_fused_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_fused_scratch_floats.argtypes = [_I] * 5
         lib.pdt_fused_scratch_floats.restype = ctypes.c_size_t
+        lib.pdt_fused_resident_clusters.argtypes = [_I] * 9
+        lib.pdt_fused_resident_clusters.restype = _I
         lib.pdt_fused_fwd.argtypes = (
             [_P] * 6 + [_P] + [_P] * 6 + [_P] * 4 + [_P, _I] + [_I] * 9 + [_P, _P, _I, _P]
         )
@@ -812,6 +839,19 @@ def fused_plan(data: dict, method: str, bwd: bool) -> dict:
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     C, smem = cluster_plan(bwd, nb, da, db, pr, pc, _n_kron(data), _tableau(method)[2])
     return {"C": C, "blocks_per_run": C, "runs": R, "smem_bytes": smem}
+
+
+def resident_clusters(data: dict, method: str, bwd: bool) -> int:
+    """How many of K1's (``bwd=False``) or K2's clusters for ``data`` the
+    card holds at once (``cudaOccupancyMaxActiveClusters``); runs past it
+    go in waves."""
+    R, n_steps, pr, pc, nb, da, db = _dims(data)
+    K, S = _n_kron(data), _tableau(method)[2]
+    C, _ = cluster_plan(bwd, nb, da, db, pr, pc, K, S)
+    n = int(_library().pdt_fused_resident_clusters(int(bwd), nb, da, db, pr, pc, K, S, C))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {n}")
+    return n
 
 
 def _kron_ptrs(data: dict, bwd: bool):
@@ -1222,15 +1262,18 @@ def fused_evolve_ckpt(method: str, data: dict):
     return _FusedEvolveCkpt.apply(method, keys, *[data[k] for k in keys])
 
 
-def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5",
-                  ckpt: bool = False) -> Cplx:
-    """Fused evolution emitting the states at the grid's evaluation slots,
-    (n_eval, nb, da, db) f32 (f64 two-word states with kron pairs),
-    differentiable (counterpart of ``pallas_evolve_states``).  ``ckpt=True`` takes the checkpointed
-    kernels (K4/K5): every step's state is stored and the slots are
-    gathered from it, so their cotangents scatter into the per-step
-    buffer."""
-    data = prepare_fused_inputs(ham, psi0, grid.times, method)
+def evolve_mc(hams, psi0: Cplx, grid, method: str = "DP5", ckpt: bool = False) -> Cplx:
+    """Fused evolution of R runs in one launch of the forward kernel (and,
+    under autograd, one of the adjoint), the runs on the kernels' runs axis
+    (counterpart of ``pallas_evolve_mc``).  ``hams``: R factored
+    Hamiltonians on one grid and one register geometry (their part stacks
+    equal); ``psi0``: (nb, da, db) shared or (R, nb, da, db) per run.
+    Returns the states at the grid's evaluation slots, (R, n_eval, nb, da,
+    db): f32, or f64 two-word states with kron pairs.  ``ckpt=True`` takes
+    the checkpointed kernels K4/K5: every step's state is stored and the
+    slots are gathered from it, so their cotangents scatter into the
+    per-step buffer."""
+    data = prepare_mc_inputs(hams, psi0, grid.times, method)
     slots_np = np.asarray(grid.write_slots, dtype=np.int32)
     last_slot = int(slots_np[-1])
     if last_slot >= grid.n_eval:
@@ -1238,15 +1281,24 @@ def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5
             "The final grid point must carry an evaluation slot (the "
             "emulator always unions {0, T} into evaluation times)."
         )
+    device = data["psi_re"].device
     if ckpt:
         st_re, st_im = fused_evolve_ckpt(method, data)
         # grid point g carries slot s when slots[g] = s < n_eval; its state
-        # is psi0 for g = 0 and stored[g - 1] otherwise
+        # is psi0 for g = 0 and stored[:, g - 1] otherwise
         by_slot = {int(s): g for g, s in enumerate(slots_np) if s < grid.n_eval}
-        idx = torch.as_tensor([by_slot[s] for s in range(grid.n_eval)],
-                              device=psi0.re.device)
-        return Cplx(torch.cat([data["psi_re"].to(st_re.dtype), st_re[0]]).index_select(0, idx),
-                    torch.cat([data["psi_im"].to(st_im.dtype), st_im[0]]).index_select(0, idx))
-    slots = torch.as_tensor(slots_np, device=psi0.re.device)
-    out_re, out_im = fused_evolve_states(method, slots, grid.n_eval, last_slot, data)
-    return Cplx(out_re[0], out_im[0])
+        idx = torch.as_tensor([by_slot[s] for s in range(grid.n_eval)], device=device)
+        return Cplx(
+            torch.cat([data["psi_re"].to(st_re.dtype)[:, None], st_re], 1).index_select(1, idx),
+            torch.cat([data["psi_im"].to(st_im.dtype)[:, None], st_im], 1).index_select(1, idx))
+    slots = torch.as_tensor(slots_np, device=device)
+    return Cplx(*fused_evolve_states(method, slots, grid.n_eval, last_slot, data))
+
+
+def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5",
+                  ckpt: bool = False) -> Cplx:
+    """Fused evolution emitting the states at the grid's evaluation slots,
+    (n_eval, nb, da, db) f32 (f64 two-word states with kron pairs),
+    differentiable (counterpart of ``pallas_evolve_states``): one run of
+    :func:`evolve_mc`."""
+    return evolve_mc([ham], psi0, grid, method, ckpt)[0]

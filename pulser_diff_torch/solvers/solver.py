@@ -1,19 +1,30 @@
-"""f64 Schrodinger stepper (counterpart of pulser_diff_tpu/solvers/solver.py).
+"""Schrodinger stepper (counterpart of pulser_diff_tpu/solvers/solver.py).
 
 The port's f64 oracle and its route for ``fused=False``: a fixed-step
 explicit Runge-Kutta integration (DP5 or RK4) on the merged grid of
 Hamiltonian sampling times and evaluation times, written as a plain
 Python loop over torch ops, differentiated by autograd.  Evaluation-time
-states are collected at the grid's write slots.  Lindblad, Krylov,
-adaptive and checkpointed forms are later slices.
+states are collected at the grid's write slots.
+
+``DP5_SE_F32`` / ``RK4_SE_F32`` run the same steppers on an f32 copy of
+the Hamiltonian, the state and the grid times, every product pinned to
+full f32 precision (the JAX package's route past the fused kernels' cap).
+Reverse mode can checkpoint the integration: ``remat`` recomputes each
+grid interval's step in the backward pass, ``n_segments`` checkpoints
+runs of about sqrt(n_steps) steps; by default both follow the JAX
+package's memory rule (``_auto_remat``, ``_auto_segments``).  Lindblad,
+Krylov and adaptive forms are later slices.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, cstack
@@ -21,10 +32,12 @@ from pulser_diff_torch.ops.apply import FactoredHamiltonian, h_apply_batched, in
 
 
 class SolverType:
-    """Solver identifiers (the subset this slice ports)."""
+    """Solver identifiers (the subset ported so far)."""
 
     DP5_SE = "DP5_SE"
     RK4_SE = "RK4_SE"
+    DP5_SE_F32 = "DP5_SE_F32"
+    RK4_SE_F32 = "RK4_SE_F32"
     RK4_PALLAS = "RK4_PALLAS"
     DP5_PALLAS = "DP5_PALLAS"
 
@@ -133,20 +146,118 @@ def _make_se_step(ham: FactoredHamiltonian, solver: str, substeps: int):
     return step
 
 
-def _integrate(step, y0: Cplx, grid: TimeGrid) -> Cplx:
-    """Loop over grid intervals, collecting eval-slot states."""
+# Residual-storage budget of reverse mode, the JAX package's rule and
+# default (set there for a 16 GiB TPU, kept for parity): below it every
+# stage is stored; above it one state per step (``remat``); when even that
+# exceeds it, sqrt-segments.  PDT_REMAT_MB overrides it.
+_REMAT_BYTES_THRESHOLD = int(os.environ.get("PDT_REMAT_MB", str(4 * 1024))) * 1024 * 1024
+
+
+def _state_bytes(y0: Cplx) -> int:
+    return 2 * y0.re.numel() * y0.re.element_size()
+
+
+def _auto_remat(y0: Cplx, n_steps: int, stages: int = 6) -> bool:
+    """Recompute each step in the backward pass only when storing its
+    stages would exceed the budget."""
+    return n_steps * stages * _state_bytes(y0) > _REMAT_BYTES_THRESHOLD
+
+
+def _auto_segments(y0: Cplx, n_steps: int) -> Optional[int]:
+    """sqrt-checkpointing's segment count when even one state per step
+    would exceed the budget, else None."""
+    if n_steps * _state_bytes(y0) > _REMAT_BYTES_THRESHOLD:
+        return max(2, int(np.ceil(np.sqrt(n_steps))))
+    return None
+
+
+def _run_steps(step, y: Cplx, t: torch.Tensor, slots: list, n_eval: int, k0: int, k1: int,
+               remat: bool = False):
+    """Steps k0 .. k1 - 1 from ``y``: the last state and the (slot, state)
+    pairs written on the way.  ``remat`` checkpoints each step."""
+    writes = []
+    for k in range(k0, k1):
+        if remat:
+            y = Cplx(*checkpoint(lambda re, im, t0, t1: tuple(step(Cplx(re, im), t0, t1)),
+                                 y.re, y.im, t[k], t[k + 1], use_reentrant=False))
+        else:
+            y = step(y, t[k], t[k + 1])
+        if slots[k + 1] < n_eval:
+            writes.append((slots[k + 1], y))
+    return y, writes
+
+
+def _integrate(step, y0: Cplx, grid: TimeGrid, remat: bool = False,
+               n_segments: Optional[int] = None) -> Cplx:
+    """Loop over grid intervals, collecting eval-slot states.
+
+    ``remat``: each step is recomputed in the backward pass, so reverse
+    mode stores one state per step instead of its stages.  ``n_segments``:
+    the steps are cut into that many runs (of ceil(n_steps / n_segments)
+    steps, the last one shorter), each checkpointed as a whole, its steps
+    not one by one (as in the JAX package); reverse mode then stores a
+    state per segment plus one segment's stages.  Neither changes a value
+    or a gradient.  With segments ``remat`` is not read, as in JAX."""
     n_eval = grid.n_eval
     out: list = [None] * n_eval
     slots = [int(s) for s in grid.write_slots]
     if slots[0] < n_eval:
         out[slots[0]] = y0
-    y = y0
     t = grid.times
-    for k in range(t.shape[0] - 1):
-        y = step(y, t[k], t[k + 1])
-        if slots[k + 1] < n_eval:
-            out[slots[k + 1]] = y
+    n_steps = t.shape[0] - 1
+    if n_segments is None or n_segments <= 1 or n_steps < 4:
+        _, writes = _run_steps(step, y0, t, slots, n_eval, 0, n_steps, remat)
+    else:
+        seg_len = -(-n_steps // min(n_segments, n_steps))
+        y, writes = y0, []
+
+        def segment(k0, k1, re, im):
+            last, seg_writes = _run_steps(step, Cplx(re, im), t, slots, n_eval, k0, k1)
+            return (*last, *[v for _, w in seg_writes for v in w])
+
+        for k0 in range(0, n_steps, seg_len):
+            k1 = min(k0 + seg_len, n_steps)
+            res = checkpoint(segment, k0, k1, y.re, y.im, use_reentrant=False)
+            y = Cplx(res[0], res[1])
+            seg_slots = [slots[k + 1] for k in range(k0, k1) if slots[k + 1] < n_eval]
+            writes += [(s, Cplx(res[2 + 2 * i], res[3 + 2 * i])) for i, s in enumerate(seg_slots)]
+    for slot, y in writes:
+        out[slot] = y
     return cstack(out)
+
+
+# f32 solver modes -> the stepper they run
+_F32_SOLVERS = {
+    SolverType.DP5_SE_F32: SolverType.DP5_SE,
+    SolverType.RK4_SE_F32: SolverType.RK4_SE,
+}
+
+
+def _cast_ham(ham: FactoredHamiltonian, dtype: torch.dtype) -> FactoredHamiltonian:
+    """Every float field of the factored Hamiltonian in ``dtype``, by
+    differentiable casts (cotangents come back to the f64 leaves), the
+    sample spacing as a 0-d tensor on the streams' device, as the JAX
+    package casts it."""
+
+    def c(x):
+        if x is None:
+            return None
+        if isinstance(x, Cplx):
+            return Cplx(x.re.to(dtype), x.im.to(dtype))
+        return x.to(dtype)
+
+    return ham._replace(
+        row_parts=c(ham.row_parts),
+        col_parts=c(ham.col_parts),
+        row_streams=c(ham.row_streams),
+        col_streams=c(ham.col_streams),
+        int_diag=c(ham.int_diag),
+        kron_row=c(ham.kron_row),
+        kron_col=c(ham.kron_col),
+        kron_streams=c(ham.kron_streams),
+        sample_dt=torch.as_tensor(ham.sample_dt, dtype=dtype,
+                                  device=ham.row_streams.re.device),
+    )
 
 
 def sesolve(
@@ -155,9 +266,28 @@ def sesolve(
     grid: TimeGrid,
     solver: str = SolverType.DP5_SE,
     substeps: int = 1,
+    remat: Optional[bool] = None,
+    n_segments: Optional[int] = None,
 ) -> Cplx:
-    """Integrate i dpsi/dt = H(t) psi in f64.
+    """Integrate i dpsi/dt = H(t) psi.
 
-    psi0: Cplx (nb, da, db).  Returns (n_eval, nb, da, db).
+    psi0: Cplx (nb, da, db).  Returns (n_eval, nb, da, db), in f64, or in
+    f32 for ``DP5_SE_F32`` / ``RK4_SE_F32``: the Hamiltonian, psi0 and the
+    grid times cast to f32 (so the stream sample index is taken in f32, as
+    the JAX package takes it) and the f64 modes' stepper run on them.
+    ``remat`` / ``n_segments``: checkpointed integration (``_integrate``);
+    None decides from the state's bytes (``_auto_remat``,
+    ``_auto_segments``).
     """
-    return _integrate(_make_se_step(ham, solver, substeps), psi0, grid)
+    if solver in _F32_SOLVERS:
+        f32 = torch.float32
+        grid32 = TimeGrid(times=grid.times.to(f32), write_slots=grid.write_slots,
+                          n_eval=grid.n_eval)
+        return sesolve(_cast_ham(ham, f32), psi0.to(f32), grid32, _F32_SOLVERS[solver],
+                       substeps, remat, n_segments)
+    n_steps = grid.times.shape[0] * substeps
+    if remat is None:
+        remat = _auto_remat(psi0, n_steps)
+    if n_segments is None:
+        n_segments = _auto_segments(psi0, n_steps)
+    return _integrate(_make_se_step(ham, solver, substeps), psi0, grid, remat, n_segments)

@@ -106,10 +106,14 @@ def test_bench_workload_fused_matches_pallas_and_f64():
 
 
 def test_quantum_model_is_a_module():
+    """The module's parameters carry the gradient of its expectation (the
+    forward call returns the states, as the JAX package's does)."""
     model = _port_model(fused=False)
     assert [n for n, _ in model.named_parameters()] == ["params.amp_samples_0"]
-    times, vals = model()
-    vals[-1].backward()
+    times, states = model()
+    assert states.shape == (2, 2**N_ATOMS, 1)
+    _, vals = model.expectation()
+    vals.re[-1].backward()
     _, g = _port_value_grad(_port_model(fused=False))
     np.testing.assert_allclose(to_numpy(model.params["amp_samples_0"].grad), g, rtol=0, atol=0)
     np.testing.assert_array_equal(times, [0.0, DURATION / 1000])
@@ -168,7 +172,7 @@ def test_fused_run_and_routing(monkeypatch):
     assert (len(fwd), len(fwd_ckpt)) == (2, 2)
     assert out.shape[1:] == (2**16, 1) and bool(torch.isfinite(out.re).all())
     with pytest.raises(TypeError, match="Unknown run"):
-        tsim.run(remat=True)
+        tsim.run(krylov_dim=12)
     with pytest.raises(TypeError, match="Sequence instance"):
         TorchEmulator.from_sequence(sequence(jcore, 2), device="cpu")
 
