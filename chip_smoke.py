@@ -62,7 +62,24 @@ Phases (each raises on failure, so the script exits non-zero):
  10. 14- and 16-atom XY: bench_xy.py's step on the default route (K4/K5
      with 9 and 10 kron pairs), value, gradient and q1's coordinate
      gradient against the f64 stepper at the BASELINE bars, with the
-     step's and kernels' times and bounds.
+     step's and kernels' times and bounds;
+ 11. the noisy Monte-Carlo batch (bench_mc.py: doppler + amplitude noise,
+     one amplitude and one detuning stream per qubit, so pr = pc = 12
+     parts at 12 atoms) through TorchEmulator.run(): at 12 atoms R = 1, 8
+     and 32 exactly one K1 launch a run(), every time's counts summing to
+     runs x samples_per_run and results[-1] to 1, warm run() times; K1 at
+     the R-run inputs against its plain version (two runs at R = 8, one
+     at R = 32), two runs' final states against the f64 stepper (1e-6),
+     K4 equal to K1 bit for bit at every slot, K1's resident clusters; 16
+     atoms R = 8 and 18 atoms R = 2 (pr = pc = 18) in one K4 launch, K4
+     against its plain version on one run, one run against the f64
+     stepper, time and peak memory; synthetic pr = pc = 12 and 20 parts at
+     small shapes (K1 against plain, K4 = K1 bit for bit) and K2 / K5
+     refusing 9 parts on the host before any launch; SPAM (eta 0.1, eps
+     0.01, eps' 0.05, 15 runs) on K1 and the eta = 0 CoherentResults path
+     with sample_state; the device sampler's bit marginals within 5
+     standard errors of the exact mixture's, without and with detection
+     flips (20000 samples a run, 8 runs).
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -434,9 +451,13 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     n_steps = int(data["hs"].shape[0])
     K = fe._n_kron(data)
     # 8 real products per application of -iH (4 row-side, 4 column-side),
-    # and 8 per kron pair (R u, R^T u, then times C^T or C, for x and y)
+    # and 8 per kron pair (R u, R^T u, then times C^T or C, for x and y);
+    # the side matrices assembled from the parts, two stream words each:
+    # 2 (pr da^2 + pc db^2) words, a multiply and an add each
+    pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
     kron_flops = 2 * nb * K * 4 * (da * da * db + da * db * db)
-    apply_flops = 2 * 4 * nb * (da * da * db + da * db * db) + kron_flops
+    assembly_flops = 2 * (pr * da * da + pc * db * db) * 2
+    apply_flops = 2 * 4 * nb * (da * da * db + da * db * db) + kron_flops + assembly_flops
     # per stage the 8 outer products of (W, V, Wc, Vc), and per kron pair
     # the 16 of the part-matrix cotangents (8 of them (da, da, db) or
     # (db, db, da)); the stream cotangents reuse the products of the
@@ -1018,6 +1039,339 @@ def _xy_ckpt_phase(torch, fe, device, n: int):
     return {"step_ms": step_ms, "k4_ms": k4_ms, "k5_ms": k5_ms, "dv": dv, "dg": dg, "dc": dc}
 
 
+# the noisy Monte-Carlo batch of bench_mc.py: bench.py's sequence with a
+# concrete amplitude, doppler + amplitude noise (50 uK, amp_sigma 0.05, the
+# default 175 um laser waist): one amplitude and one detuning stream per
+# qubit, so pr = pc = 2 ceil(n / 2) parts a side (12 at 12 atoms)
+MC_RUNS = (1, 8, 32)
+MC_SAMPLES = 5
+MC_16 = 8
+MC_18 = 2
+# the sampler's statistics: samples a run, and the bar in standard errors
+MC_STAT_SAMPLES = 20000
+MC_STAT_SE = 5.0
+K1_ONLY = {"fused_fwd": 1, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
+K4_ONLY = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 0}
+
+
+def _mc_sim(torch, device, n_qubits: int, runs: int, noise=("doppler", "amplitude"), **cfg):
+    """bench_mc.py's emulator at ``n_qubits`` atoms with ``runs`` runs."""
+    from pulser_diff_torch import SimConfig, TorchEmulator
+    from pulser_diff_torch.core import (
+        ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    coords = [(SPACING * (i % 4), SPACING * (i // 4)) for i in range(n_qubits)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    amp = _interpolate_sine_np(N_PARAMS, DURATION) @ np.linspace(1.0, 3.0, N_PARAMS)
+    seq.add(Pulse(CustomWaveform(amp), ConstantWaveform(DURATION, DET0), 0.0), "ryd")
+    sim = TorchEmulator.from_sequence(seq, sampling_rate=SAMPLING_RATE,
+                                      evaluation_times="Minimal", device=device)
+    sim.set_config(SimConfig(noise=noise, runs=runs, samples_per_run=MC_SAMPLES,
+                             temperature=50.0, amp_sigma=0.05, **cfg))
+    return sim
+
+
+def _mc_run(torch, fe, sim, label: str, want: dict):
+    """One run() with the counts reset just before and read just after:
+    exactly the launches ``want``; every time's counts sum to runs x
+    samples_per_run and results[-1] to 1 (bench_mc.py's check).  Returns
+    (results, host ms, launches)."""
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fe.LAUNCHES)
+    if launches != want:
+        raise RuntimeError(f"{label}: run() launched {launches}, expected {want}")
+    cfg = sim._hamiltonian.config
+    totals = {sum(r.bitstring_counts.values()) for r in res}
+    if totals != {cfg.runs * cfg.samples_per_run}:
+        raise RuntimeError(f"{label}: counts a time {totals}, expected "
+                           f"{cfg.runs * cfg.samples_per_run}")
+    final = sum(res.results[-1].values())
+    if abs(final - 1.0) > 1e-6:
+        raise RuntimeError(f"{label}: results[-1] sums to {final!r}")
+    return res, ms, launches
+
+
+def _mc_batch(torch, fe, sim, device):
+    """A batch as run() draws, builds and stages it: the Hamiltonians, the
+    coarse grid and substeps, the kernels' inputs on the runs axis."""
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.solvers import TimeGrid
+
+    h = sim._hamiltonian
+    draws, _, varying = sim._draw_batch(False)
+    hams = h.build_batch(draws, varying)
+    substeps = sim._auto_substeps({})
+    grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, device)
+    fine = grid.refined(substeps)
+    da, db = h.dim**h._a, h.dim**h._b
+    psi0 = sim.initial_state
+    p = Cplx(psi0.re.T.reshape(1, da, db), psi0.im.T.reshape(1, da, db))
+    with torch.no_grad():
+        data = fe.prepare_mc_inputs(hams, p, fine.times, "DP5")
+    data = {k: v.contiguous() for k, v in data.items()}
+    slots = torch.as_tensor(np.asarray(fine.write_slots, np.int32), device=device)
+    return {"hams": hams, "grid": grid, "substeps": substeps, "data": data, "slots": slots,
+            "n_eval": fine.n_eval, "last_slot": int(fine.write_slots[-1])}
+
+
+def _runs_of(data, idx):
+    """The inputs of the runs ``idx`` alone."""
+    shared = ("rp", "cp", "hb_hi", "hb_lo", "hs")
+    return {k: v if k in shared else v[idx].contiguous() for k, v in data.items()}
+
+
+def _mc_vs_f64(torch, sim, b, states, runs, label: str) -> float:
+    """The final states of ``runs`` (the batch's run() solve) against the
+    f64 stepper on the same Hamiltonians, at the BASELINE state bar."""
+    err = 0.0
+    for r in runs:
+        with torch.no_grad():
+            ref = sim._solve_states(b["hams"][r], "DP5_SE", b["substeps"], b["grid"],
+                                    {"fused": False})
+        err = max(err, _max_err(states.re[r, -1], ref.re[-1]), _max_err(states.im[r, -1],
+                                                                         ref.im[-1]))
+    _log(f"  {label}: final states of runs {list(runs)} against the f64 stepper max|diff| "
+         f"{err:.3e} (tol {VALUE_TOL:.0e})")
+    if err > VALUE_TOL:
+        raise RuntimeError(f"{label}: final states vs f64 {err:.3e} > {VALUE_TOL:.0e}")
+    return err
+
+
+def _bit_marginals(n: int, w):
+    """(n,) probability of each bit being 1 under the (K,) weights w; bit
+    j of a sample index is qubit n - 1 - j of its bitstring."""
+    import torch
+
+    idx = torch.arange(w.shape[-1], device=w.device)
+    return torch.stack([(w * ((idx >> j) & 1)).sum(-1) for j in range(n)], -1)
+
+
+def _sampler_check(torch, sim, weights, eps: float, eps_p: float, label: str) -> float:
+    """Draw MC_STAT_SAMPLES a run with _device_sample_counts and hold each
+    bit's marginal within MC_STAT_SE standard errors of the exact
+    mixture's (flipped by eps / eps_p); returns the largest z score."""
+    from pulser_diff_torch.backend import _device_sample_counts
+
+    R, n_eval, K = weights.shape
+    n = sim._hamiltonian._size
+    n_per_run = torch.full((R,), MC_STAT_SAMPLES, dtype=torch.int64, device=weights.device)
+    counts = _device_sample_counts(weights, n_per_run, MC_STAT_SAMPLES, sim._generator(), n,
+                                   eps, eps_p).double()
+    total = R * MC_STAT_SAMPLES
+    if not torch.equal(counts.sum(-1), torch.full((n_eval,), float(total), device=counts.device,
+                                                  dtype=counts.dtype)):
+        raise RuntimeError(f"{label}: counts a time {counts.sum(-1).tolist()} != {total}")
+    exact = _bit_marginals(n, weights).mean(0)  # (n_eval, n)
+    exact = exact * (1 - eps_p) + (1 - exact) * eps
+    got = _bit_marginals(n, counts / total)
+    se = torch.sqrt(exact * (1 - exact) / total).clamp(min=1.0 / total)
+    z = float(((got - exact).abs() / se).max())
+    _log(f"  {label}: {total} draws a time, bit marginals within {z:.2f} standard errors of "
+         f"the exact mixture's (bar {MC_STAT_SE}); largest marginal {float(exact.max()):.4e}")
+    if z > MC_STAT_SE:
+        raise RuntimeError(f"{label}: a bit marginal is {z:.2f} standard errors off")
+    return z
+
+
+def _widen_parts(torch, fe, data, P: int, seed: int):
+    """``data`` with P synthetic row and column parts a side (random
+    matrices, whose symmetric and antisymmetric halves the kernels form)
+    and seeded stream words for them."""
+    g = torch.Generator().manual_seed(seed)
+    out = dict(data)
+    R, n_steps, S = (int(v) for v in data["zrh_re"].shape[:3])
+    dev = data["rp"].device
+    for key, d in (("rp", int(data["rp"].shape[-1])), ("cp", int(data["cp"].shape[-1]))):
+        out[key] = (torch.randn((P, d, d), generator=g) / (2 * P**0.5)).to(dev).contiguous()
+    for key in fe._ZF_KEYS + fe._ZB_KEYS:
+        scale = 1e-8 if key[2] == "l" else 1.0
+        out[key] = (scale * torch.randn((R, n_steps, S, P), generator=g)).to(dev).contiguous()
+    return out
+
+
+def _wide_parts_checks(torch, fe, device, gen):
+    """Synthetic pr = pc = 12 and 20 at the small shapes (da = db = 4 and
+    16, two runs): K1 against its plain version, K4 equal to K1 bit for
+    bit at every slot; K2 and K5 refuse 9 parts with the host's ValueError
+    before any launch."""
+    cases = [c for c in _small_cases(torch, device)]
+    base = []
+    for label, sim, method in cases[2:]:
+        base.append((label, _kernel_inputs(torch, sim, 1, device, method), method))
+    model, _ = _bench_model(torch, device, fused=None, n_qubits=8, duration=200)
+    with torch.no_grad():
+        sim8 = model._make_emulator(dict(model.params))
+    base.append(("8 atoms", _kernel_inputs(torch, sim8, 1, device), "DP5"))
+    for label, (sd, ss, sn, sl), method in base:
+        for P in (12, 20):
+            wd = _widen_parts(torch, fe, _two_runs(torch, fe, sd), P, seed=P)
+            tag = f"{label} R=2 pr=pc={P}"
+            outs = fe.fused_fwd(wd, method, ss, sn)
+            refs = fe.fused_fwd_plain(wd, method, ss, sn)
+            err = max(_max_err(o, w) for o, w in zip(outs, refs))
+            ck = fe.fused_fwd_ckpt(wd, method)
+            g_of = {int(s): g for g, s in enumerate(ss.tolist()) if s < sn}
+            diff = max(_max_err(c[:, g - 1], o[:, s]) for c, o in zip(ck, outs)
+                       for s, g in g_of.items() if g > 0)
+            _log(f"  {tag}: K1 vs plain max|err| {err:.3e} (tol {K1_TOL:.0e}), K4 vs K1 "
+                 f"max|diff| {diff:.3e}")
+            if err > K1_TOL or diff != 0.0:
+                raise RuntimeError(f"{tag}: K1 vs plain {err:.3e}, K4 vs K1 {diff:.3e}")
+    sd, ss, sn, sl = base[0][1]
+    method = base[0][2]
+    wd = _widen_parts(torch, fe, sd, 9, seed=9)
+    st = fe.fused_fwd(wd, method, ss, sn)
+    lam = [torch.zeros_like(st[0]) for _ in range(2)]
+    ck = fe.fused_fwd_ckpt(wd, method)
+    lam_ck = [torch.zeros_like(ck[0]) for _ in range(2)]
+    for name, call in (("K2", lambda: fe.fused_bwd(wd, method, ss, sn, sl, *st, *lam)),
+                       ("K5", lambda: fe.fused_bwd_ckpt(wd, method, *ck, *lam_ck))):
+        _reset(fe)
+        try:
+            call()
+        except ValueError as exc:
+            if "item 11" not in str(exc) or any(fe.LAUNCHES.values()):
+                raise
+            _log(f"  9 parts: {name} refused before any launch: {exc}")
+        else:
+            raise RuntimeError(f"{name} accepted 9 parts")
+
+
+def _mc_phase(torch, fe, device, gen):
+    """Phase 11, the noisy Monte-Carlo batch of bench_mc.py through
+    TorchEmulator.run(): its launches, counts and timings at 12 atoms R =
+    1, 8, 32 (K1), 16 atoms R = 8 and 18 atoms R = 2 (K4); the kernels at
+    these shapes against their plain versions and the runs against the f64
+    stepper; K4 = K1 at 12 parts; the wide-part shapes and the adjoint's
+    refusal; SPAM; the sampler's statistics."""
+    out = {"run_ms": {}, "kernels": []}
+    S = 6
+    for R in MC_RUNS:
+        label = f"12 atoms R={R}"
+        sim = _mc_sim(torch, device, 12, R)
+        _, first_ms, run_launches = _mc_run(torch, fe, sim, label, K1_ONLY)
+        run_ms, _ = _host_time_ms(torch, sim.run, 3)
+        out["run_ms"][R] = run_ms
+        b = _mc_batch(torch, fe, sim, device)
+        d = b["data"]
+        R_, n_steps, pr, pc, nb, da, db = fe._dims(d)
+        _log(f"  {label}: run() {run_ms:.2f} ms warm median of 3 ({run_ms / R:.2f} ms a run; "
+             f"first {first_ms:.1f} ms), pr = pc = {pr}, {n_steps} steps, substeps "
+             f"{b['substeps']}")
+        if R == 1:
+            continue
+        _reset(fe)
+        states = sim._solve_batch(b["hams"], "DP5_SE", b["substeps"], b["grid"], {})
+        launches = dict(fe.LAUNCHES)
+        k1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(d, "DP5", b["slots"], b["n_eval"]), 5)
+        k1_out = fe.fused_fwd(d, "DP5", b["slots"], b["n_eval"])
+        bound, by = _bound_ms(fe, d, b["slots"], k1_out, S, "fwd")
+        resident = fe.resident_clusters(d, "DP5", False)
+        # the plain version on the first runs (two at R = 8, one at R = 32):
+        # a Python loop of small launches, ~seconds a run at 12 parts
+        n_plain = 2 if R == MC_RUNS[1] else 1
+        plain_ms, refs = _host_time_ms(torch, lambda: fe.fused_fwd_plain(
+            _runs_of(d, slice(0, n_plain)), "DP5", b["slots"], b["n_eval"]), 1)
+        err = max(_max_err(o[:n_plain], w) for o, w in zip(k1_out, refs))
+        _log(f"  {label}: K1 vs plain on {n_plain} run(s) max|err| {err:.3e} (tol "
+             f"{K1_TOL:.0e}; plain {plain_ms:.1f} ms)")
+        if err > K1_TOL:
+            raise RuntimeError(f"{label}: K1 vs plain {err:.3e}")
+        entry = dict(launches=run_launches["fused_fwd"], ms=k1_ms, bound=bound, by=by, err=err,
+                     plain_ms=plain_ms, plain_runs=n_plain)
+        if R == MC_RUNS[1]:
+            _mc_vs_f64(torch, sim, b, states, (0, 1), label)
+            ck = fe.fused_fwd_ckpt(d, "DP5")
+            g_of = {int(s): g for g, s in enumerate(b["slots"].tolist()) if s < b["n_eval"]}
+            diff = max(_max_err(c[:, g - 1], o[:, s]) for c, o in zip(ck, k1_out)
+                       for s, g in g_of.items() if g > 0)
+            _log(f"  {label}: K4 vs K1 at every slot of the {R} runs max|diff| {diff:.3e}")
+            if diff != 0.0:
+                raise RuntimeError(f"{label}: K4 differs from K1 by {diff:.3e}")
+            del ck
+            # the sampler on the card: the exact mixture's bit marginals
+            weights = sim._batched_weights(states)
+            _sampler_check(torch, sim, weights, 0.0, 0.0, f"{label} sampler")
+            _sampler_check(torch, sim, weights, 0.1, 0.1, f"{label} sampler eps = eps' = 0.1")
+        _log(f"  {label}: K1 {k1_ms:.3f} ms (CUDA events, warm median of 5; bound {bound:.4f} "
+             f"ms by {by}), {R} clusters, {resident} resident at once, so "
+             f"{-(-R // resident)} waves; run()'s launches {launches}")
+        out["kernels"].append((f"fused_fwd_kernel (K1), noisy run() 12 atoms R = {R}, "
+                               f"pr = pc = {pr}", "fused_evolution.cu", 594, entry))
+        del sim, b, d, states, k1_out
+        torch.cuda.empty_cache()
+    # K4: 16 atoms R = 8, 18 atoms R = 2
+    for n, R in ((16, MC_16), (18, MC_18)):
+        label = f"{n} atoms R={R}"
+        sim = _mc_sim(torch, device, n, R)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, first_ms, run_launches = _mc_run(torch, fe, sim, label, K4_ONLY)
+        peak = _peak_gib(torch)
+        run_ms, _ = _host_time_ms(torch, sim.run, 2)
+        b = _mc_batch(torch, fe, sim, device)
+        d = b["data"]
+        _, n_steps, pr, pc, nb, da, db = fe._dims(d)
+        _reset(fe)
+        states = sim._solve_batch(b["hams"], "DP5_SE", b["substeps"], b["grid"], {})
+        launches = dict(fe.LAUNCHES)
+        if launches != K4_ONLY:
+            raise RuntimeError(f"{label}: batch solve launched {launches}")
+        _mc_vs_f64(torch, sim, b, states, (0,), label)
+        del states
+        one = _runs_of(d, slice(0, 1))
+        k4_out = fe.fused_fwd_ckpt(d, "DP5")
+        plain_ms, refs = _host_time_ms(torch, lambda: fe.fused_fwd_ckpt_plain(one, "DP5"), 1)
+        err = max(_max_err(o[:1], w) for o, w in zip(k4_out, refs))
+        del refs
+        if err > K1_TOL:
+            raise RuntimeError(f"{label}: K4 vs plain {err:.3e}")
+        k4_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(d, "DP5"), 3)
+        bound, by = _bound_ms(fe, d, None, k4_out, S, "fwd_ckpt")
+        plan = fe.ckpt_device_plan(d, "DP5", False)
+        _log(f"  {label}: pr = pc = {pr}, {n_steps} steps, substeps {b['substeps']}; run() "
+             f"{run_ms:.2f} ms warm median of 2 ({run_ms / R:.2f} ms a run; first "
+             f"{first_ms:.1f} ms), peak device memory {peak:.2f} GiB; K4 {k4_ms:.3f} ms (CUDA "
+             f"events, warm median of 3; bound {bound:.4f} ms by {by}; {plan['blocks']} blocks, "
+             f"tile {plan['tile']}), K4 vs plain on run 0 max|err| {err:.3e} (plain "
+             f"{plain_ms:.1f} ms a run)")
+        out["run_ms"][f"{n}x{R}"] = run_ms
+        out["kernels"].append((f"fused_fwd_ckpt_kernel (K4), noisy run() {n} atoms R = {R}, "
+                               f"pr = pc = {pr}", "fused_ckpt.cu", 1479,
+                               dict(launches=run_launches["fused_fwd_ckpt"], err=err, ms=k4_ms,
+                                    plain_ms=plain_ms, plain_runs=1, bound=bound, by=by)))
+        del sim, b, d, one, k4_out
+        torch.cuda.empty_cache()
+    _wide_parts_checks(torch, fe, device, gen)
+    # SPAM: the enumerated bad-atom configurations on K1, detection flips
+    spam = _mc_sim(torch, device, 12, 15, noise=("SPAM",), eta=0.1, epsilon=0.01,
+                   epsilon_prime=0.05)
+    res, spam_ms, _ = _mc_run(torch, fe, spam, "12 atoms SPAM eta=0.1", K1_ONLY)
+    _log(f"  12 atoms SPAM (eta 0.1, eps 0.01, eps' 0.05, 15 runs): {spam_ms:.1f} ms, "
+         f"{len(res)} times, final counts {dict(res[-1].bitstring_counts.most_common(3))}")
+    coh = _mc_sim(torch, device, 12, 15, noise=("SPAM",), eta=0.0, epsilon=0.01,
+                  epsilon_prime=0.05)
+    _reset(fe)
+    cres = coh.run()
+    launches = dict(fe.LAUNCHES)
+    drawn = cres.sample_final_state(1000)
+    if type(cres).__name__ != "CoherentResults" or launches != K1_ONLY or \
+            sum(drawn.values()) != 1000:
+        raise RuntimeError(f"12 atoms SPAM eta=0: {type(cres).__name__}, launches {launches}, "
+                           f"{sum(drawn.values())} samples")
+    _log(f"  12 atoms SPAM eta=0: CoherentResults, launches {launches}, sample_state(1000) "
+         f"{dict(drawn.most_common(3))}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1294,6 +1648,12 @@ def main() -> int:
     _log(f"  18 atoms f32 route step {big['step_ms']:.2f} ms, f64 {big['f64_ms']:.1f} ms; "
          f"XY steps {xy14['step_ms']:.2f} ms (14 atoms), {xy16['step_ms']:.2f} ms (16 atoms)")
 
+    # 11. the noisy Monte-Carlo batch (bench_mc.py) through run()
+    _log("phase 11 noisy Monte-Carlo run(): doppler + amplitude at 12 atoms R = 1, 8, 32 (K1), "
+         f"16 atoms R = {MC_16} and 18 atoms R = {MC_18} (K4); wide parts; SPAM; the sampler")
+    mc = _mc_phase(torch, fe, device, gen)
+    _log("  run() ms: " + ", ".join(f"{k}: {v:.2f}" for k, v in mc["run_ms"].items()))
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -1330,6 +1690,12 @@ def main() -> int:
     ):
         kernels.append(entry(kname, src, replaces, e["launches"], e["err"], e["ms"],
                              e["plain_ms"], e["bound"], e["by"]))
+    # the noisy batch: the kernel on all R runs, its plain version timed on
+    # the runs it was held against (named)
+    for kname, src, replaces, e in mc["kernels"]:
+        kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
+                             e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
+                             e["by"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,15 +17,23 @@ state and the evaluation times, and routes the solve:
     plain versions), above the cap too;
   - ``fused=False`` forces the f64 stepper.
 
-The port is noiseless and coherent: ``run()`` returns
-:class:`CoherentResults`.  ``expectation_fn_of_dists`` differentiates an
-expectation in the inter-qubit distances, through the same routing.
+Without noise ``run()`` returns :class:`CoherentResults`.  With the
+stochastic noises of a ``SimConfig`` (``doppler``, ``amplitude``, SPAM
+state-preparation errors) it draws one Hamiltonian per run, evolves the R
+runs as one batch and samples bitstrings on the device, with the SPAM
+detection flips, into :class:`NoisyResults` (``_route_noisy`` decides the
+batch's solver: on CUDA one forward launch of K1, or of K4 where K1's
+cluster does not hold the shape).  ``expectation_fn_of_dists``
+differentiates an expectation in the inter-qubit distances, through the
+coherent routing.
 """
 
 from __future__ import annotations
 
 import itertools
 import warnings
+from collections import Counter
+from dataclasses import asdict
 from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
@@ -37,14 +45,17 @@ from pulser_diff_torch.core.register import Register
 from pulser_diff_torch.core.sampler import SequenceSamples, sample
 from pulser_diff_torch.core.sequence import Sequence
 from pulser_diff_torch.cplx import Cplx, as_cplx
-from pulser_diff_torch.hamiltonian import Hamiltonian
+from pulser_diff_torch.hamiltonian import DRAW_FIELDS, Hamiltonian, draw_noise, zero_noise_draws
 from pulser_diff_torch.ops.fused_evolution import (
-    _NB_MAX, _tableau, cluster_fits, cluster_plan, evolve_states,
+    _NB_MAX, _tableau, check_parts, cluster_fits, cluster_plan, evolve_mc, evolve_states,
 )
 from pulser_diff_torch.result import QuantumResult
-from pulser_diff_torch.simconfig import SimConfig
-from pulser_diff_torch.simresults import CoherentResults
+from pulser_diff_torch.simconfig import NoiseModel, SimConfig, host_float
+from pulser_diff_torch.simresults import CoherentResults, NoisyResults, SampledResult
 from pulser_diff_torch.solvers import SolverType, TimeGrid, sesolve
+
+_LINDBLAD_NOISES = {"dephasing", "relaxation", "depolarizing", "eff_noise"}
+_DETERMINISTIC_NOISES = _LINDBLAD_NOISES | {"SPAM", "amplitude", "leakage"}
 
 # solver options accepted by run(**options) (and QuantumModel) so far
 _RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt", "remat", "n_segments"}
@@ -69,9 +80,8 @@ class TorchEmulator:
 
     # constants kept from the JAX package (backend.py): the fused adjoint's
     # ceiling (from there DP5_SE takes the f32 stepper on CUDA), the forward
-    # kernels' ceiling for paths that never differentiate (the noisy batch,
-    # ROADMAP queue 1 item 3), and the switch to the checkpointed adjoint
-    # (K4/K5)
+    # kernels' ceiling for paths that never differentiate (the noisy batch
+    # of run()), and the switch to the checkpointed adjoint (K4/K5)
     _FUSED_DIM_CAP = 2**18
     _FUSED_FWD_DIM_CAP = 2**19
     _CKPT_DIM_THRESHOLD = 2**16
@@ -119,9 +129,13 @@ class TorchEmulator:
             self.torch_device,
         )
         self.set_evaluation_times(evaluation_times)
+        # the port has no measure(): the basis is the Hamiltonian's
+        self._meas_basis = self._hamiltonian.basis_name
         self.set_initial_state("all-ground")
         # pair distances, filled by run(dist_grad=True)
         self.dist_dict: dict[str, torch.Tensor] = {}
+        # seeds every draw of run() (unseeded, as in the JAX package)
+        self._rng = np.random.default_rng()
 
     # ------------------------------------------------------------------
     @property
@@ -139,6 +153,50 @@ class TorchEmulator:
     @property
     def basis_name(self) -> str:
         return self._hamiltonian.basis_name
+
+    @property
+    def config(self) -> SimConfig:
+        return SimConfig.from_noise_model(self._hamiltonian.config)
+
+    def _check_supported(self, cfg: SimConfig) -> None:
+        interaction = self._hamiltonian._interaction
+        not_supported = set(cfg.noise) - cfg.supported_noises[interaction]
+        if not_supported:
+            raise NotImplementedError(
+                f"Interaction mode '{interaction}' does not support simulation of noise "
+                f"types: {', '.join(not_supported)}."
+            )
+
+    def set_config(self, cfg: SimConfig) -> None:
+        if not isinstance(cfg, SimConfig):
+            raise ValueError(f"Object {cfg} is not a valid `SimConfig`.")
+        self._check_supported(cfg)
+        self._hamiltonian.set_config(cfg.to_noise_model())
+
+    def add_config(self, config: SimConfig) -> None:
+        """Merge in the noise types of ``config`` with the parameters they
+        need; the other parameters stay."""
+        if not isinstance(config, SimConfig):
+            raise ValueError(f"Object {config} is not a valid `SimConfig`")
+        self._check_supported(config)
+        old = self._hamiltonian.config
+        new_nm = config.to_noise_model()
+        old_noises = set(old.noise_types)
+        params = asdict(old)
+        params["noise_types"] = tuple(old_noises | set(new_nm.noise_types))
+        relevant = NoiseModel._find_relevant_params(
+            set(new_nm.noise_types) - old_noises, new_nm.state_prep_error, new_nm.amp_sigma,
+            new_nm.laser_waist,
+        )
+        for p in relevant:
+            params[p] = getattr(new_nm, p)
+        self._hamiltonian.set_config(NoiseModel(**params))
+
+    def show_config(self, solver_options: bool = False) -> None:
+        print(self.config.__str__(solver_options))
+
+    def reset_config(self) -> None:
+        self._hamiltonian.set_config(SimConfig().to_noise_model())
 
     @property
     def initial_state(self) -> Cplx:
@@ -235,13 +293,12 @@ class TorchEmulator:
         dt_grid = 0.001 / self._sampling_rate
         if "max_step" in options:
             return max(1, int(np.ceil(dt_grid / float(options["max_step"]))))
-        hd = self._hamiltonian._ham_data
+        h = self._hamiltonian
+        hd = h._ham_data
         zmax = 0.0
         for streams, parts in ((hd.row_streams, hd.row_parts), (hd.col_streams, hd.col_parts)):
             s = streams.to_numpy()
-            p = parts.detach().cpu().numpy()
-            pn = np.linalg.norm(p, ord=2, axis=(1, 2))
-            zmax += 2 * float(np.max(np.abs(s), axis=1) @ pn) if s.size else 0.0
+            zmax += 2 * float(np.max(np.abs(s), axis=1) @ h.part_norms(parts)) if s.size else 0.0
         dmax = float(hd.int_diag.detach().abs().max())
         if hd.kron_row is not None:
             kr = hd.kron_row.detach().cpu().numpy()
@@ -335,13 +392,16 @@ class TorchEmulator:
             states.im.reshape(n_eval, nb, dim).transpose(1, 2),
         )
 
-    def _wrap_coherent(self, states: Cplx) -> CoherentResults:
+    def _wrap_coherent(self, states: Cplx,
+                       meas_errors: Optional[Mapping[str, Any]] = None) -> CoherentResults:
         h = self._hamiltonian
         results = [
-            QuantumResult(tuple(h._qdict), h.basis_name, states[i])
+            QuantumResult(tuple(h._qdict), self._meas_basis, states[i],
+                          self._meas_basis == h.basis_name, tuple(h._basis_labels))
             for i in range(states.re.shape[0])
         ]
-        return CoherentResults(results, h._size, h.basis_name, self._eval_times_array)
+        return CoherentResults(results, h._size, h.basis_name, self._eval_times_array,
+                               self._meas_basis, meas_errors)
 
     def expectation_fn_of_dists(self, obs: Any, solver: str = SolverType.DP5_SE,
                                 **options: Any) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -373,8 +433,18 @@ class TorchEmulator:
         return fn
 
     def run(self, time_grad: bool = False, dist_grad: bool = False,
-            solver: str = SolverType.DP5_SE, **options: Any) -> CoherentResults:
+            solver: str = SolverType.DP5_SE, **options: Any):
         """Simulate the sequence on the emulator's device.
+
+        Without noise (and with SPAM measurement errors only) it returns
+        :class:`CoherentResults`.  With doppler or amplitude noise (a
+        nonzero ``amp_sigma``) it draws ``runs`` Hamiltonians, and with a
+        SPAM state-preparation error ``eta`` > 0 alone it enumerates
+        ``runs`` bad-atom configurations (repeats weighting the samples);
+        either batch is evolved at once (``_route_noisy``) and sampled on
+        the device into :class:`NoisyResults` of ``runs *
+        samples_per_run`` shots a time.  The Lindblad noises raise until
+        ``mesolve`` is ported (ROADMAP queue 1 item 4).
 
         ``time_grad`` / ``dist_grad`` are taken for parity with the JAX
         package and warn, as there: gradients in the evaluation times or
@@ -390,6 +460,8 @@ class TorchEmulator:
         (the steppers' checkpointed integration)."""
         check_options(options, "run()")
         h = self._hamiltonian
+        cfg = h.config
+        noise = set(cfg.noise_types)
         if time_grad:
             warnings.warn(
                 "run(time_grad=True) only exposes metadata: gradients with respect "
@@ -404,10 +476,171 @@ class TorchEmulator:
                 UserWarning, stacklevel=2,
             )
             self.dist_dict.update(h._dist_dict)
+        meas_errors = None
+        eta = host_float(cfg.state_prep_error)
+        if "SPAM" in noise:
+            meas_errors = {"epsilon": cfg.p_false_pos, "epsilon_prime": cfg.p_false_neg}
+            if eta > 0 and not self._initial_is_ground:
+                raise NotImplementedError(
+                    "Can't combine state preparation errors with an initial state "
+                    "different from the ground."
+                )
+        if noise & _LINDBLAD_NOISES:
+            raise NotImplementedError(
+                f"The noise types {sorted(noise & _LINDBLAD_NOISES)} run on the Lindblad "
+                "master equation (DP5_ME), which is not ported yet (ROADMAP queue 1 item 4).")
         substeps = self._auto_substeps(options)
         grid = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
-        states = self._solve_states(h._ham_data, solver, substeps, grid, solver_opts=options)
-        return self._wrap_coherent(states)
+        deterministic = noise <= _DETERMINISTIC_NOISES and (
+            "amplitude" not in noise or host_float(cfg.amp_sigma) == 0.0)
+        if deterministic and ("SPAM" not in noise or eta == 0):
+            states = self._solve_states(h._ham_data, solver, substeps, grid, solver_opts=options)
+            return self._wrap_coherent(states, meas_errors)
+        draws, reps, varying = self._draw_batch(deterministic)
+        hams = h.build_batch(draws, varying)
+        states = self._solve_batch(hams, solver, substeps, grid, options)
+        return self._sample_noisy(states, reps, cfg.samples_per_run, cfg.runs, meas_errors)
+
+    def _draw_batch(self, deterministic: bool) -> tuple[list, list, frozenset]:
+        """The draws of a noisy batch, each run's repeats, and the draw
+        fields that differ between runs.  SPAM state-preparation errors
+        alone (``deterministic``): the bad-atom configurations of ``runs``
+        draws, each once, its repeats weighting its samples.  Otherwise
+        ``runs`` independent draws of every noise type."""
+        h = self._hamiltonian
+        cfg = h.config
+        n_slots = h._count_noise_slots()
+        if deterministic:
+            eta = host_float(cfg.state_prep_error)
+            configs = Counter(
+                "".join(str(int(x)) for x in (self._rng.random(h._size) < eta))
+                for _ in range(cfg.runs)
+            ).most_common()
+            draws = [zero_noise_draws(h._size, n_slots, self.torch_device)._replace(
+                bad_atoms=torch.tensor([float(c) for c in bits], dtype=DTYPE,
+                                       device=self.torch_device)) for bits, _ in configs]
+            return draws, [r for _, r in configs], frozenset({"bad_atoms"})
+        gen = self._generator()
+        draws = [draw_noise(gen, cfg, h._size, n_slots) for _ in range(cfg.runs)]
+        varying = frozenset(DRAW_FIELDS[t] for t in cfg.noise_types if t in DRAW_FIELDS)
+        return draws, [1] * cfg.runs, varying
+
+    def _generator(self) -> torch.Generator:
+        """A generator on the emulator's device, seeded from its host
+        generator."""
+        gen = torch.Generator(device=self.torch_device)
+        gen.manual_seed(int(self._rng.integers(0, 2**31 - 1)))
+        return gen
+
+    def _route_noisy(self, solver: str, options: Mapping[str, Any], pr: int, pc: int,
+                     K: int = 0) -> tuple[str, Optional[str]]:
+        """(solver, kernel) of a noisy batch, decided before any launch.
+
+        The batch never differentiates, so the fused path is gated by the
+        forward kernels' ceiling (``_FUSED_FWD_DIM_CAP``), as in the JAX
+        package: on CUDA ``DP5_SE`` (and ``DP5_PALLAS`` / ``RK4_PALLAS`` on
+        any device) takes ONE forward launch for all runs, ``"K1"`` where
+        K1's cluster plan holds the shape, else ``"K4"`` (``ckpt=True`` /
+        ``False`` forces one; ``False`` raises where K1 refuses).  Past the
+        ceiling every run takes the f32 stepper on CUDA; ``fused=False``
+        and the CPU take the f64 stepper (kernel None)."""
+        h = self._hamiltonian
+        dim = h.dim**h._size
+        fused = options.get("fused")
+        if solver in self._PALLAS_METHODS or (
+                solver == SolverType.DP5_SE and fused is not False and self._fused_backend_ok()
+                and dim < self._FUSED_FWD_DIM_CAP):
+            check_parts(False, pr, pc)
+            method = self._PALLAS_METHODS.get(solver, "DP5")
+            shape = (int(self._initial_state.shape[1]), h.dim**h._a, h.dim**h._b, pr, pc, K,
+                     _tableau(method)[2])
+            ckpt = options.get("ckpt")
+            if ckpt is None:
+                ckpt = not cluster_fits(False, *shape)
+            elif not ckpt:
+                cluster_plan(False, *shape)
+            run_solver = SolverType.RK4_PALLAS if method == "RK4" else SolverType.DP5_PALLAS
+            return run_solver, ("K4" if ckpt else "K1")
+        if solver == SolverType.DP5_SE and fused is not False and self._f32_xla_eligible():
+            return SolverType.DP5_SE_F32, None
+        return solver, None
+
+    def _solve_batch(self, hams: list, solver: str, substeps: int, grid: TimeGrid,
+                     options: Mapping[str, Any]) -> Cplx:
+        """The R runs' states, (R, n_eval, dim, nb), without gradients:
+        one fused forward launch, or one stepper solve per run."""
+        hd = hams[0]
+        K = 0 if hd.kron_row is None else int(hd.kron_row.shape[0])
+        run_solver, kernel = self._route_noisy(
+            solver, options, int(hd.row_parts.shape[0]), int(hd.col_parts.shape[0]), K)
+        with torch.no_grad():
+            if kernel is None:
+                opts = {**options, "fused": False}
+                st = [self._solve_states(ham, run_solver, substeps, grid, solver_opts=opts)
+                      for ham in hams]
+                return Cplx(torch.stack([s.re for s in st]), torch.stack([s.im for s in st]))
+            h = self._hamiltonian
+            da, db = h.dim**h._a, h.dim**h._b
+            psi0 = self._initial_state
+            nb = psi0.shape[1]
+            p = Cplx(psi0.re.T.reshape(nb, da, db), psi0.im.T.reshape(nb, da, db))
+            st = evolve_mc(hams, p, grid.refined(substeps), self._PALLAS_METHODS[run_solver],
+                           ckpt=kernel == "K4")
+        R, n_eval = st.re.shape[:2]
+        return Cplx(st.re.reshape(R, n_eval, nb, da * db).transpose(2, 3),
+                    st.im.reshape(R, n_eval, nb, da * db).transpose(2, 3))
+
+    def _batched_weights(self, states_all: Cplx) -> torch.Tensor:
+        """Measurement bitstring probabilities of a (R, n_eval, dim, nb)
+        state batch (the batched form of QuantumResult._weights), in f64,
+        normalised along the last axis: (R, n_eval, 2^n)."""
+        h = self._hamiltonian
+        full = h.dim**h._size
+        re, im = states_all.re.to(DTYPE), states_all.im.to(DTYPE)
+        if re.ndim == 4 and re.shape[-2] == re.shape[-1] == full:
+            probs = torch.diagonal(re, dim1=-2, dim2=-1).abs()
+        else:
+            probs = (re**2 + im**2).reshape(re.shape[0], re.shape[1], -1)
+        if h.dim != 2:
+            raise NotImplementedError(
+                "Sampling systems with more than two levels a site is not ported yet "
+                "(ROADMAP queue 1 item 8).")
+        if self._meas_basis != h.basis_name:
+            probs = torch.zeros_like(probs)
+            probs[..., 0] = 1.0
+        elif self._meas_basis == "ground-rydberg":
+            probs = torch.flip(probs, (-1,))  # r-first ordering -> bit order
+        weights = torch.clamp(probs, min=0.0)
+        return weights / weights.sum(-1, keepdim=True)
+
+    def _sample_noisy(self, states_all: Cplx, reps: list, samples_per_run: int, runs: int,
+                      meas_errors: Optional[Mapping[str, Any]] = None) -> NoisyResults:
+        """Bitstring statistics of a solved batch of noisy runs: the
+        weights, the draws and the detection flips on the device
+        (``_device_sample_counts``), one (n_eval, 2^n) count array back to
+        the host."""
+        n_per_run = torch.as_tensor(np.asarray(reps, dtype=np.int64) * samples_per_run,
+                                    device=self.torch_device)
+        eps = eps_p = 0.0
+        if meas_errors is not None:
+            eps = host_float(meas_errors["epsilon"])
+            eps_p = host_float(meas_errors["epsilon_prime"])
+        counts = _device_sample_counts(self._batched_weights(states_all), n_per_run,
+                                       int(n_per_run.max()), self._generator(),
+                                       self._hamiltonian._size, eps, eps_p)
+        return self._noisy_from_counts(counts.cpu().numpy(), runs, samples_per_run)
+
+    def _noisy_from_counts(self, counts_np: np.ndarray, runs: int,
+                           samples_per_run: int) -> NoisyResults:
+        """NoisyResults from a (n_eval, 2^n) integer count array."""
+        h = self._hamiltonian
+        results = []
+        for row in counts_np:
+            counter = Counter({np.binary_repr(int(i), width=h._size): int(row[i])
+                               for i in np.nonzero(row)[0]})
+            results.append(SampledResult(tuple(h._qdict), self._meas_basis, counter))
+        return NoisyResults(results, h._size, h.basis_name, self._eval_times_array,
+                            runs * samples_per_run)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -443,3 +676,34 @@ class TorchEmulator:
             evaluation_times,
             torch_device=torch_device,
         )
+
+
+def _device_sample_counts(weights: torch.Tensor, n_per_run: torch.Tensor, n_max: int,
+                          gen: torch.Generator, n_qubits: int, eps: float,
+                          eps_p: float) -> torch.Tensor:
+    """Bitstring sampling with the SPAM detection flips, on the weights'
+    device.
+
+    weights: (R, n_eval, K) probabilities, normalised in f64; n_per_run:
+    (R,) sample counts.  Draws ``n_max`` samples per (run, time) with
+    ``torch.multinomial``; flips each bit with probability ``eps`` (0 ->
+    1) or ``eps_p`` (1 -> 0) by a uniform draw; drops each run's draws
+    past its count; returns the (n_eval, K) int64 counts summed over the
+    runs."""
+    R, n_eval, K = weights.shape
+    dev = weights.device
+    samples = torch.multinomial(weights.reshape(R * n_eval, K), n_max, replacement=True,
+                                generator=gen).reshape(R, n_eval, n_max)
+    if eps > 0.0 or eps_p > 0.0:
+        u = torch.rand((R, n_eval, n_max, n_qubits), generator=gen, dtype=weights.dtype,
+                       device=dev)
+        bit_pos = torch.arange(n_qubits, device=dev)
+        bits = (samples[..., None] >> bit_pos) & 1
+        p_flip = torch.tensor([eps, eps_p], dtype=weights.dtype, device=dev)[bits]
+        flips = (u < p_flip).long()
+        samples = samples ^ (flips << bit_pos).sum(-1)
+    keep = torch.arange(n_max, device=dev)[None, :] < n_per_run.to(dev)[:, None]  # (R, n_max)
+    cells = torch.arange(n_eval, device=dev)[None, :, None] * K + samples
+    counts = torch.bincount(cells[keep[:, None, :].expand(R, n_eval, n_max)],
+                            minlength=n_eval * K)
+    return counts.reshape(n_eval, K)

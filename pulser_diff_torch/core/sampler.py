@@ -100,22 +100,34 @@ class SequenceSamples:
             new[name] = cs
         return replace(self, channel_samples=new, qubit_ids=tuple(qubit_ids))
 
-    def to_nested_dict(self) -> dict:
-        """{"Global": {basis: {amp, det, phase}}}: the sum of the global
-        channels of each basis ("ground-rydberg", or "XY" for the
-        microwave channel), the phase taken where the amplitude is on."""
+    def to_nested_dict(self, all_local: bool = False) -> dict:
+        """{"Global": {basis: {amp, det, phase}}, "Local": {basis: {qid:
+        {amp, det, phase}}}}: the sum of the channels of each basis
+        ("ground-rydberg", or "XY" for the microwave channel), the phase
+        taken where the amplitude is on.  ``all_local=True`` (per-qubit
+        noise) scatters each global channel to every qubit of the
+        register, in the order of the qubit ids as strings, as the JAX
+        package does; the port has no Local channels or SLM mask yet."""
         T = self.max_duration
-        out: dict[str, Any] = {"Global": {}}
-        for cs in self.channel_samples.values():
-            if not cs.slots:
-                continue
-            tgt = out["Global"].setdefault(cs.basis, {})
+        out: dict[str, Any] = {"Global": {}, "Local": {}}
+
+        def _add(tgt: dict, cs: ChannelSamples) -> None:
             if not tgt:
                 zeros = cs.amp.new_zeros(T)
                 tgt.update(amp=zeros, det=zeros, phase=zeros)
             tgt["amp"] = tgt["amp"] + cs.amp
             tgt["det"] = tgt["det"] + cs.det
             tgt["phase"] = torch.where(cs.amp != 0, cs.phase, tgt["phase"])
+
+        for cs in self.channel_samples.values():
+            if not cs.slots:
+                continue
+            if not all_local:
+                _add(out["Global"].setdefault(cs.basis, {}), cs)
+                continue
+            by_qubit = out["Local"].setdefault(cs.basis, {})
+            for qid in sorted(self.qubit_ids, key=str):
+                _add(by_qubit.setdefault(qid, {}), cs)
         return out
 
 

@@ -15,7 +15,10 @@
 // recomputes, then the reversed transpose recursion with each stage's
 // cotangent work) and takes a cotangent at every step.  The port also
 // routes here the shapes whose state K1/K2's clusters cannot hold (14 and
-// 15 atoms, state batches past nb = 2 at 12 atoms).
+// 15 atoms, state batches past nb = 2 at 12 atoms), and the noisy
+// Monte-Carlo batch from 14 atoms: its per-qubit build has 2 ceil(n / 2)
+// parts a side, which K4's assembly loops over (up to MAX_P_FWD = 32); K5
+// keeps MAX_P = 8 for its ZW cotangent partials a job.
 //
 // What bounds them on this card.  At 16 atoms (da = db = 256, nb = 1) one
 // application of -iH is 8 real 256 x 256 x 256 products, 268 MFLOP.  The
@@ -93,7 +96,8 @@
 #include <stdint.h>
 
 #define MAX_S 7
-#define MAX_P 8             // row / column parts per side
+#define MAX_P 8             // K5's row / column parts per side (its ZW cotangent partials)
+#define MAX_P_FWD 32        // K4's: assemble_all loops over any count (18 at 18 atoms all local)
 #define MAX_K 32            // kron pairs
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
@@ -1800,7 +1804,7 @@ extern "C" int pdt_ckpt_fwd(const float* const* in_ptrs, const float* const* kro
                             const double* a, const int* bnz, void* stream) {
     Tab tab;
     if (make_tab(&tab, S, a, bnz)) return -1;
-    if (pr > MAX_P || pc > MAX_P) return -2;
+    if (pr > MAX_P_FWD || pc > MAX_P_FWD) return -2;
     if (K < 0 || K > MAX_K) return -4;
     if (fwd_layout(S, nb, da, db, K).per_run > 0xffffffffu) return -8;
     Plan plan;

@@ -43,6 +43,13 @@
 //     whole Hcol itself from the part stacks (L2) and the stage's streams.
 //     The double buffer orders the reuse, so there is one cluster barrier
 //     per stage.
+//   - The stage's stream words (hi and lo, 4 (pr + pc) floats) are copied
+//     to shared memory once by the block and read as broadcasts while the
+//     parts are summed in ascending p: K1 takes up to MAX_P_FWD = 32 parts
+//     a side (a per-qubit noisy build has 2 ceil(n / 2), 12 at 12 atoms,
+//     in the same order and rounding at any count), K2 keeps MAX_P = 8 for
+//     its register partials.  At 12 parts a stage reads 12 + 12 part
+//     matrices from L2 against 2 + 2 for a global channel.
 //   - Kron pairs: per term, R_k's rows and columns (for R u and R^T u) and
 //     C_k (padded) are staged in shared memory; the products of the
 //     block's rows (T = R u, then T C^T or T C) stay in shared memory.
@@ -80,7 +87,8 @@
 namespace cg = cooperative_groups;
 
 #define MAX_S 7
-#define MAX_P 8   // row / column parts per side (a global channel needs 2)
+#define MAX_P 8       // K2's row / column parts per side (its 2 MAX_P cotangent partials)
+#define MAX_P_FWD 32  // K1's: a per-qubit (all-local) build has 2 ceil(n / 2), 18 at 18 atoms
 #define MAX_K 32  // kron pairs (12 atoms XY: 8; an SLM-masked 16-atom XY sequence: 20)
 #define MAX_C 16  // blocks in a cluster (above 8 only as a non-portable size)
 #define NTHREADS 256
@@ -146,6 +154,7 @@ struct Smem {
     float* cst;         // C_k (db, db + 1)
     float* kw;          // kron products of the block's rows, 8 x (rpb, db): T and KP, or P
     float* red;         // K2: (NWARPS, nrow) warp partials, then 2 x nrow block rows
+    float* zs;          // the stage's stream words: zr, zi, wr, wi (pr each), then pc each
 };
 
 __host__ __device__ inline size_t slab_floats(int nb, int rpb, int db) {
@@ -170,7 +179,7 @@ __host__ __device__ inline size_t smem_floats(int bwd, int nb, int da, int db, i
         if (bwd) f += 2 * full;
     }
     if (bwd) f += (size_t)(NWARPS + 2) * (2 * pr + 2 * pc + 2 * K);
-    return f;
+    return f + (size_t)4 * (pr + pc);
 }
 
 __device__ Smem carve(float* sm, const Geo& g, int bwd, int K, int S) {
@@ -196,7 +205,11 @@ __device__ Smem carve(float* sm, const Geo& g, int bwd, int K, int S) {
             s.uy = p; p += full;
         }
     }
-    if (bwd) s.red = p;
+    if (bwd) {
+        s.red = p;
+        p += (size_t)(NWARPS + 2) * (2 * g.pr + 2 * g.pc + 2 * K);
+    }
+    s.zs = p;
     return s;
 }
 
@@ -210,19 +223,18 @@ __device__ __forceinline__ int slab_to_state(const Geo& g, int r0, int e) {
 // One side's matrix elements off + l (l < n) of sum_p z_re[p] Sym_p and
 // sum_p z_im[p] Asym_p (hi word, then lo word folded in before the final
 // rounding; neg: the imaginary part negated), into (ore, oim).  The
-// stream values sit in registers; U elements' part loads are issued
-// together through the read-only path.
+// stream words zw = (zr, zi, wr, wi), P each, sit in shared memory and are
+// read as broadcasts, the parts in ascending p; U elements' part loads are
+// issued together through the read-only path.
 __device__ __forceinline__ void assemble_side(float* ore, float* oim, const float* sym,
                                               const float* asym, size_t stride, int P, int n,
-                                              int off, const float (&zr)[MAX_P],
-                                              const float (&zi)[MAX_P], const float (&wr)[MAX_P],
-                                              const float (&wi)[MAX_P], bool two_word, bool neg) {
+                                              int off, const float* zw, bool two_word, bool neg) {
     constexpr int U = 8;
+    const float *zr = zw, *zi = zw + P, *wr = zw + 2 * P, *wi = zw + 3 * P;
     for (int base = threadIdx.x; base < n; base += blockDim.x * U) {
         float hr[U] = {}, hi[U] = {}, lr[U] = {}, li[U] = {};
-#pragma unroll
-        for (int p = 0; p < MAX_P; ++p) {
-            if (p >= P) break;
+        for (int p = 0; p < P; ++p) {
+            const float zrp = zr[p], zip = zi[p], wrp = wr[p], wip = wi[p];
             float sv[U], av[U];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
@@ -232,11 +244,11 @@ __device__ __forceinline__ void assemble_side(float* ore, float* oim, const floa
             }
 #pragma unroll
             for (int u = 0; u < U; ++u) {
-                hr[u] = hr[u] + zr[p] * sv[u];
-                hi[u] = hi[u] + zi[p] * av[u];
+                hr[u] = hr[u] + zrp * sv[u];
+                hi[u] = hi[u] + zip * av[u];
                 if (two_word) {
-                    lr[u] = lr[u] + wr[p] * sv[u];
-                    li[u] = li[u] + wi[p] * av[u];
+                    lr[u] = lr[u] + wrp * sv[u];
+                    li[u] = li[u] + wip * av[u];
                 }
             }
         }
@@ -254,34 +266,25 @@ __device__ __forceinline__ void assemble_side(float* ore, float* oim, const floa
 // Hrow = sum_p z_re[p] Sym_p + i sum_p z_im[p] Asym_p (hi word, then lo word
 // folded in before the final rounding), for the block's rows; Hcol likewise,
 // whole, stored as H^T: gre = re, gim = -im.  mirror: hi word of the mirror
-// streams only.
+// streams only.  The block first copies the stage's 4 (pr + pc) stream words
+// to shared memory, once (any part count up to MAX_P_FWD); the caller has
+// synchronised the block since the previous stage's reads.
 __device__ void assemble(const Smem& sh, const Parts& pt, const float* const* z, bool two_word,
                          const Geo& g, int S, int r, int k, int s, int r0) {
     const size_t br = (((size_t)r * g.n_steps + k) * S + s) * g.pr;
     const size_t bc = (((size_t)r * g.n_steps + k) * S + s) * g.pc;
     // stream words: two-word order (hi re, hi im, lo re, lo im) per side
-    const int rh = 0, ch = two_word ? 4 : 2;
-    float zr[MAX_P], zi[MAX_P], wr[MAX_P], wi[MAX_P];
-#pragma unroll
-    for (int p = 0; p < MAX_P; ++p) {
-        const bool on = p < g.pr;
-        zr[p] = on ? z[rh][br + p] : 0.f;
-        zi[p] = on ? z[rh + 1][br + p] : 0.f;
-        wr[p] = on && two_word ? z[rh + 2][br + p] : 0.f;
-        wi[p] = on && two_word ? z[rh + 3][br + p] : 0.f;
+    const int ch = two_word ? 4 : 2;
+    for (int i = threadIdx.x; i < 4 * (g.pr + g.pc); i += blockDim.x) {
+        const bool row = i < 4 * g.pr;
+        const int P = row ? g.pr : g.pc, j = row ? i : i - 4 * g.pr, w = j / P;
+        sh.zs[i] = (w < 2 || two_word) ? z[(row ? 0 : ch) + w][(row ? br : bc) + j % P] : 0.f;
     }
+    __syncthreads();
     assemble_side(sh.hre, sh.him, pt.rsym, pt.rasym, (size_t)g.da * g.da, g.pr, g.rpb * g.da,
-                  r0 * g.da, zr, zi, wr, wi, two_word, false);
-#pragma unroll
-    for (int p = 0; p < MAX_P; ++p) {
-        const bool on = p < g.pc;
-        zr[p] = on ? z[ch][bc + p] : 0.f;
-        zi[p] = on ? z[ch + 1][bc + p] : 0.f;
-        wr[p] = on && two_word ? z[ch + 2][bc + p] : 0.f;
-        wi[p] = on && two_word ? z[ch + 3][bc + p] : 0.f;
-    }
+                  r0 * g.da, sh.zs, two_word, false);
     assemble_side(sh.gre, sh.gim, pt.csym, pt.casym, (size_t)g.db * g.db, g.pc, g.db * g.db, 0,
-                  zr, zi, wr, wi, two_word, true);
+                  sh.zs + 4 * g.pr, two_word, true);
 }
 
 // The stage's kron stream values (K2's mirror reconstruction: hi word of the
@@ -1333,9 +1336,11 @@ static int launch_clusters(void (*kern)(Params...), int R, int C, size_t smem, v
     return (int)cudaGetLastError();
 }
 
-static int check_shape(int S, const double* a, const int* bnz, int pr, int pc, int K, Tab* tab) {
+// max_p: MAX_P_FWD for K1, MAX_P for K2
+static int check_shape(int S, const double* a, const int* bnz, int pr, int pc, int K, Tab* tab,
+                       int max_p) {
     if (make_tab(tab, S, a, bnz)) return -1;
-    if (pr > MAX_P || pc > MAX_P) return -2;
+    if (pr > max_p || pc > max_p) return -2;
     if (K < 0 || K > MAX_K) return -4;
     return 0;
 }
@@ -1352,7 +1357,7 @@ extern "C" int pdt_fused_fwd(const float* psi_re, const float* psi_im,
                              int n_eval, int S, const double* a, const int* bnz, int C,
                              void* stream) {
     Tab tab;
-    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab);
+    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab, MAX_P_FWD);
     if (bad) return bad;
     if (plan_ok(0, nb, da, db, pr, pc, K, S, C)) return -6;
     const size_t smem = pdt_fused_smem_bytes(0, nb, da, db, pr, pc, K, S, C);
@@ -1381,7 +1386,7 @@ extern "C" int pdt_fused_bwd(const float* st_re, const float* st_im,
                              int n_eval, int last_slot, int S, const double* a, const int* bnz,
                              int C, void* stream) {
     Tab tab;
-    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab);
+    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab, MAX_P);
     if (bad) return bad;
     if (plan_ok(1, nb, da, db, pr, pc, K, S, C)) return -6;
     const size_t smem = pdt_fused_smem_bytes(1, nb, da, db, pr, pc, K, S, C);

@@ -11,11 +11,20 @@ as kron pairs.  Physics as in the JAX package:
   - van der Waals C6/r^6 n_i n_j;
   - XY C3 (1 - 3 cos^2 theta)/r^3 (sigma+ sigma- + h.c.), theta the angle
     between the pair and the magnetic field.
-The port is noiseless and global: the ground-rydberg basis of the global
-Rydberg channel and the XY basis of the global microwave channel (no
-local channels, digital or all bases, SLM masks).  The interaction
-weights are differentiable in the qubit coordinates, or in the pair
-distances set through ``_dist_override``.
+The port has the ground-rydberg basis of the global Rydberg channel and
+the XY basis of the global microwave channel (no local channels, digital
+or all bases, SLM masks).  The interaction weights are differentiable in
+the qubit coordinates, or in the pair distances set through
+``_dist_override``.
+
+Noise as in the JAX package: ``draw_noise`` draws one run's bad atoms
+(SPAM state preparation), Doppler detunings and per-slot amplitude
+factors from an explicit ``torch.Generator``; with per-qubit noise every
+global channel is scattered to one stream per qubit (the "Local"
+samples), each with its own amplitude and detuning part.  ``build_batch``
+builds R runs with one term structure, decided from the configuration as
+the JAX package's ``jax.vmap`` tracing decides it, so that the runs share
+one part stack; lifted parts are built once and kept.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sampler import SequenceSamples
 from pulser_diff_torch.ops.apply import FactoredHamiltonian
-from pulser_diff_torch.simconfig import NoiseModel
+from pulser_diff_torch.simconfig import SUPPORTED_NOISES, NoiseModel, doppler_sigma, host_float
 
 # basis tables: (dimension, labels); the digital and all bases are a
 # later slice
@@ -56,7 +65,7 @@ def _local_op_np(dim: int, basis: list[str], name: str) -> np.ndarray:
 
 
 class NoiseDraws(NamedTuple):
-    """Random draws for one run (all zero in this noiseless slice)."""
+    """Random draws for one stochastic run."""
 
     bad_atoms: torch.Tensor  # (n,) float 0/1
     doppler: torch.Tensor  # (n,) rad/us
@@ -71,6 +80,38 @@ def zero_noise_draws(n_qubits: int, n_slots: int, device: DeviceLike = None) -> 
         doppler=torch.zeros(n_qubits, dtype=DTYPE, device=device),
         amp_factors=torch.ones(max(n_slots, 1), dtype=DTYPE, device=device),
     )
+
+
+def draw_noise(gen: torch.Generator, config: NoiseModel, n_qubits: int,
+               n_slots: int) -> NoiseDraws:
+    """One run's random noise on the generator's device, with the JAX
+    package's semantics (its stream differs): a Bernoulli(eta) bad atom
+    per qubit (SPAM), a Doppler detuning doppler_sigma(T) N(0, 1) per
+    qubit, and an amplitude factor clip(1 + amp_sigma N(0, 1), 0) per
+    pulse slot."""
+    dev = gen.device
+    draws = zero_noise_draws(n_qubits, n_slots, dev)
+
+    def param(x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=DTYPE).to(dev)
+
+    if "SPAM" in config.noise_types:
+        u = torch.rand(n_qubits, generator=gen, dtype=DTYPE, device=dev)
+        draws = draws._replace(bad_atoms=(u < param(config.state_prep_error)).to(DTYPE))
+    if "doppler" in config.noise_types:
+        sigma = doppler_sigma(param(config.temperature) * 1e-6)  # uK -> K
+        z = torch.randn(n_qubits, generator=gen, dtype=DTYPE, device=dev)
+        draws = draws._replace(doppler=sigma * z)
+    if "amplitude" in config.noise_types:
+        z = torch.randn(max(n_slots, 1), generator=gen, dtype=DTYPE, device=dev)
+        draws = draws._replace(amp_factors=torch.clamp(1.0 + param(config.amp_sigma) * z, min=0.0))
+    return draws
+
+
+# the draws whose values differ between the runs of a batch, by branch of
+# run(): the stochastic draws of each noise type, or the bad-atom
+# configurations of SPAM
+DRAW_FIELDS = {"SPAM": "bad_atoms", "doppler": "doppler", "amplitude": "amp_factors"}
 
 
 def _maybe_nonzero(arr: torch.Tensor) -> bool:
@@ -105,6 +146,17 @@ class Hamiltonian:
         self.basis_name = "XY" if self._interaction == "XY" else "ground-rydberg"
         self.dim, self._basis_labels = _BASIS_TABLE[self.basis_name]
         self._size = len(self._qdict)
+        self._qid_index = {qid: i for i, qid in enumerate(self._qdict)}
+        # the last draw's bad atoms and Doppler detunings, by qubit
+        self._bad_atoms: dict[QubitId, bool] = {}
+        self._doppler_detune: dict[QubitId, float] = {}
+        # seeds the draw of set_config (unseeded, as in the JAX package)
+        self._np_rng = np.random.default_rng()
+        # lifted part matrices and part stacks, built once
+        self._lifts: dict[tuple, np.ndarray] = {}
+        self._stacks: dict[tuple, torch.Tensor] = {}
+        # spectral norms of the kept stacks, by stack id
+        self._norms: dict[int, np.ndarray] = {}
         self._duration = samples_obj.max_duration
         # host-side numpy: the grid structure
         self.sampling_times = (
@@ -130,15 +182,138 @@ class Hamiltonian:
         return self._config
 
     def set_config(self, cfg: NoiseModel) -> None:
+        """Take a noise model and build the Hamiltonian of one draw from it
+        (the noiseless one without stochastic noise), as the JAX package
+        does."""
         if not isinstance(cfg, NoiseModel):
             raise ValueError(f"Object {cfg} is not a valid `NoiseModel`.")
+        not_supported = set(cfg.noise_types) - SUPPORTED_NOISES[self._interaction]
+        if not_supported:
+            raise NotImplementedError(
+                f"Interaction mode '{self._interaction}' does not support "
+                f"simulation of noise types: {', '.join(not_supported)}."
+            )
+        if "leakage" in cfg.noise_types:
+            raise NotImplementedError(
+                "Leakage needs the leakage-extended basis (ROADMAP queue 1 item 8) and "
+                "its collapse operators (item 4), which are not ported yet.")
         self._config = cfg
-        self._ham_data = self.build_data(
-            zero_noise_draws(self._size, self._count_noise_slots(), self.torch_device)
-        )
+        self._ham_data = self.build_data(self._update_noise())
 
     def _count_noise_slots(self) -> int:
         return sum(len(cs.slots) for cs in self.samples_obj.channel_samples.values())
+
+    def _update_noise(self) -> NoiseDraws:
+        """One draw for the configuration, from a generator on the
+        Hamiltonian's device seeded from the host generator; bad atoms
+        only with a nonzero SPAM state-preparation error."""
+        gen = torch.Generator(device=self.torch_device)
+        gen.manual_seed(int(self._np_rng.integers(0, 2**31 - 1)))
+        draws = draw_noise(gen, self._config, self._size, self._count_noise_slots())
+        if not ("SPAM" in self._config.noise_types
+                and host_float(self._config.state_prep_error) > 0):
+            draws = draws._replace(bad_atoms=torch.zeros_like(draws.bad_atoms))
+        qids = list(self._qid_index)
+        self._bad_atoms = dict(zip(qids, (draws.bad_atoms > 0.5).tolist()))
+        self._doppler_detune = dict(zip(qids, draws.doppler.tolist()))
+        return draws
+
+    def _extract_samples(self, draws: NoiseDraws) -> dict:
+        """The nested samples with one run's noise: per qubit, the Doppler
+        shift on the detuning and the amplitude factor (the slot's draw
+        times the laser-waist damping exp(-(r / w0)^2)) on the amplitude,
+        inside each pulse slot (the final slot also on the closing
+        sample); every stream of a bad atom zeroed."""
+        cfg = self._config
+        noise = set(cfg.noise_types)
+        # per qubit unless every noise is global (Lindblad) or SPAM without
+        # preparation errors
+        local = True
+        if noise <= {"dephasing", "relaxation", "SPAM", "depolarizing", "eff_noise"}:
+            local = "SPAM" in noise and host_float(cfg.state_prep_error) > 0
+        samples = self.samples_obj.to_nested_dict(all_local=local)
+        if not local:
+            return samples
+        T = self.samples_obj.max_duration
+        dev = self.torch_device
+        slot_idx = 0
+        for cs in self.samples_obj.channel_samples.values():
+            sdict = samples["Local"].get(cs.basis, {})
+            for slot in cs.slots:
+                win = torch.zeros(T, dtype=torch.bool, device=dev)
+                win[slot.ti : slot.tf] = True
+                if slot.tf == T - 1:
+                    # the +1 hold sample extends the final slot
+                    win[slot.tf] = True
+                amp_base = draws.amp_factors[slot_idx]
+                for qid in slot.targets:
+                    if qid not in sdict:
+                        continue
+                    qs = sdict[qid]
+                    if "doppler" in noise:
+                        qs["det"] = torch.where(
+                            win, qs["det"] + draws.doppler[self._qid_index[qid]], qs["det"])
+                    if "amplitude" in noise and cs.addressing == "Global":
+                        noise_amp = amp_base
+                        if cfg.laser_waist is not None:
+                            r = torch.linalg.norm(self._qdict[qid])
+                            w0 = torch.as_tensor(cfg.laser_waist, dtype=DTYPE).to(dev)
+                            noise_amp = amp_base * torch.exp(-((r / w0) ** 2))
+                        qs["amp"] = torch.where(win, qs["amp"] * noise_amp, qs["amp"])
+                slot_idx += 1
+        # bad atoms: zero every local stream of badly prepared qubits
+        for by_qubit in samples["Local"].values():
+            for qid, qs in by_qubit.items():
+                goodf = 1.0 - draws.bad_atoms[self._qid_index[qid]]
+                for key in ("amp", "det", "phase"):
+                    qs[key] = qs[key] * goodf
+        return samples
+
+    def _lift(self, op_name: str, sites: tuple, group: str) -> np.ndarray:
+        """sum over ``sites`` of the one-site operator ``op_name`` lifted
+        to the row (sites < a) or column group, built once."""
+        key = (op_name, sites, group)
+        if key not in self._lifts:
+            d, a = self.dim, self._a
+            g = a if group == "row" else self._b
+            op = _local_op_np(d, self._basis_labels, op_name)
+            out = np.zeros((d**g, d**g))
+            for s_ in sites:
+                loc = s_ if group == "row" else s_ - a
+                out += np.kron(np.kron(np.eye(d**loc), op), np.eye(d ** (g - loc - 1)))
+            self._lifts[key] = out
+        return self._lifts[key]
+
+    def _part_stack(self, keys: tuple, group: str) -> torch.Tensor:
+        """The (P, d^g, d^g) stack of the lifted parts ``keys``, built once
+        per term structure."""
+        if (group, keys) not in self._stacks:
+            self._stacks[group, keys] = torch.as_tensor(
+                np.stack([self._lift(*k, group) for k in keys]), dtype=DTYPE,
+                device=self.torch_device)
+        return self._stacks[group, keys]
+
+    def part_norms(self, parts: torch.Tensor) -> np.ndarray:
+        """The spectral norm of each part of a stack (the substep
+        heuristic's), computed once for the stacks this Hamiltonian keeps
+        (an SVD of 36 parts of 512 x 512 at 18 atoms takes seconds)."""
+        kept = any(parts is t for t in self._stacks.values())
+        if kept and id(parts) in self._norms:
+            return self._norms[id(parts)]
+        norms = np.linalg.norm(parts.detach().cpu().numpy(), ord=2, axis=(1, 2))
+        if kept:
+            self._norms[id(parts)] = norms
+        return norms
+
+    def build_batch(self, draws_list, varying: frozenset = frozenset()) -> list:
+        """R runs' Hamiltonians with one term structure: a stream that
+        depends on a draw in ``varying`` (names of NoiseDraws fields that
+        differ between the runs) is kept in every run, even where a run's
+        draw zeroes it, as the JAX package's ``jax.vmap`` of the build
+        keeps every traced term.  The runs share one part stack (built
+        once); the streams, the interaction diagonal and the kron part
+        matrices are built per run."""
+        return [self.build_data(d, varying=varying) for d in draws_list]
 
     def _interaction_weights(self, good: torch.Tensor) -> torch.Tensor:
         """(n, n) upper-triangular pair weights W_ij (rad/us), zeroed for
@@ -193,81 +368,83 @@ class Hamiltonian:
         return {f"{qids[i]}-{qids[j]}": dist[i, j]
                 for i in range(len(qids)) for j in range(i + 1, len(qids))}
 
-    def build_data(self, draws: NoiseDraws) -> FactoredHamiltonian:
-        """Nested samples + draws -> FactoredHamiltonian."""
-        samples = self.samples_obj.to_nested_dict()
+    def build_data(self, draws: NoiseDraws,
+                   varying: frozenset = frozenset()) -> FactoredHamiltonian:
+        """Nested samples + one run's draws -> FactoredHamiltonian.
+
+        A stream that is all zero is dropped with its part, unless it
+        carries gradients or depends on a draw named in ``varying`` (see
+        :meth:`build_batch`)."""
+        samples = self._extract_samples(draws)
+        noise = set(self._config.noise_types)
         n, d, a, b = self._size, self.dim, self._a, self._b
         dev = self.torch_device
         good = 1.0 - draws.bad_atoms
+        # streams that depend on a draw differing between runs: every
+        # per-qubit stream through the bad atoms, the amplitudes through
+        # the slots' factors, the detunings through the Doppler shifts
+        bad_v = "bad_atoms" in varying
+        amp_v = bad_v or ("amp_factors" in varying and "amplitude" in noise)
+        det_v = bad_v or ("doppler" in varying and "doppler" in noise)
 
-        row_parts, col_parts = [], []
+        row_keys, col_keys = [], []
         row_streams, col_streams = [], []
 
-        def _lift_group(op: np.ndarray, sites: list[int], group: str) -> np.ndarray:
-            g = a if group == "row" else b
-            out = np.zeros((d**g, d**g))
-            for s_ in sites:
-                loc = s_ if group == "row" else s_ - a
-                out += np.kron(np.kron(np.eye(d**loc), op), np.eye(d ** (g - loc - 1)))
-            return out
-
         def add_term(op_name, sites, amp_stream, det_stream, det_op_name) -> None:
-            op_np = _local_op_np(d, self._basis_labels, op_name)
-            det_np = _local_op_np(d, self._basis_labels, det_op_name)
-            rsites = [s_ for s_ in sites if s_ < a]
-            csites = [s_ for s_ in sites if s_ >= a]
-            if amp_stream is not None:
+            rsites = tuple(s_ for s_ in sites if s_ < a)
+            csites = tuple(s_ for s_ in sites if s_ >= a)
+            for name, stream in ((op_name, amp_stream), (det_op_name, det_stream)):
+                if stream is None:
+                    continue
                 if rsites:
-                    row_parts.append(_lift_group(op_np, rsites, "row"))
-                    row_streams.append(amp_stream)
+                    row_keys.append((name, rsites))
+                    row_streams.append(stream)
                 if csites:
-                    col_parts.append(_lift_group(op_np, csites, "col"))
-                    col_streams.append(amp_stream)
-            if det_stream is not None:
-                zs = Cplx(det_stream, torch.zeros_like(det_stream))
-                if rsites:
-                    row_parts.append(_lift_group(det_np, rsites, "row"))
-                    row_streams.append(zs)
-                if csites:
-                    col_parts.append(_lift_group(det_np, csites, "col"))
-                    col_streams.append(zs)
+                    col_keys.append((name, csites))
+                    col_streams.append(stream)
 
-        def _coeffs(qty: dict):
+        def _coeffs(qty: dict, local: bool):
             amp, det, phase = qty["amp"], qty["det"], qty["phase"]
             amp_stream = det_stream = None
-            if _maybe_nonzero(amp):
+            if (local and amp_v) or _maybe_nonzero(amp):
                 half = 0.5 * amp
                 amp_stream = Cplx(
                     self._adapt_to_sampling_rate(half * torch.cos(phase)),
                     self._adapt_to_sampling_rate(-half * torch.sin(phase)),
                 )
-            if _maybe_nonzero(det):
+            if (local and det_v) or _maybe_nonzero(det):
                 det_stream = self._adapt_to_sampling_rate(-0.5 * det)
+                det_stream = Cplx(det_stream, torch.zeros_like(det_stream))
             return amp_stream, det_stream
 
         for basis_key, qty in samples["Global"].items():
             if qty:
                 amp_op, det_op = _OP_IDS[basis_key]
-                amp_s, det_s = _coeffs(qty)
-                add_term(amp_op, list(range(n)), amp_s, det_s, det_op)
+                add_term(amp_op, range(n), *_coeffs(qty, False), det_op)
+        for basis_key, by_qubit in samples["Local"].items():
+            amp_op, det_op = _OP_IDS[basis_key]
+            for qid, qty in by_qubit.items():
+                amp_s, det_s = _coeffs(qty, True)
+                if amp_s is not None or det_s is not None:
+                    add_term(amp_op, (self._qid_index[qid],), amp_s, det_s, det_op)
 
         n_samples = int(self._sampling_rate * self._duration)
         sample_dt = 0.001 / self._sampling_rate
 
-        def _stack_parts(parts, streams, g):
-            if not parts:
+        def _stack_parts(keys, streams, group, g):
+            if not keys:
                 z = torch.zeros(1, n_samples, dtype=DTYPE, device=dev)
                 return torch.zeros(1, d**g, d**g, dtype=DTYPE, device=dev), Cplx(z, z)
             return (
-                torch.as_tensor(np.stack(parts), dtype=DTYPE, device=dev),
+                self._part_stack(tuple(keys), group),
                 Cplx(
                     torch.stack([s_.re for s_ in streams]).to(dev),
                     torch.stack([s_.im for s_ in streams]).to(dev),
                 ),
             )
 
-        rp, rs = _stack_parts(row_parts, row_streams, a)
-        cp, cs = _stack_parts(col_parts, col_streams, b)
+        rp, rs = _stack_parts(row_keys, row_streams, "row", a)
+        cp, cs = _stack_parts(col_keys, col_streams, "col", b)
 
         int_diag = torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
         kron_row = kron_col = kron_streams = None

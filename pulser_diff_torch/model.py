@@ -14,9 +14,9 @@ evaluates a stack of P candidate parameter sets: on CUDA below the fused
 cap in one launch of the fused kernels, the candidates on their runs axis.
 
 The constructor takes the JAX package's parameters in its order.
-Duration optimisation, noise (``noise_config``), ``constraints`` and
-``fit`` are later slices: a non-default ``noise_config`` or
-``constraints`` raises NotImplementedError.
+Duration optimisation, noise (``noise_config``: ROADMAP queue 1 item
+11), ``constraints`` and ``fit`` are later slices: a non-default
+``noise_config`` or ``constraints`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -64,8 +64,10 @@ class QuantumModel(nn.Module):
                 "check_constraints), which is not ported yet (ROADMAP queue 1 item 6).")
         if noise_config is not None and noise_config.noise:
             raise NotImplementedError(
-                f"Noise {tuple(noise_config.noise)} is not ported yet: the port runs "
-                "noiseless simulations (ROADMAP queue 1 item 3).")
+                f"A model with noise {tuple(noise_config.noise)} is not ported yet: its "
+                "gradient runs through a per-qubit Hamiltonian, which needs the adjoint "
+                "kernels K2/K5 past 8 parts (ROADMAP queue 1 item 11). TorchEmulator.run() "
+                "runs the noisy simulation.")
         check_options(options, "QuantumModel")
         self.torch_device = resolve_device(device)
         trainable_param_values = dict(trainable_param_values or {})

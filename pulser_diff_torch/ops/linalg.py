@@ -55,17 +55,31 @@ def total_magnetization(
 
 
 def expect(obs: Cplx, states: Cplx) -> Cplx:
-    """Expectation values of ``obs`` over a time batch of kets.
+    """Expectation values of ``obs`` over a time batch of states.
 
-    ``states``: (n_t, dim, n_batch), or (n_t, dim) promoted to
-    (n_t, dim, 1); the batch columns are summed as in the reference.
-    A 1-D ``obs`` of shape (dim,) is the diagonal operator diag(obs).
+    ``states``: kets (n_t, dim, n_batch), or (n_t, dim) promoted to
+    (n_t, dim, 1), the batch columns summed as in the reference; or
+    density matrices (n_t, dim, dim), tr(O rho) (the pseudo-densities of
+    sampled results).  A 1-D ``obs`` of shape (dim,) is the diagonal
+    operator diag(obs).
     """
     obs = as_cplx(obs, dtype=DTYPE).to(device=states.device)
-    if states.ndim == 2:
+    if states.ndim == 2 and states.shape[-1] != states.shape[-2]:
         states = states.reshape(states.shape + (1,))
-    if states.ndim != 3 or states.shape[-1] == states.shape[-2]:
+    if states.ndim != 3:
         raise ValueError(f"Unsupported states shape {states.shape}")
+    if states.shape[-1] == states.shape[-2]:
+        if obs.ndim == 1:
+            # tr(diag(d) rho) = sum_j d_j rho_jj
+            rr = torch.diagonal(states.re, dim1=-2, dim2=-1)
+            ri = torch.diagonal(states.im, dim1=-2, dim2=-1)
+            return Cplx(rr @ obs.re - ri @ obs.im, ri @ obs.re + rr @ obs.im)
+        # tr(O rho) = sum_ij O_ij rho_ji
+        o_re, o_im = obs.re, obs.im
+        return Cplx(
+            torch.einsum("ij,tji->t", o_re, states.re) - torch.einsum("ij,tji->t", o_im, states.im),
+            torch.einsum("ij,tji->t", o_re, states.im) + torch.einsum("ij,tji->t", o_im, states.re),
+        )
     sh = states.sum(axis=-1)  # (n_t, dim)
     if obs.ndim == 1:
         # |s_j|^2 in the states' dtype, promoted for the contraction (as

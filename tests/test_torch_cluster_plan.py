@@ -29,9 +29,10 @@ def test_twelve_atom_shapes_fit_a_cluster(bwd, K):
 def test_smem_formula_counts_every_region():
     """K1 at 12 atoms, C = 8 (8 rows a block): Hcol 2*64*64, Hrow rows
     2*8*64, the gathered vector 2*64*65, two published slab pairs 4*512,
-    X, Y, CX, CY and 6 stage pairs 16*512 floats."""
+    X, Y, CX, CY and 6 stage pairs 16*512 floats, and the stage's stream
+    words 4*(pr + pc)."""
     slab = 8 * 64
-    want = 2 * 64 * 64 + 2 * 8 * 64 + 2 * 64 * 65 + 4 * slab + 16 * slab
+    want = 2 * 64 * 64 + 2 * 8 * 64 + 2 * 64 * 65 + 4 * slab + 16 * slab + 4 * (2 + 2)
     assert tfe._smem_floats(False, 1, 64, 64, 2, 2, 0, 6, 8) == want
     # K1 with K = 8: the kron staging (2K streams, R rows and columns, C
     # padded, 8 product slabs); K2 also the costate, S more pairs, the
