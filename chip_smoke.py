@@ -79,7 +79,24 @@ Phases (each raises on failure, so the script exits non-zero):
      0.01, eps' 0.05, 15 runs) on K1 and the eta = 0 CoherentResults path
      with sample_state; the device sampler's bit marginals within 5
      standard errors of the exact mixture's, without and with detection
-     flips (20000 samples a run, 8 runs).
+     flips (20000 samples a run, 8 runs);
+ 12. the Lindblad path of bench_mesolve.py (no kernel on it, as in the JAX
+     package; every count stays 0): the 10-atom value+grad step through
+     QuantumModel with dephasing (DP5_ME, the dense form at dim 1024)
+     against the factored form (1e-10 on the value, 1e-8 on the gradient)
+     and DP5_ME_F32 (1e-5 / 1e-5), its final trace within 1e-10 of 1, its
+     remat plan, time, peak device memory and busy share; the 3-atom
+     dephasing-rate gradient (superop form) against a central difference
+     (1e-6); the 12-atom run() on the factored form (dim 4096), the final
+     trace and Hermiticity within 1e-10, time and peak; dephasing +
+     doppler run() at 8 atoms, R = 4 (one mesolve a run), counts summing
+     to runs x samples_per_run;
+ 13. quantum-jump trajectories (bench_mcwf.py, no kernel): the 3-atom
+     run(solver="MCWF", n_traj=1024) populations against DP5_ME within
+     4/sqrt(R); 12 atoms MCWF_F32 at R = 64, timed, its final counts
+     summing to 1; at 10 atoms expectation_mcwf_fn's value and gradient
+     against the DP5_ME model's (0.05, 0.02 x scale: the bars of
+     tests/test_mcwf.py::test_mcwf_gradient_matches_mesolve).
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -1372,6 +1389,340 @@ def _mc_phase(torch, fe, device, gen):
     return out
 
 
+# the Lindblad workload of bench_mesolve.py: a 4-wide lattice at 8 um,
+# 400 ns, a 4-parameter sine-interpolated amplitude, detuning -1 rad/us,
+# dephasing 0.05 rad/us, sampling_rate 0.5; the final total magnetization
+# and its gradient in the 4 parameters
+ME_DURATION = 400
+ME_PARAMS = 4
+ME_SPACING = 8.0
+ME_DET0 = -1.0
+ME_RATE = 0.05
+ME_SAMPLING = 0.5
+ME_P0 = np.linspace(1.0, 2.5, ME_PARAMS)
+# phase 12's atom counts: the dense form (dim 1024), the superop form's
+# rate gradient, the factored form's forward (dim 4096), the noisy batch
+ME_DENSE_N = 10
+ME_SUPEROP_N = 3
+ME_FACTORED_N = 12
+ME_BATCH_N = 8
+ME_BATCH_R = 4
+# the dense and the factored forms sum the same f64 terms in another
+# order; the f32 ME stepper against f64 at the f32 stepper's bars
+ME_FORM_VALUE_TOL = 1e-10
+ME_FORM_GRAD_TOL = 1e-8
+ME_TRACE_TOL = 1e-10
+ME_FD_TOL = 1e-6
+# bench_mcwf.py: the same pulse at 9 um, sampled a quarter of the grid
+MCWF_SPACING = 9.0
+MCWF_ANCHOR_R = 1024
+MCWF_BIG_N = 12
+MCWF_BIG_R = 64
+# tests/test_mcwf.py::test_mcwf_gradient_matches_mesolve's model and bars
+MCWF_GRAD_N = 10
+MCWF_GRAD_R = 512
+MCWF_VALUE_TOL = 0.05
+MCWF_GRAD_REL = 0.02
+NO_LAUNCH = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
+
+
+def _me_sequence(n_qubits: int, spacing: float, amp_values=None):
+    """bench_mesolve.py's sequence (bench_mcwf.py's at 9 um): the amplitude
+    a declared variable, or the concrete values M @ ``amp_values``."""
+    from pulser_diff_torch.core import (
+        ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    coords = [(spacing * (i % 4), spacing * (i // 4)) for i in range(n_qubits)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    if amp_values is None:
+        amp = CustomWaveform(seq.declare_variable("amp_samples", size=ME_DURATION),
+                             duration=ME_DURATION)
+    else:
+        amp = CustomWaveform(_interpolate_sine_np(ME_PARAMS, ME_DURATION) @ amp_values)
+    seq.add(Pulse(amp, ConstantWaveform(ME_DURATION, ME_DET0), 0.0), "ryd")
+    return seq
+
+
+def _me_model(torch, device, n_qubits: int, **options):
+    """bench_mesolve.py's QuantumModel with dephasing at ``n_qubits`` atoms."""
+    from pulser_diff_torch import QuantumModel, SimConfig
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    M = torch.as_tensor(_interpolate_sine_np(ME_PARAMS, ME_DURATION), device=device)
+    return QuantumModel(
+        _me_sequence(n_qubits, ME_SPACING), {"amp_samples": ((ME_P0,), lambda v: M @ v)},
+        sampling_rate=ME_SAMPLING, noise_config=SimConfig(noise="dephasing",
+                                                          dephasing_rate=ME_RATE),
+        evaluation_times="Minimal", device=device, **options)
+
+
+def _me_sim(torch, device, n_qubits: int, spacing: float = ME_SPACING,
+            evaluation_times="Minimal", **cfg):
+    """The emulator of bench_mesolve.py's pulse (amplitude at ME_P0) with
+    the noise ``cfg`` (dephasing at ME_RATE unless given)."""
+    from pulser_diff_torch import SimConfig, TorchEmulator
+
+    cfg = {"noise": "dephasing", "dephasing_rate": ME_RATE, **cfg}
+    return TorchEmulator.from_sequence(
+        _me_sequence(n_qubits, spacing, ME_P0), sampling_rate=ME_SAMPLING,
+        evaluation_times=evaluation_times, config=SimConfig(**cfg), device=device)
+
+
+def _me_step(torch, model, device):
+    """One value+grad of bench_mesolve.py's loss: (value, grad)."""
+    p = torch.tensor(ME_P0, dtype=torch.float64, device=device, requires_grad=True)
+    _, vals = model.expectation_fn()({"amp_samples_0": p})
+    vals[-1].backward()
+    return vals[-1].detach(), p.grad.detach()
+
+
+def _no_launch(fe, label: str) -> None:
+    """The Lindblad and MCWF paths reach no kernel, as in the JAX package."""
+    if dict(fe.LAUNCHES) != NO_LAUNCH:
+        raise RuntimeError(f"{label}: launched {dict(fe.LAUNCHES)}, expected no kernel")
+
+
+def _rho_checks(torch, rho, label: str) -> tuple:
+    """|tr rho - 1| and max |rho - rho^H| of a final density matrix, each
+    within ME_TRACE_TOL."""
+    from pulser_diff_torch.ops.linalg import trace
+
+    tr = trace(rho)
+    dtr = abs(complex(float(tr.re), float(tr.im)) - 1.0)
+    herm = max(float((rho.re - rho.re.T).abs().max()), float((rho.im + rho.im.T).abs().max()))
+    if dtr > ME_TRACE_TOL or herm > ME_TRACE_TOL:
+        raise RuntimeError(f"{label}: |tr - 1| {dtr:.3e}, max|rho - rho^H| {herm:.3e}")
+    return dtr, herm
+
+
+def _lindblad_phase(torch, fe, device, n_dense: int = ME_DENSE_N, n_sup: int = ME_SUPEROP_N,
+                    n_fac: int = ME_FACTORED_N, n_batch: int = ME_BATCH_N, n_warm: int = 1):
+    """Phase 12, the Lindblad path of bench_mesolve.py: the value+grad step
+    through QuantumModel (DP5_ME, the dense form at dim 1024) against the
+    factored form and DP5_ME_F32, its final trace, time, peak and busy
+    share; the dephasing-rate gradient against a central difference (the
+    superop form); the factored form's 12-atom run() (trace, Hermiticity,
+    time, peak); dephasing + doppler run() through one mesolve a run."""
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.solvers import solver as sv
+
+    out = {}
+    label = f"{n_dense} atoms DP5_ME"
+    model = _me_model(torch, device, n_dense)
+    h = model._make_emulator({"amp_samples_0": torch.as_tensor(ME_P0, device=device)})
+    h = h._hamiltonian
+    dim = h.dim**h._size
+    n_steps = (len(h.sampling_times) + 2) * model._default_substeps()
+    rho = Cplx(*(torch.empty(dim, dim, dtype=torch.float64, device=device) for _ in range(2)))
+    form = sv.me_form_for(dim)
+    _log(f"  {label}: dim {dim}, form {form}, {n_steps} steps (substeps "
+         f"{model._default_substeps()}), remat {sv._me_auto_remat(form, dim, rho, n_steps)}, "
+         f"segments {sv._auto_segments(rho, n_steps)}; rho {2 * dim * dim * 8 / 2**20:.0f} MiB")
+    del rho
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(fe)
+    t0 = time.perf_counter()
+    value, grad = _me_step(torch, model, device)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _no_launch(fe, label)
+    peak = _peak_gib(torch)
+    step_ms, _ = _host_time_ms(torch, lambda: _me_step(torch, model, device), n_warm)
+    busy = _device_busy_ms(torch, lambda: _me_step(torch, model, device))
+    _log(f"  {label}: value {float(value)!r}, grad {grad.cpu().numpy().tolist()!r}")
+    _log(f"  {label}: step {step_ms:.1f} ms (warm median of {n_warm}; first {first_ms:.1f} ms), "
+         f"peak device memory {peak:.2f} GiB; {_busy_line(*busy, step_ms)}")
+    with torch.no_grad():
+        _, states = model._states_fn({"amp_samples_0": torch.as_tensor(ME_P0, device=device)})
+    dtr, herm = _rho_checks(torch, states[-1], label)
+    _log(f"  {label}: final |tr rho - 1| {dtr:.3e}, max|rho - rho^H| {herm:.3e} (tol "
+         f"{ME_TRACE_TOL:.0e})")
+    del states
+    out.update(dense_ms=step_ms, dense_peak=peak, dense_busy=busy[0])
+    # the factored form on the same step
+    fac = _me_model(torch, device, n_dense, me_form="factored")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fac_ms, (v_f, g_f) = _host_time_ms(torch, lambda: _me_step(torch, fac, device), 1)
+    fac_peak = _peak_gib(torch)
+    dv, dg = abs(float(value - v_f)), float((grad - g_f).abs().max())
+    _log(f"  {label}: factored form step {fac_ms:.1f} ms (one run), peak {fac_peak:.2f} GiB; "
+         f"|dvalue| {dv:.3e} (tol {ME_FORM_VALUE_TOL:.0e}), max|dgrad| {dg:.3e} (tol "
+         f"{ME_FORM_GRAD_TOL:.0e})")
+    if dv > ME_FORM_VALUE_TOL or dg > ME_FORM_GRAD_TOL:
+        raise RuntimeError(f"{label}: dense vs factored |dv| {dv:.3e}, |dg| {dg:.3e}")
+    out.update(factored_ms=fac_ms, factored_peak=fac_peak)
+    del fac
+    # DP5_ME_F32 against the f64 step
+    f32 = _me_model(torch, device, n_dense, solver="DP5_ME_F32")
+    _reset(fe)
+    f32_ms, (v_32, g_32) = _host_time_ms(torch, lambda: _me_step(torch, f32, device), 1)
+    _no_launch(fe, f"{label}_F32")
+    dv, dg = abs(float(value - v_32)), float((grad - g_32).abs().max())
+    _log(f"  {label}_F32: step {f32_ms:.1f} ms (one run); |dvalue| {dv:.3e} (tol "
+         f"{F32_VALUE_TOL:.0e}), max|dgrad| {dg:.3e} (tol {F32_GRAD_TOL:.0e}) against f64")
+    if dv > F32_VALUE_TOL or dg > F32_GRAD_TOL:
+        raise RuntimeError(f"{label}_F32 vs f64: |dv| {dv:.3e}, |dg| {dg:.3e}")
+    out["f32_ms"] = f32_ms
+    del f32, model
+    torch.cuda.empty_cache()
+
+    # the dephasing-rate gradient (superop form) against a central difference
+    from pulser_diff_torch.ops.linalg import total_magnetization
+
+    obs = total_magnetization(n_sup, device=device)
+
+    def final(rate):
+        sim = _me_sim(torch, device, n_sup, dephasing_rate=rate)
+        return sim.run().expect([obs])[0].re[-1]
+
+    rate = torch.tensor(ME_RATE, dtype=torch.float64, device=device, requires_grad=True)
+    _reset(fe)
+    val = final(rate)
+    val.backward()
+    _no_launch(fe, f"{n_sup} atoms rate gradient")
+    eps = 1e-4
+    with torch.no_grad():
+        fd = (float(final(ME_RATE + eps)) - float(final(ME_RATE - eps))) / (2 * eps)
+    dgr = abs(float(rate.grad) - fd)
+    _log(f"  {n_sup} atoms ({sv.me_form_for(2**n_sup)} form): d<Z>/d(dephasing_rate) "
+         f"{float(rate.grad)!r}, central difference {fd!r}, |diff| {dgr:.3e} (tol "
+         f"{ME_FD_TOL:.0e})")
+    if dgr > ME_FD_TOL:
+        raise RuntimeError(f"rate gradient vs central difference {dgr:.3e}")
+
+    # 12 atoms: run() on the default route (the factored form), forward only
+    label = f"{n_fac} atoms run()"
+    sim = _me_sim(torch, device, n_fac)
+    dim = 2**n_fac
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(fe)
+    with torch.no_grad():
+        fac_run_ms, res = _host_time_ms(torch, sim.run, 1)
+    _no_launch(fe, label)
+    peak = _peak_gib(torch)
+    dtr, herm = _rho_checks(torch, res[-1].state, label)
+    _log(f"  {label}: dim {dim}, form {sv.me_form_for(dim)}, rho {2 * dim * dim * 8 / 2**20:.0f}"
+         f" MiB; {fac_run_ms:.1f} ms (one run), peak device memory {peak:.2f} GiB; final "
+         f"|tr rho - 1| {dtr:.3e}, max|rho - rho^H| {herm:.3e} (tol {ME_TRACE_TOL:.0e})")
+    out.update(factored12_ms=fac_run_ms, factored12_peak=peak)
+    del sim, res
+    torch.cuda.empty_cache()
+
+    # dephasing + doppler: one mesolve a run (_solve_batch)
+    label = f"{n_batch} atoms dephasing + doppler R={ME_BATCH_R}"
+    sim = _me_sim(torch, device, n_batch, noise=("dephasing", "doppler"), temperature=50.0,
+                  runs=ME_BATCH_R, samples_per_run=MC_SAMPLES)
+    _reset(fe)
+    with torch.no_grad():
+        batch_ms, res = _host_time_ms(torch, sim.run, 1)
+    _no_launch(fe, label)
+    totals = {sum(r.bitstring_counts.values()) for r in res}
+    if type(res).__name__ != "NoisyResults" or totals != {ME_BATCH_R * MC_SAMPLES}:
+        raise RuntimeError(f"{label}: {type(res).__name__}, counts a time {totals}")
+    _log(f"  {label}: NoisyResults, counts a time {totals}, {batch_ms:.1f} ms")
+    out["batch_ms"] = batch_ms
+    return out
+
+
+def _mcwf_model(torch, device, n_qubits: int, solver: str, omega: float = 1.7,
+                rate: float = 0.08, duration: int = 160):
+    """tests/test_mcwf.py's gradient model: a line at 9 um, a constant
+    pulse of trainable amplitude omega (detuning -0.6, phase 0.2), dephasing."""
+    from pulser_diff_torch import QuantumModel, SimConfig
+    from pulser_diff_torch.core import MockDevice, Pulse, Register, Sequence
+
+    reg = Register.from_coordinates([(9.0 * i, 0.0) for i in range(n_qubits)], prefix="q")
+    seq = Sequence(reg, MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    om = seq.declare_variable("omega")
+    seq.add(Pulse.ConstantPulse(duration, om, -0.6, 0.2), "ryd")
+    return QuantumModel(seq, {"omega": omega}, noise_config=SimConfig(
+        noise="dephasing", dephasing_rate=rate), solver=solver, evaluation_times="Minimal",
+        device=device)
+
+
+def _mcwf_phase(torch, fe, device, n_anchor: int = 3, n_big: int = MCWF_BIG_N,
+                n_grad: int = MCWF_GRAD_N, anchor_r: int = MCWF_ANCHOR_R,
+                big_r: int = MCWF_BIG_R, grad_r: int = MCWF_GRAD_R):
+    """Phase 13, MCWF (bench_mcwf.py): the 3-atom populations of
+    run(solver="MCWF", n_traj=1024) against DP5_ME within 4/sqrt(R); 12
+    atoms MCWF_F32 at R = 64, timed; expectation_mcwf_fn's value and
+    gradient against the DP5_ME model's at 10 atoms."""
+    out = {}
+    sim = _me_sim(torch, device, n_anchor, spacing=MCWF_SPACING, evaluation_times=0.25,
+                  runs=anchor_r, samples_per_run=40)
+    _reset(fe)
+    me_ms, ref = _host_time_ms(torch, sim.run, 1)
+    mc_ms, res = _host_time_ms(torch, lambda: sim.run(solver="MCWF", n_traj=anchor_r), 1)
+    _no_launch(fe, f"{n_anchor} atoms MCWF")
+    pop_me = torch.diagonal(ref.states.re, dim1=-2, dim2=-1).cpu()
+    pop_mc = torch.diagonal(res.states.re, dim1=-2, dim2=-1).cpu()
+    diff = float((pop_me - pop_mc).abs().max())
+    bar = 4.0 / np.sqrt(anchor_r)
+    _log(f"  {n_anchor} atoms: DP5_ME run() {me_ms:.1f} ms, MCWF run() R={anchor_r} "
+         f"{mc_ms:.1f} ms; max|pop_MCWF - pop_ME| {diff:.4f} (tol 4/sqrt(R) = {bar:.4f})")
+    if diff > bar:
+        raise RuntimeError(f"MCWF populations vs DP5_ME {diff:.4f}")
+    out["anchor_ms"] = mc_ms
+    # 12 atoms, f32 drift
+    label = f"{n_big} atoms MCWF_F32 R={big_r}"
+    sim = _me_sim(torch, device, n_big, spacing=MCWF_SPACING, evaluation_times=0.25,
+                  runs=big_r, samples_per_run=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(fe)
+    _, first = _host_time_ms(torch, lambda: sim.run(solver="MCWF_F32"), 1)
+    _no_launch(fe, label)
+    peak = _peak_gib(torch)
+    big_ms, res = _host_time_ms(torch, lambda: sim.run(solver="MCWF_F32"), 2)
+    final = sum(res.results[-1].values())
+    totals = {sum(r.bitstring_counts.values()) for r in res}
+    if abs(final - 1.0) > 1e-6 or totals != {big_r * 10}:
+        raise RuntimeError(f"{label}: results[-1] sums to {final!r}, counts {totals}")
+    _log(f"  {label}: run() {big_ms:.1f} ms warm median of 2 ({big_ms / big_r:.2f} ms a "
+         f"trajectory), peak device memory {peak:.2f} GiB; results[-1] sums to {final!r}")
+    out.update(big_ms=big_ms, big_peak=peak)
+    del sim, res
+    # the fixed-realization gradient against the DP5_ME model's
+    label = f"{n_grad} atoms expectation_mcwf_fn R={grad_r}"
+    om = torch.tensor(1.7, dtype=torch.float64, device=device, requires_grad=True)
+    mc = _mcwf_model(torch, device, n_grad, "MCWF")
+    _reset(fe)
+    t0 = time.perf_counter()
+    v_mc = mc.expectation_mcwf_fn(key=12, n_traj=grad_r)({"omega": om})[1][-1]
+    v_mc.backward()
+    v_mc = v_mc.detach()
+    torch.cuda.synchronize()
+    mc_grad_ms = (time.perf_counter() - t0) * 1e3
+    g_mc = float(om.grad)
+    _no_launch(fe, label)
+    om2 = torch.tensor(1.7, dtype=torch.float64, device=device, requires_grad=True)
+    me = _mcwf_model(torch, device, n_grad, "DP5_ME")
+    t0 = time.perf_counter()
+    v_me = me.expectation_fn()({"omega": om2})[1][-1]
+    v_me.backward()
+    v_me = v_me.detach()
+    torch.cuda.synchronize()
+    me_grad_ms = (time.perf_counter() - t0) * 1e3
+    g_me = float(om2.grad)
+    dv, dg = abs(float(v_mc) - float(v_me)), abs(g_mc - g_me)
+    scale = max(1.0, abs(g_me))
+    _log(f"  {label}: value {float(v_mc)!r} vs DP5_ME {float(v_me)!r} (|diff| {dv:.4f}, tol "
+         f"{MCWF_VALUE_TOL}); grad {g_mc!r} vs {g_me!r} (|diff| {dg:.4f}, tol "
+         f"{MCWF_GRAD_REL} x {scale:.3f}); value+grad {mc_grad_ms:.1f} ms (MCWF) and "
+         f"{me_grad_ms:.1f} ms (DP5_ME), one run each")
+    if dv > MCWF_VALUE_TOL or dg > MCWF_GRAD_REL * scale:
+        raise RuntimeError(f"{label}: |dv| {dv:.4f}, |dg| {dg:.4f}")
+    out.update(grad_mc_ms=mc_grad_ms, grad_me_ms=me_grad_ms)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +2004,18 @@ def main() -> int:
          f"16 atoms R = {MC_16} and 18 atoms R = {MC_18} (K4); wide parts; SPAM; the sampler")
     mc = _mc_phase(torch, fe, device, gen)
     _log("  run() ms: " + ", ".join(f"{k}: {v:.2f}" for k, v in mc["run_ms"].items()))
+
+    # 12. the Lindblad path (bench_mesolve.py), no kernel on it
+    _log("phase 12 Lindblad: 10-atom value+grad through QuantumModel (DP5_ME, dense form) vs "
+         "the factored form and DP5_ME_F32; 3-atom rate gradient; 12-atom run() (factored); "
+         "8-atom dephasing + doppler run()")
+    me = _lindblad_phase(torch, fe, device)
+    # 13. quantum-jump trajectories (bench_mcwf.py), no kernel on it
+    _log("phase 13 MCWF: 3-atom populations vs DP5_ME; 12-atom MCWF_F32 run(); 10-atom "
+         "expectation_mcwf_fn value+grad vs DP5_ME")
+    mcwf = _mcwf_phase(torch, fe, device)
+    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in {**me, **mcwf}.items()
+                              if k.endswith("_ms")))
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",

@@ -23,9 +23,15 @@ state-preparation errors) it draws one Hamiltonian per run, evolves the R
 runs as one batch and samples bitstrings on the device, with the SPAM
 detection flips, into :class:`NoisyResults` (``_route_noisy`` decides the
 batch's solver: on CUDA one forward launch of K1, or of K4 where K1's
-cluster does not hold the shape).  ``expectation_fn_of_dists``
-differentiates an expectation in the inter-qubit distances, through the
-coherent routing.
+cluster does not hold the shape).  The Lindblad noises (``dephasing``,
+``relaxation``, ``depolarizing``, ``eff_noise``) reroute any
+Schrodinger solver to ``DP5_ME``, as the JAX package does: ``mesolve`` on
+the density matrix, returned as :class:`CoherentResults` over density
+matrices, or one ``mesolve`` a run under stochastic noise;
+``solver="MCWF"`` / ``"MCWF_F32"`` unravel them into quantum-jump
+trajectories instead (``_run_mcwf``), sampled into :class:`NoisyResults`.
+``expectation_fn_of_dists`` differentiates an expectation in the
+inter-qubit distances, through the coherent routing.
 """
 
 from __future__ import annotations
@@ -52,13 +58,16 @@ from pulser_diff_torch.ops.fused_evolution import (
 from pulser_diff_torch.result import QuantumResult
 from pulser_diff_torch.simconfig import NoiseModel, SimConfig, host_float
 from pulser_diff_torch.simresults import CoherentResults, NoisyResults, SampledResult
-from pulser_diff_torch.solvers import SolverType, TimeGrid, sesolve
+from pulser_diff_torch.solvers import SolverType, TimeGrid, mcsolve, mesolve, sesolve
+from pulser_diff_torch.solvers.solver import ME_SOLVERS
 
 _LINDBLAD_NOISES = {"dephasing", "relaxation", "depolarizing", "eff_noise"}
 _DETERMINISTIC_NOISES = _LINDBLAD_NOISES | {"SPAM", "amplitude", "leakage"}
+_MCWF_SOLVERS = (SolverType.MCWF, SolverType.MCWF_F32)
 
 # solver options accepted by run(**options) (and QuantumModel) so far
-_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt", "remat", "n_segments"}
+_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt", "remat", "n_segments", "superop",
+                "me_form", "n_traj"}
 # the options that go on to sesolve
 _SESOLVE_OPTIONS = ("remat", "n_segments")
 
@@ -356,7 +365,9 @@ class TorchEmulator:
         grid: TimeGrid,
         solver_opts: Optional[Mapping[str, Any]] = None,
     ) -> Cplx:
-        """Run the routed solver; returns (n_eval, dim, nb) kets."""
+        """Run the routed solver; returns (n_eval, dim, nb) kets, or
+        (n_eval, dim, dim) density matrices for the ME solvers (rho0 =
+        sum over the initial batch of |psi><psi|)."""
         h = self._hamiltonian
         da, db = h.dim**h._a, h.dim**h._b
         dim = da * db
@@ -372,6 +383,13 @@ class TorchEmulator:
                 # 18 atoms there)
                 solver = SolverType.DP5_SE_F32
         psi0 = self._initial_state  # (dim, nb)
+        if solver in ME_SOLVERS:
+            rho0 = Cplx(psi0.re @ psi0.re.T + psi0.im @ psi0.im.T,
+                        psi0.im @ psi0.re.T - psi0.re @ psi0.im.T)
+            return mesolve(ham_data, rho0, h._collapse_ops, h._size, h.dim, grid, solver=solver,
+                           substeps=substeps, superop=opts.get("superop"),
+                           me_form=opts.get("me_form"),
+                           **{k: opts[k] for k in _SESOLVE_OPTIONS if k in opts})
         nb = psi0.shape[1]
         p = Cplx(psi0.re.T.reshape(nb, da, db), psi0.im.T.reshape(nb, da, db))
         if solver in (SolverType.DP5_SE, SolverType.RK4_SE, SolverType.DP5_SE_F32,
@@ -443,8 +461,11 @@ class TorchEmulator:
         ``runs`` bad-atom configurations (repeats weighting the samples);
         either batch is evolved at once (``_route_noisy``) and sampled on
         the device into :class:`NoisyResults` of ``runs *
-        samples_per_run`` shots a time.  The Lindblad noises raise until
-        ``mesolve`` is ported (ROADMAP queue 1 item 4).
+        samples_per_run`` shots a time.  With a Lindblad noise any solver
+        but an ME or MCWF one becomes ``DP5_ME``: the density matrix
+        evolves under ``mesolve`` (CoherentResults over density matrices,
+        or one ``mesolve`` a run of a noisy batch); ``MCWF`` /
+        ``MCWF_F32`` take ``_run_mcwf``.
 
         ``time_grad`` / ``dist_grad`` are taken for parity with the JAX
         package and warn, as there: gradients in the evaluation times or
@@ -485,12 +506,12 @@ class TorchEmulator:
                     "Can't combine state preparation errors with an initial state "
                     "different from the ground."
                 )
-        if noise & _LINDBLAD_NOISES:
-            raise NotImplementedError(
-                f"The noise types {sorted(noise & _LINDBLAD_NOISES)} run on the Lindblad "
-                "master equation (DP5_ME), which is not ported yet (ROADMAP queue 1 item 4).")
+        if noise & _LINDBLAD_NOISES and solver not in ME_SOLVERS + _MCWF_SOLVERS:
+            solver = SolverType.DP5_ME
         substeps = self._auto_substeps(options)
         grid = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
+        if solver in _MCWF_SOLVERS:
+            return self._run_mcwf(solver, substeps, grid, options, meas_errors)
         deterministic = noise <= _DETERMINISTIC_NOISES and (
             "amplitude" not in noise or host_float(cfg.amp_sigma) == 0.0)
         if deterministic and ("SPAM" not in noise or eta == 0):
@@ -589,6 +610,73 @@ class TorchEmulator:
         R, n_eval = st.re.shape[:2]
         return Cplx(st.re.reshape(R, n_eval, nb, da * db).transpose(2, 3),
                     st.im.reshape(R, n_eval, nb, da * db).transpose(2, 3))
+
+    def _run_mcwf(self, solver: str, substeps: int, grid: TimeGrid, options: Mapping[str, Any],
+                  meas_errors: Optional[Mapping[str, Any]]) -> NoisyResults:
+        """Quantum-jump trajectories (``mcsolve``) of R = ``n_traj``
+        (default ``runs``), sampled on the device into NoisyResults of R x
+        ``samples_per_run`` shots a time, as the JAX package does.  With
+        doppler, amplitude (``amp_sigma`` > 0) or SPAM preparation errors
+        every trajectory draws its own Hamiltonian (``build_batch``) and is
+        solved alone; otherwise the R trajectories are one batch.  Warns
+        when the per-step jump probability bound passes 0.1 (one jump at
+        most a step would bias the average)."""
+        h = self._hamiltonian
+        cfg = h.config
+        noise = set(cfg.noise_types)
+        psi0 = self._initial_state
+        if psi0.shape[1] != 1:
+            raise ValueError("MCWF requires a single (non-batched) initial state.")
+        n_traj = int(options.get("n_traj", cfg.runs))
+        drift = SolverType.DP5_SE if solver == SolverType.MCWF else SolverType.DP5_SE_F32
+        da, db = h.dim**h._a, h.dim**h._b
+        p0 = Cplx(psi0.re[:, 0].reshape(da, db), psi0.im[:, 0].reshape(da, db))
+        collapse = h._collapse_ops
+        eta = host_float(cfg.state_prep_error)
+        if eta > 0 and not self._initial_is_ground:
+            raise NotImplementedError(
+                "Can't combine state preparation errors with an initial state different "
+                "from the ground.")
+        if collapse.ops is not None:
+            self._warn_jump_probability(collapse, grid, substeps)
+        stochastic = ("doppler" in noise or ("amplitude" in noise
+                      and host_float(cfg.amp_sigma) > 0) or eta > 0)
+        gen = self._generator()
+        with torch.no_grad():
+            if stochastic:
+                draws = [draw_noise(gen, cfg, h._size, h._count_noise_slots())
+                         for _ in range(n_traj)]
+                varying = frozenset(DRAW_FIELDS[t] for t in noise if t in DRAW_FIELDS)
+                st = [mcsolve(hd, p0, collapse, h._size, h.dim, grid, gen, 1, drift,
+                              substeps).states for hd in h.build_batch(draws, varying)]
+                st = Cplx(torch.cat([s_.re for s_ in st], 1), torch.cat([s_.im for s_ in st], 1))
+            else:
+                st = mcsolve(h._ham_data, p0, collapse, h._size, h.dim, grid, gen, n_traj, drift,
+                             substeps).states  # (n_eval, R, da, db)
+        n_eval = st.re.shape[0]
+        states = Cplx(st.re.reshape(n_eval, n_traj, da * db).transpose(0, 1)[..., None],
+                      st.im.reshape(n_eval, n_traj, da * db).transpose(0, 1)[..., None])
+        return self._sample_noisy(states, [1] * n_traj, cfg.samples_per_run, n_traj,
+                                  meas_errors)
+
+    @staticmethod
+    def _warn_jump_probability(collapse, grid: TimeGrid, substeps: int) -> None:
+        """Warn when sum_m lambda_max(L_m^+ L_m) times the largest step
+        passes 0.1 (host-side, before the solve)."""
+        lz = collapse.ops.to_numpy()
+        q = np.einsum("mji,mjk->mik", lz.conj(), lz)
+        rate_bound = float(sum(np.linalg.eigvalsh(qm).max() for qm in q))
+        t_np = grid.times.detach().cpu().numpy().astype(np.float64)
+        dt_max = float(np.diff(t_np).max()) / max(int(substeps), 1)
+        p_step = rate_bound * dt_max
+        if p_step > 0.1:
+            rec = int(np.ceil(p_step / 0.05)) * max(int(substeps), 1)
+            warnings.warn(
+                f"MCWF per-step jump probability bound is {p_step:.2f} (> 0.1): the "
+                "one-jump-per-step resolution will bias trajectory averages away from the "
+                f"master equation. Pass run(substeps={rec}) or use the density-matrix solvers.",
+                UserWarning, stacklevel=4,
+            )
 
     def _batched_weights(self, states_all: Cplx) -> torch.Tensor:
         """Measurement bitstring probabilities of a (R, n_eval, dim, nb)

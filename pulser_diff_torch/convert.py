@@ -74,3 +74,14 @@ def params_from_numpy(
         name: _tensor(v, device).requires_grad_(requires_grad)
         for name, v in params.items()
     }
+
+
+def collapse_from_numpy(sites: Any, ops: Any, device: DeviceLike = None):
+    """The port's CollapseOps from the JAX one's fields: the site of each
+    operator and the (re, im) pair of its (M, d, d) stack (None without
+    Lindblad noise), on ``device`` (CUDA unless given)."""
+    from pulser_diff_torch.hamiltonian import CollapseOps
+
+    device = resolve_device(device)
+    return CollapseOps(tuple(int(s) for s in sites),
+                       None if ops is None else _cplx(ops, device))

@@ -25,17 +25,22 @@ samples), each with its own amplitude and detuning part.  ``build_batch``
 builds R runs with one term structure, decided from the configuration as
 the JAX package's ``jax.vmap`` tracing decides it, so that the runs share
 one part stack; lifted parts are built once and kept.
+
+The Lindblad noises become :class:`CollapseOps`, one (d, d) operator per
+site, scaled by sqrt(rate) (``collapse_operators``): dephasing,
+relaxation, depolarizing and ``eff_noise``, as the JAX package builds
+them.  A rate given as a tensor keeps its gradient into the operators.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
-from pulser_diff_torch.cplx import Cplx
+from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sampler import SequenceSamples
@@ -62,6 +67,78 @@ def _local_op_np(dim: int, basis: list[str], name: str) -> np.ndarray:
     m = np.zeros((dim, dim))
     m[basis.index(b1), basis.index(b2)] = 1.0
     return m
+
+
+# the one-site Pauli matrices of the collapse operators
+_PAULI = {
+    "X": np.array([[0, 1], [1, 0]], dtype=complex),
+    "Y": np.array([[0, -1j], [1j, 0]]),
+    "Z": np.array([[1, 0], [0, -1]], dtype=complex),
+}
+
+
+class CollapseOps(NamedTuple):
+    """Single-site collapse operators: the site of each, and the (M, d, d)
+    stack of local operators, already scaled by sqrt(rate) (None without
+    Lindblad noise)."""
+
+    sites: tuple
+    ops: Optional[Cplx]
+
+
+def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubits: int,
+                       device: torch.device) -> CollapseOps:
+    """The collapse operators of ``config``'s Lindblad noises on ``n_qubits``
+    sites of the basis ``basis_name`` (level ``labels``), as the JAX
+    package builds them: sqrt(rate / 2) Z for dephasing (at
+    ``hyperfine_dephasing_rate`` in the digital basis), sqrt(rate)
+    |g><r| for relaxation, sqrt(rate / 4) X, Y, Z for depolarizing,
+    sqrt(rate_k) O_k for ``eff_noise``; each operator on every site in
+    turn.  Rates stay tensors, so a rate with ``requires_grad`` carries
+    its gradient into the operators."""
+    dim = len(labels)
+    noise = config.noise_types
+
+    def rate(x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=DTYPE).to(device)
+
+    def op(mat) -> Cplx:
+        return as_cplx(mat, dtype=DTYPE, device=device).to(device=device)
+
+    def basis_check(noise_type: str) -> None:
+        if basis_name == "all":
+            raise NotImplementedError(f"Cannot include {noise_type} noise in all-basis.")
+
+    local: list[Cplx] = []
+    if "dephasing" in noise:
+        basis_check("dephasing")
+        r = config.hyperfine_dephasing_rate if basis_name == "digital" else config.dephasing_rate
+        local.append(op(_PAULI["Z"]) * torch.sqrt(rate(r) / 2))
+    if "relaxation" in noise:
+        if not {"g", "r"} <= set(labels):
+            raise ValueError(
+                "'relaxation' noise requires addressing of the 'ground-rydberg' basis.")
+        local.append(op(_local_op_np(dim, labels, "sigma_gr"))
+                     * torch.sqrt(rate(config.relaxation_rate)))
+    if "depolarizing" in noise:
+        basis_check("depolarizing")
+        coeff = torch.sqrt(rate(config.depolarizing_rate) / 4)
+        local += [op(_PAULI[p]) * coeff for p in "XYZ"]
+    if "eff_noise" in noise:
+        basis_check("effective")
+        for r, mat in zip(config.eff_noise_rates, config.eff_noise_opers):
+            o = op(mat)
+            if o.shape != (dim, dim):
+                raise ValueError(
+                    f"Incompatible shape {o.shape} of effective noise operator: expected "
+                    f"({dim}, {dim}) for basis '{basis_name}'.")
+            local.append(o * torch.sqrt(rate(r)))
+    if not local:
+        return CollapseOps((), None)
+    sites = tuple(q for _ in local for q in range(n_qubits))
+    return CollapseOps(sites, Cplx(
+        torch.stack([o.re for o in local for _ in range(n_qubits)]),
+        torch.stack([o.im for o in local for _ in range(n_qubits)])))
 
 
 class NoiseDraws(NamedTuple):
@@ -195,8 +272,10 @@ class Hamiltonian:
             )
         if "leakage" in cfg.noise_types:
             raise NotImplementedError(
-                "Leakage needs the leakage-extended basis (ROADMAP queue 1 item 8) and "
-                "its collapse operators (item 4), which are not ported yet.")
+                "Leakage needs the leakage-extended basis (ROADMAP queue 1 item 8), which "
+                "is not ported yet.")
+        self._collapse_ops = collapse_operators(cfg, self.basis_name, self._basis_labels,
+                                                self._size, self.torch_device)
         self._config = cfg
         self._ham_data = self.build_data(self._update_noise())
 

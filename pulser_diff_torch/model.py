@@ -13,10 +13,16 @@ reaches them through the interaction weights.  ``expectation_population_fn``
 evaluates a stack of P candidate parameter sets: on CUDA below the fused
 cap in one launch of the fused kernels, the candidates on their runs axis.
 
+A ``noise_config`` with a Lindblad noise (dephasing, relaxation,
+depolarizing, eff_noise) reroutes the solve to ``DP5_ME``, as the JAX
+package does, so ``expectation_fn`` differentiates through ``mesolve``
+(noise rates given as tensors included); ``expectation_mcwf_fn``
+differentiates quantum-jump trajectories at fixed draws.
+
 The constructor takes the JAX package's parameters in its order.
-Duration optimisation, noise (``noise_config``: ROADMAP queue 1 item
-11), ``constraints`` and ``fit`` are later slices: a non-default
-``noise_config`` or ``constraints`` raises NotImplementedError.
+Duration optimisation, stochastic noise without a Lindblad noise
+(``noise_config``: ROADMAP queue 1 item 11), ``constraints`` and ``fit``
+are later slices: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 from torch import nn
 
-from pulser_diff_torch.backend import TorchEmulator, check_options
+from pulser_diff_torch.backend import _LINDBLAD_NOISES, TorchEmulator, check_options
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.register import Register
@@ -37,7 +43,9 @@ from pulser_diff_torch.ops.linalg import expect as _expect
 from pulser_diff_torch.ops.linalg import total_magnetization
 from pulser_diff_torch.simconfig import SimConfig
 from pulser_diff_torch.simresults import CoherentResults
-from pulser_diff_torch.solvers import SolverType, TimeGrid
+from pulser_diff_torch.solvers import SolverType, TimeGrid, mcsolve
+from pulser_diff_torch.solvers.mcwf import Uniforms
+from pulser_diff_torch.solvers.solver import ME_SOLVERS
 
 
 class QuantumModel(nn.Module):
@@ -62,12 +70,13 @@ class QuantumModel(nn.Module):
             raise NotImplementedError(
                 "Parameter constraints come with the training API (fit, "
                 "check_constraints), which is not ported yet (ROADMAP queue 1 item 6).")
-        if noise_config is not None and noise_config.noise:
+        if noise_config is not None and noise_config.noise and not (
+                set(noise_config.noise) & _LINDBLAD_NOISES):
             raise NotImplementedError(
-                f"A model with noise {tuple(noise_config.noise)} is not ported yet: its "
-                "gradient runs through a per-qubit Hamiltonian, which needs the adjoint "
-                "kernels K2/K5 past 8 parts (ROADMAP queue 1 item 11). TorchEmulator.run() "
-                "runs the noisy simulation.")
+                f"A model with noise {tuple(noise_config.noise)} and no Lindblad noise is not "
+                "ported yet: its gradient runs through a per-qubit Hamiltonian, which needs "
+                "the adjoint kernels K2/K5 past 8 parts (ROADMAP queue 1 item 11). "
+                "TorchEmulator.run() runs the noisy simulation.")
         check_options(options, "QuantumModel")
         self.torch_device = resolve_device(device)
         trainable_param_values = dict(trainable_param_values or {})
@@ -179,13 +188,18 @@ class QuantumModel(nn.Module):
 
     def _states_fn(self, params: Mapping[str, Any], force_no_fused: bool = False):
         """(eval_times, states) as a function of ``params``;
-        ``force_no_fused`` pins the stepper (``fused=False``)."""
+        ``force_no_fused`` pins the stepper (``fused=False``).  With a
+        Lindblad noise any solver but an ME one becomes ``DP5_ME``, and
+        the states are density matrices."""
         sim = self._make_emulator(params)
         h = sim._hamiltonian
+        solver = self.solver
+        if set(h.config.noise_types) & _LINDBLAD_NOISES and solver not in ME_SOLVERS:
+            solver = SolverType.DP5_ME
         substeps = int(self.options.get("substeps", self._default_substeps()))
         grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, self.torch_device)
         opts = {**self.options, "fused": False} if force_no_fused else self.options
-        states = sim._solve_states(h._ham_data, self.solver, substeps, grid, solver_opts=opts)
+        states = sim._solve_states(h._ham_data, solver, substeps, grid, solver_opts=opts)
         return sim._eval_times_array, states
 
     def _observable(self, obs: Optional[Cplx]) -> Cplx:
@@ -205,6 +219,50 @@ class QuantumModel(nn.Module):
         def fn(params: Mapping[str, Any]):
             times, states = self._states_fn(params)
             return times, _expect(obs, states).re
+
+        return fn
+
+    def expectation_mcwf_fn(
+        self, obs: Optional[Cplx] = None, *, key: Any, n_traj: int,
+        substeps: Optional[int] = None, uniforms: Optional[Uniforms] = None,
+    ) -> Callable[[Mapping[str, Any]], tuple]:
+        """Function: params -> (eval_times, (n_eval,) expectation values
+        averaged over ``n_traj`` quantum-jump trajectories (``mcsolve``),
+        as the JAX package's: the Lindblad path at statevector cost.
+
+        The draws are fixed: ``key`` (an int) seeds a fresh generator on
+        the module's device at every call, or ``uniforms`` gives them, so
+        autograd differentiates the drift, the jumps and the
+        normalizations at fixed jump times and channels (the
+        fixed-realization pathwise estimator, biased by the missing
+        dependence of the jump statistics on the parameters).  The drift
+        is ``DP5_SE``, or ``DP5_SE_F32`` when the model's solver is
+        ``MCWF_F32``."""
+        obs = self._observable(obs)
+        drift = SolverType.DP5_SE_F32 if self.solver == SolverType.MCWF_F32 else SolverType.DP5_SE
+
+        def fn(params: Mapping[str, Any]):
+            sim = self._make_emulator(params)
+            h = sim._hamiltonian
+            grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, self.torch_device)
+            ss = int(substeps) if substeps is not None else int(
+                self.options.get("substeps", self._default_substeps()))
+            psi0 = sim.initial_state
+            if psi0.re.shape[1] != 1:
+                raise ValueError(
+                    "expectation_mcwf_fn requires a single (non-batched) initial state.")
+            da, db = h.dim**h._a, h.dim**h._b
+            p0 = Cplx(psi0.re[:, 0].reshape(da, db), psi0.im[:, 0].reshape(da, db))
+            gen = None
+            if uniforms is None:
+                gen = torch.Generator(device=self.torch_device)
+                gen.manual_seed(int(key))
+            st = mcsolve(h._ham_data, p0, h._collapse_ops, h._size, h.dim, grid, gen, n_traj,
+                         drift, ss, uniforms=uniforms).states  # (n_eval, R, da, db)
+            n_eval, R = st.re.shape[:2]
+            # each trajectory's expectation, then their mean
+            vals = _expect(obs, st.reshape(n_eval * R, da * db, 1)).re
+            return sim._eval_times_array, vals.reshape(n_eval, R).mean(1)
 
         return fn
 
@@ -232,11 +290,11 @@ class QuantumModel(nn.Module):
             sim = self._make_emulator(cands[0])
             h = sim._hamiltonian
             times = sim._eval_times_array
-            use_fused = self.solver in TorchEmulator._PALLAS_METHODS or (
+            use_fused = (self.solver in TorchEmulator._PALLAS_METHODS or (
                 self.solver == SolverType.DP5_SE
                 and self.options.get("fused") is not False
                 and sim._fused_eligible()
-            )
+            )) and not set(h.config.noise_types) & _LINDBLAD_NOISES
             if not use_fused:
                 vals = [_expect(obs, self._states_fn(p, force_no_fused=True)[1]).re
                         for p in cands]

@@ -10,10 +10,13 @@ complex coefficient streams, U the static van der Waals diagonal (ising)
 and the (R_k, C_k) kron pairs the XY dipole flip-flop terms, applied as
 R @ Psi @ C^T without building the dim x dim matrix.
 
-In f32 (the ``*_SE_F32`` solver modes) every product runs through
-:func:`_mm`, at full f32 precision in the forward and the backward pass
-whatever the caller's TF32 setting, as the JAX package pins the f32 solve
-to ``Precision.HIGHEST``.
+In f32 (the ``*_F32`` solver modes) every product runs through
+:func:`_mm` or :func:`_einsum`, at full f32 precision in the forward and
+the backward pass whatever the caller's TF32 setting, as the JAX package
+pins the f32 solve to ``Precision.HIGHEST``.
+
+The density-matrix forms (``h_apply_rho_left``, ``apply_local_left`` /
+``_right``) serve the factored Lindblad right-hand side of ``mesolve``.
 """
 
 from __future__ import annotations
@@ -140,6 +143,53 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+class _F32Einsum(torch.autograd.Function):
+    """torch.einsum of two operands with the forward and the backward
+    products at full f32 precision (as :class:`_F32Matmul`).  The
+    subscripts hold no ellipsis and no repeated index within an operand,
+    and every index of an operand appears in the other or in the output,
+    so each operand's cotangent is one einsum of the output's cotangent
+    with the other operand."""
+
+    @staticmethod
+    def forward(ctx, sub, a, b):
+        ctx.sub = sub
+        ctx.save_for_backward(a, b)
+        with _f32_full_precision():
+            return torch.einsum(sub, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.sub.replace(" ", "").split("->")
+        sa, sb = ins.split(",")
+        ga = gb = None
+        with _f32_full_precision():
+            if ctx.needs_input_grad[1]:
+                ga = torch.einsum(f"{out},{sb}->{sa}", g, b)
+            if ctx.needs_input_grad[2]:
+                gb = torch.einsum(f"{sa},{out}->{sb}", a, g)
+        return None, ga, gb
+
+
+def _einsum(sub: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.einsum(sub, a, b); in f32 pinned to full precision, forward
+    and backward (subscripts as :class:`_F32Einsum` takes them)."""
+    if a.dtype == torch.float32:
+        return _F32Einsum.apply(sub, a, b)
+    return torch.einsum(sub, a, b)
+
+
+def ceinsum(sub: str, a: Cplx, b: Cplx) -> Cplx:
+    """Complex einsum of two operands from split re/im parts (4 real
+    einsums)."""
+    rr = _einsum(sub, a.re, b.re)
+    ii = _einsum(sub, a.im, b.im)
+    ri = _einsum(sub, a.re, b.im)
+    ir = _einsum(sub, a.im, b.re)
+    return Cplx(rr - ii, ri + ir)
+
+
 def _weighted_sum(z: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
     """sum_k z_k stack_k over the leading axis of a (K, i, j) or (K, b, i, j)
     stack (an einsum in f64; in f32 a pinned product, or elementwise, so
@@ -227,3 +277,54 @@ def h_matrix(h: FactoredHamiltonian, t: torch.Tensor) -> Cplx:
         full_re = full_re + m_re + m_re.T
         full_im = full_im + m_im - m_im.T
     return Cplx(full_re, full_im)
+
+
+# ----------------------------------------------------------------------
+# density-matrix application (the factored mesolve form)
+# ----------------------------------------------------------------------
+def h_apply_rho_left(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx],
+                     rho: Cplx) -> Cplx:
+    """H(t) @ rho for rho of shape (dim, dim): the factored H applied on
+    rho's row index by batched small products."""
+    da, db, dim = h.da, h.db, h.dim
+    hr = assemble_side(h.row_parts, zr)
+    hc = assemble_side(h.col_parts, zc)
+    r4 = rho.reshape(da, db, dim)
+    # Hrow acts on axis 0, Hcol on axis 1
+    out_re = _einsum("ij,jbc->ibc", hr.re, r4.re) - _einsum("ij,jbc->ibc", hr.im, r4.im)
+    out_im = _einsum("ij,jbc->ibc", hr.re, r4.im) + _einsum("ij,jbc->ibc", hr.im, r4.re)
+    out_re = out_re + _einsum("ij,ajc->aic", hc.re, r4.re) - _einsum("ij,ajc->aic", hc.im, r4.im)
+    out_im = out_im + _einsum("ij,ajc->aic", hc.re, r4.im) + _einsum("ij,ajc->aic", hc.im, r4.re)
+    # the interaction diagonal on the row index
+    d = h.int_diag.reshape(da, db, 1)
+    out_re = out_re + d * r4.re
+    out_im = out_im + d * r4.im
+    if h.kron_row is not None and zk is not None:
+        # the kron pairs on the row index, rho's columns as the state batch
+        add_re, add_im = _kron_terms_batched(h, zk, r4.re.permute(2, 0, 1),
+                                             r4.im.permute(2, 0, 1))
+        out_re = out_re + add_re.permute(1, 2, 0)
+        out_im = out_im + add_im.permute(1, 2, 0)
+    return Cplx(out_re.reshape(dim, dim), out_im.reshape(dim, dim))
+
+
+def apply_local_left(op: Cplx, site: int, n: int, d: int, x: Cplx) -> Cplx:
+    """lift(op, site) @ x for x of shape (d^n, M) or (d^n,): the (d, d)
+    operator contracted against the ``site`` factor of the row index, no
+    lifted matrix built."""
+    shape = x.shape
+    x4 = x.reshape(d**site, d, -1)
+    out_re = _einsum("ij,ajb->aib", op.re, x4.re) - _einsum("ij,ajb->aib", op.im, x4.im)
+    out_im = _einsum("ij,ajb->aib", op.re, x4.im) + _einsum("ij,ajb->aib", op.im, x4.re)
+    return Cplx(out_re, out_im).reshape(shape)
+
+
+def apply_local_right(op: Cplx, site: int, n: int, d: int, rho: Cplx) -> Cplx:
+    """rho @ lift(op, site) for rho of shape (M, d^n) (the column index
+    is the Hilbert index)."""
+    shape = rho.shape
+    x4 = rho.reshape(-1, d, d**n // (d**site * d))
+    # (rho A)[.., j, ..] = sum_i rho[.., i, ..] A[i, j]
+    out_re = _einsum("aib,ij->ajb", x4.re, op.re) - _einsum("aib,ij->ajb", x4.im, op.im)
+    out_im = _einsum("aib,ij->ajb", x4.re, op.im) + _einsum("aib,ij->ajb", x4.im, op.re)
+    return Cplx(out_re, out_im).reshape(shape)

@@ -1,8 +1,9 @@
 """Tensor utilities (counterpart of pulser_diff_tpu/ops/linalg.py).
 
-Only what the main path needs: ``kron``, the Pauli constants,
-``basis_state``, ``expect`` (kets, and 1-D diagonal observables),
-``total_magnetization`` and ``interpolate_sine``.
+``kron``, the Pauli constants, ``basis_state``, ``expect`` (kets,
+density matrices and batches of them, and 1-D diagonal observables),
+``trace``, ``vn_entropy``, ``total_magnetization`` and
+``interpolate_sine``.
 """
 
 from __future__ import annotations
@@ -58,17 +59,24 @@ def expect(obs: Cplx, states: Cplx) -> Cplx:
     """Expectation values of ``obs`` over a time batch of states.
 
     ``states``: kets (n_t, dim, n_batch), or (n_t, dim) promoted to
-    (n_t, dim, 1), the batch columns summed as in the reference; or
-    density matrices (n_t, dim, dim), tr(O rho) (the pseudo-densities of
-    sampled results).  A 1-D ``obs`` of shape (dim,) is the diagonal
-    operator diag(obs).
+    (n_t, dim, 1), the batch columns summed as in the reference; density
+    matrices (n_t, dim, dim), tr(O rho) (Lindblad states and the
+    pseudo-densities of sampled results); or a density-matrix batch
+    (n_t, dim, dim, n_batch), sum_k tr(O rho_k).  A 1-D ``obs`` of shape
+    (dim,) is the diagonal operator diag(obs).
     """
     obs = as_cplx(obs, dtype=DTYPE).to(device=states.device)
     if states.ndim == 2 and states.shape[-1] != states.shape[-2]:
         states = states.reshape(states.shape + (1,))
+    if states.ndim == 4:
+        states = states.sum(axis=-1)
     if states.ndim != 3:
         raise ValueError(f"Unsupported states shape {states.shape}")
     if states.shape[-1] == states.shape[-2]:
+        # f32 density matrices against an f64 observable: promoted for the
+        # contraction, as jnp.einsum promotes
+        dt = torch.promote_types(states.dtype, obs.dtype)
+        states, obs = states.to(dt), obs.to(dt)
         if obs.ndim == 1:
             # tr(diag(d) rho) = sum_j d_j rho_jj
             rr = torch.diagonal(states.re, dim1=-2, dim2=-1)
@@ -97,6 +105,23 @@ def expect(obs: Cplx, states: Cplx) -> Cplx:
     re = ((ar + bi) * sh.re + (ai - br) * sh.im).sum(-1)
     im = ((br - ai) * sh.re + (ar + bi) * sh.im).sum(-1)
     return Cplx(re, im)
+
+
+def trace(mat: Cplx) -> Cplx:
+    """Trace over the last two axes."""
+    return Cplx(torch.diagonal(mat.re, dim1=-2, dim2=-1).sum(-1),
+                torch.diagonal(mat.im, dim1=-2, dim2=-1).sum(-1))
+
+
+def vn_entropy(rho: Cplx) -> torch.Tensor:
+    """Von Neumann entropy (bits) of a density matrix, from the spectrum
+    of the real symmetric embedding [[re, -im], [im, re]], which holds
+    each eigenvalue of rho twice (as the JAX package computes it)."""
+    emb = torch.cat([torch.cat([rho.re, -rho.im], -1), torch.cat([rho.im, rho.re], -1)], -2)
+    ev = torch.linalg.eigvalsh(emb)[..., ::2]
+    keep = ev > 1e-30
+    safe = torch.where(keep, ev, torch.ones_like(ev))
+    return torch.where(keep, -ev * torch.log2(safe), torch.zeros_like(ev)).sum(-1)
 
 
 def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...],

@@ -7,10 +7,12 @@ numbers or torch tensors.
 
 Every noise type is accepted here.  ``TorchEmulator.run`` runs the
 stochastic ones (``doppler``, ``amplitude``) and SPAM as a Monte-Carlo
-batch; the Lindblad types (``dephasing``, ``relaxation``,
-``depolarizing``, ``eff_noise``, ``leakage``) raise there until
-``mesolve`` is ported (ROADMAP queue 1 item 4).  ``to_pulser`` (it needs
-``pulser``) is not ported.
+batch, and the Lindblad types (``dephasing``, ``relaxation``,
+``depolarizing``, ``eff_noise``) on the master equation (``mesolve``) or
+as quantum-jump trajectories (``solver="MCWF"``); a rate given as a
+tensor carries its gradient.  ``leakage`` raises there until the
+leakage-extended basis is ported (ROADMAP queue 1 item 8).  ``to_pulser``
+(it needs ``pulser``) is not ported.
 """
 
 from __future__ import annotations

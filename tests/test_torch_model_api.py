@@ -61,7 +61,7 @@ def test_positional_order_matches_jax():
 
 def test_noise_and_constraints_raise_naming_the_queue():
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        _port_model(noise_config=SimConfig(noise=("dephasing",)))
+        _port_model(noise_config=SimConfig(noise=("doppler",)))
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         _port_model(constraints={"amp_samples_0": {"min": 0.0, "max": 4.0}})
     # the noiseless defaults are accepted
