@@ -74,8 +74,9 @@ Phases (each raises on failure, so the script exits non-zero):
      atoms R = 8 and 18 atoms R = 2 (pr = pc = 18) in one K4 launch, K4
      against its plain version on one run, one run against the f64
      stepper, time and peak memory; synthetic pr = pc = 12 and 20 parts at
-     small shapes (K1 against plain, K4 = K1 bit for bit) and K2 / K5
-     refusing 9 parts on the host before any launch; SPAM (eta 0.1, eps
+     small shapes (K1 against plain, K4 = K1 bit for bit; K2 and K5
+     against plain on the first WIDE_STEPS steps) and
+     every kernel refusing 33 parts on the host before any launch; SPAM (eta 0.1, eps
      0.01, eps' 0.05, 15 runs) on K1 and the eta = 0 CoherentResults path
      with sample_state; the device sampler's bit marginals within 5
      standard errors of the exact mixture's, without and with detection
@@ -96,7 +97,20 @@ Phases (each raises on failure, so the script exits non-zero):
      4/sqrt(R); 12 atoms MCWF_F32 at R = 64, timed, its final counts
      summing to 1; at 10 atoms expectation_mcwf_fn's value and gradient
      against the DP5_ME model's (0.05, 0.02 x scale: the bars of
-     tests/test_mcwf.py::test_mcwf_gradient_matches_mesolve).
+     tests/test_mcwf.py::test_mcwf_gradient_matches_mesolve);
+ 14. training: bench.py's model with bench_mc.py's noise (doppler 50 uK,
+     amplitude 0.05), one drawn realization pinned: the 12-atom value+grad
+     step (one K1 and one K2 launch at pr = pc = 12) and the 16-atom one
+     (one K4 and one K5 launch at 16) against the f64 stepper on the same
+     draws (1e-6 / 1e-5), K2 / K5 at those shapes against their plain
+     versions on the first PLAIN_STEPS steps and timed; fit on bench.py's
+     12-atom model (5 epochs, default Adam: one K1 and one K2 launch an
+     epoch, every loss equal bit for bit to a hand loop); fit_population
+     with 8 candidates (6 evaluations on the runs axis: 6 K1 and 5 K2
+     launches; each candidate's losses against a lone fit from it);
+     duration optimisation (ConstantPulse(dur[0], 2, -2, 0) on the 3x4
+     lattice: the duration gradient against the f64 stepper's, 3 epochs of
+     fit move it); fit on the noisy model, one realization for 3 epochs.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -482,6 +496,9 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
     outer_flops = (2 * 4 * nb * (da * da * db + db * db * da)
                    + 2 * nb * K * (4 * (da * db * db + da * da * db)
                                    + 4 * da * da * db + 4 * db * db * da))
+    # and per stage the contraction of (W, V, Wc, Vc) against the part
+    # stacks: 2 words, a multiply and an add each, per part entry
+    outer_flops += 2 * (pr * da * da + pc * db * db) * 2
     shared = ("rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + fe._ZF_KEYS
     if K:
         shared += ("kr", "kc") + fe._ZKF_KEYS
@@ -1067,6 +1084,8 @@ MC_18 = 2
 # the sampler's statistics: samples a run, and the bar in standard errors
 MC_STAT_SAMPLES = 20000
 MC_STAT_SE = 5.0
+# the steps of the wide-part adjoint checks
+WIDE_STEPS = 8
 K1_ONLY = {"fused_fwd": 1, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
 K4_ONLY = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 0}
 
@@ -1217,8 +1236,12 @@ def _widen_parts(torch, fe, data, P: int, seed: int):
 def _wide_parts_checks(torch, fe, device, gen):
     """Synthetic pr = pc = 12 and 20 at the small shapes (da = db = 4 and
     16, two runs): K1 against its plain version, K4 equal to K1 bit for
-    bit at every slot; K2 and K5 refuse 9 parts with the host's ValueError
-    before any launch."""
+    bit at every slot, and on the first WIDE_STEPS steps K1, K2, K4 and K5
+    against their plain versions (the adjoints reduce their partials in
+    chunks of 8 parts: two and three chunks here); every kernel refuses 33
+    parts with the host's ValueError before any launch.  The adjoints'
+    random cotangents come from their own generator, so ``gen`` keeps its
+    draws."""
     cases = [c for c in _small_cases(torch, device)]
     base = []
     for label, sim, method in cases[2:]:
@@ -1242,24 +1265,34 @@ def _wide_parts_checks(torch, fe, device, gen):
                  f"max|diff| {diff:.3e}")
             if err > K1_TOL or diff != 0.0:
                 raise RuntimeError(f"{tag}: K1 vs plain {err:.3e}, K4 vs K1 {diff:.3e}")
+            # the adjoints against their plain versions on the first steps
+            # (the plain versions' Python loops over 2P parts a stage take
+            # seconds a step); the slots of a two-time grid
+            n = min(WIDE_STEPS, int(wd["hs"].shape[0]))
+            cut = _cut_steps(wd, n)
+            cslots = torch.tensor([0] + [2] * (n - 1) + [1], dtype=torch.int32, device=device)
+            wgen = torch.Generator().manual_seed(SEED + P)
+            _check_kernels(torch, fe, cut, cslots, 2, 1, method, wgen, f"{tag}, first {n} steps")
+            _check_ckpt(torch, fe, cut, method, wgen, f"{tag}, first {n} steps")
     sd, ss, sn, sl = base[0][1]
     method = base[0][2]
-    wd = _widen_parts(torch, fe, sd, 9, seed=9)
-    st = fe.fused_fwd(wd, method, ss, sn)
-    lam = [torch.zeros_like(st[0]) for _ in range(2)]
-    ck = fe.fused_fwd_ckpt(wd, method)
-    lam_ck = [torch.zeros_like(ck[0]) for _ in range(2)]
-    for name, call in (("K2", lambda: fe.fused_bwd(wd, method, ss, sn, sl, *st, *lam)),
-                       ("K5", lambda: fe.fused_bwd_ckpt(wd, method, *ck, *lam_ck))):
+    wd = _widen_parts(torch, fe, sd, 33, seed=33)
+    zero = torch.zeros((1, sn, *sd["psi_re"].shape[1:]), dtype=torch.float32, device=device)
+    zero_ck = torch.zeros((1, int(sd["hs"].shape[0]), *sd["psi_re"].shape[1:]),
+                          dtype=torch.float32, device=device)
+    for name, call in (("K1", lambda: fe.fused_fwd(wd, method, ss, sn)),
+                       ("K2", lambda: fe.fused_bwd(wd, method, ss, sn, sl, *[zero] * 4)),
+                       ("K4", lambda: fe.fused_fwd_ckpt(wd, method)),
+                       ("K5", lambda: fe.fused_bwd_ckpt(wd, method, *[zero_ck] * 4))):
         _reset(fe)
         try:
             call()
         except ValueError as exc:
-            if "item 11" not in str(exc) or any(fe.LAUNCHES.values()):
+            if "at most 32" not in str(exc) or any(fe.LAUNCHES.values()):
                 raise
-            _log(f"  9 parts: {name} refused before any launch: {exc}")
+            _log(f"  33 parts: {name} refused before any launch: {exc}")
         else:
-            raise RuntimeError(f"{name} accepted 9 parts")
+            raise RuntimeError(f"{name} accepted 33 parts")
 
 
 def _mc_phase(torch, fe, device, gen):
@@ -1393,6 +1426,303 @@ def _mc_phase(torch, fe, device, gen):
 # 400 ns, a 4-parameter sine-interpolated amplitude, detuning -1 rad/us,
 # dephasing 0.05 rad/us, sampling_rate 0.5; the final total magnetization
 # and its gradient in the 4 parameters
+# phase 14, training: bench.py's loss (the final total magnetization), the
+# noise of bench_mc.py on bench.py's model, the epochs of each fit, the
+# duration model's starting duration (us), and the adjoint kernels' plain
+# versions at the noisy shapes on a cut step count
+TRAIN_NOISE = dict(noise=("doppler", "amplitude"), temperature=50.0, amp_sigma=0.05)
+TRAIN_EPOCHS = 5
+TRAIN_NOISY_EPOCHS = 3
+DUR0 = 0.66
+PLAIN_STEPS = 24
+K1K2 = {"fused_fwd": 1, "fused_bwd": 1, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
+K4K5 = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1}
+
+
+def _train_loss(times, vals):
+    return vals[-1]
+
+
+def _cut_steps(data, n: int):
+    """The kernels' inputs of the first ``n`` steps."""
+    out = dict(data)
+    for k in ("hb_hi", "hb_lo", "hs"):
+        out[k] = data[k][:n].contiguous()
+    for k in data:
+        if k.startswith("z"):
+            out[k] = data[k][:, :n].contiguous()
+    return out
+
+
+def _times(counts: dict, n: int) -> dict:
+    """The launch counts of ``n`` steps of ``counts`` each."""
+    return {k: v * n for k, v in counts.items()}
+
+
+def _noisy_step(torch, fe, device, n_qubits: int, p0, gen, want: dict):
+    """(a) / (b): bench.py's model at ``n_qubits`` with bench_mc.py's noise,
+    one drawn realization pinned: the value+grad step through the default
+    route (counts reset just before, read just after), held against the
+    f64 stepper on the same draws; the adjoint kernel at these shapes
+    against its plain version on the first PLAIN_STEPS steps, timed over
+    all of them."""
+    from pulser_diff_torch import SimConfig
+
+    label = f"noisy {n_qubits} atoms"
+    model, _ = _bench_model(torch, device, fused=None, n_qubits=n_qubits,
+                            noise_config=SimConfig(**TRAIN_NOISE))
+    draws = model._draw()
+    with model._pinned(draws):
+        substeps = model._default_substeps()
+        with torch.no_grad():
+            sim = model._make_emulator(dict(model.params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(fe)
+        t0 = time.perf_counter()
+        value, grad, vals = _value_and_grad(torch, model, p0, device)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fe.LAUNCHES)
+        peak = _peak_gib(torch)
+        if launches != want:
+            raise RuntimeError(f"{label}: expected {want}, got {launches}")
+        step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model, p0, device), 3)
+    f64, _ = _bench_model(torch, device, fused=False, n_qubits=n_qubits,
+                          noise_config=SimConfig(**TRAIN_NOISE))
+    with f64._pinned(draws):
+        t0 = time.perf_counter()
+        v64, g64, _ = _value_and_grad(torch, f64, p0, device)
+        torch.cuda.synchronize()
+        f64_ms = (time.perf_counter() - t0) * 1e3
+    data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
+    R_, n_steps, pr, pc, nb, da, db = fe._dims(data)
+    _log(f"  {label}: pr = pc = {pr}, {n_steps} steps, launches {launches}, step {step_ms:.2f} ms "
+         f"warm median of 3 (first {first_ms:.1f} ms), peak {peak:.2f} GiB; f64 stepper "
+         f"{f64_ms:.1f} ms (once)")
+    _hold_against_f64(torch, value, grad, v64, g64, label)
+    S = 6
+    cut = _cut_steps(data, PLAIN_STEPS)
+    tag = f"{label} (first {PLAIN_STEPS} of {n_steps} steps)"
+    times: dict = {}
+    if want["fused_bwd_ckpt"]:
+        _, err, _, _ = _check_ckpt(torch, fe, cut, "DP5", gen, tag, times)
+        st = fe.fused_fwd_ckpt(data, "DP5")
+        lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32).to(device)
+               for _ in range(2)]
+        ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(data, "DP5", *st, *lam), 3)
+        out = fe.fused_bwd_ckpt(data, "DP5", *st, *lam)
+        bound, by = _bound_ms(fe, data, None, (*st, *lam, *out), S, "bwd_ckpt")
+        plain_ms, name = times["k5_plain"], "fused_bwd_ckpt"
+    else:
+        cslots = torch.cat([slots[:PLAIN_STEPS], slots[-1:]])
+        _, err, _, _ = _check_kernels(torch, fe, cut, cslots, n_eval, last_slot, "DP5", gen, tag,
+                                      times)
+        st = fe.fused_fwd(data, "DP5", slots, n_eval)
+        lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32).to(device)
+               for _ in range(2)]
+        ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(data, "DP5", slots, n_eval, last_slot,
+                                                       *st, *lam), 5)
+        out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *st, *lam)
+        bound, by = _bound_ms(fe, data, slots, (*st, *lam, *out), S, "bwd")
+        plain_ms, name = times["k2_plain"], "fused_bwd"
+    kname = "K5" if want["fused_bwd_ckpt"] else "K2"
+    _log(f"  {label}: {kname} at pr = pc = {pr} {ms:.3f} ms (CUDA events, warm median), bound "
+         f"{bound:.4f} ms by {by}; plain {plain_ms:.1f} ms on the first {PLAIN_STEPS} steps")
+    del data, cut, st, lam, out, model, f64, sim
+    torch.cuda.empty_cache()
+    return dict(launches=launches[name], err=err, ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                pr=pr, step_ms=step_ms)
+
+
+def _chunk_cost(torch, fe, device, gen):
+    """K2 at 7, 8 and 9 synthetic parts a side on the 12-atom main path's
+    shapes (CUDA events, warm medians of 3): 8 to 9 parts adds a second
+    chunk of stream cotangents, whose outer products K2 recomputes, beside
+    one more part to assemble, which 7 to 8 parts adds alone."""
+    model, _ = _bench_model(torch, device, fused=None)
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, model._default_substeps(), device)
+    ms = {}
+    for P in (7, 8, 9):
+        wd = _widen_parts(torch, fe, data, P, seed=P)
+        st = fe.fused_fwd(wd, "DP5", slots, n_eval)
+        lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32).to(device)
+               for _ in range(2)]
+        ms[P] = _cuda_time_ms(torch, lambda: fe.fused_bwd(wd, "DP5", slots, n_eval, last_slot,
+                                                          *st, *lam), 3)
+    second = (ms[9] - ms[8]) - (ms[8] - ms[7])
+    _log(f"  (c) K2 at 7 / 8 / 9 synthetic parts, 12 atoms: {ms[7]:.3f} / {ms[8]:.3f} / "
+         f"{ms[9]:.3f} ms; the second chunk's recomputed outer products ~{second:.3f} ms")
+    return ms
+
+
+def _fit_phase(torch, fe, device, p0):
+    """(d) fit on bench.py's 12-atom model: TRAIN_EPOCHS epochs with the
+    default optimiser, one K1 and one K2 launch an epoch, every epoch's
+    loss equal bit for bit to a hand loop of expectation_fn and Adam;
+    (e) fit_population with bench_population.py's 8 candidates: epochs + 1
+    evaluations on the runs axis (one K1 launch each, one K2 launch each
+    but the last), each candidate's losses against a lone fit from it."""
+    model, _ = _bench_model(torch, device, fused=None)
+    model._default_substeps()
+    ends = []
+
+    def stamp(*_):  # each epoch's end, on the host clock after its work
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model.fit(_train_loss, epochs=TRAIN_EPOCHS, callback=stamp)
+    launches = dict(fe.LAUNCHES)
+    epochs_ms = np.diff([t0] + ends) * 1e3
+    epoch_ms = float(np.median(epochs_ms[1:]))
+    if launches != _times(K1K2, TRAIN_EPOCHS):
+        raise RuntimeError(f"fit: launches {launches}")
+    hand, _ = _bench_model(torch, device, fused=None)
+    opt = torch.optim.Adam(hand.parameters(), lr=1e-2)
+    want = []
+    for _ in range(TRAIN_EPOCHS):
+        opt.zero_grad()
+        loss = _train_loss(*hand.expectation_fn()(dict(hand.params)))
+        loss.backward()
+        opt.step()
+        want.append(float(loss.detach()))
+    if losses != want:
+        raise RuntimeError(f"fit: losses {losses} differ from the hand loop's {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"fit: losses {losses}")
+    _log(f"  (d) fit, 12 atoms, {TRAIN_EPOCHS} epochs: launches {launches}, losses {losses!r} "
+         f"(equal bit for bit to the hand loop's); epochs {epochs_ms.round(2).tolist()} ms (the "
+         f"first one builds the optimiser's kernels), {epoch_ms:.2f} ms warm median")
+    # (e) the population
+    rng = np.random.default_rng(SEED)
+    cands = p0[None, :] + POP_SPREAD * rng.normal(size=(POP_12, N_PARAMS))
+    pmodel, _ = _bench_model(torch, device, fused=None)
+    pmodel._default_substeps()
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plosses, final = pmodel.fit_population(_train_loss, {"amp_samples_0": cands},
+                                           epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    pop_ms = (time.perf_counter() - t0) * 1e3
+    plaunches = dict(fe.LAUNCHES)
+    want_l = {"fused_fwd": TRAIN_EPOCHS + 1, "fused_bwd": TRAIN_EPOCHS, "fused_fwd_ckpt": 0,
+              "fused_bwd_ckpt": 0}
+    if plaunches != want_l:
+        raise RuntimeError(f"fit_population: launches {plaunches}, expected {want_l}")
+    diff = 0.0
+    for i, c in enumerate(cands):
+        lone, _ = _bench_model(torch, device, fused=None)
+        with torch.no_grad():
+            lone.params["amp_samples_0"].copy_(torch.as_tensor(c, device=device))
+        ll = lone.fit(_train_loss, epochs=TRAIN_EPOCHS)
+        diff = max(diff, max(abs(a - float(b[i])) for a, b in zip(ll, plosses)))
+    best = min(float(x.min()) for x in plosses)
+    _log(f"  (e) fit_population, 12 atoms, {POP_12} candidates, {TRAIN_EPOCHS} epochs: launches "
+         f"{plaunches}, {pop_ms / (TRAIN_EPOCHS + 1):.2f} ms an evaluation ({pop_ms:.1f} ms in "
+         f"all); each candidate's losses against a lone fit from it max|diff| {diff:.3e}; best "
+         f"loss {best!r}")
+    if diff > 1e-12:
+        raise RuntimeError(f"fit_population: a candidate's losses differ from its lone fit by "
+                           f"{diff:.3e}")
+    return {"epoch_ms": epoch_ms, "pop_eval_ms": pop_ms / (TRAIN_EPOCHS + 1)}
+
+
+def _duration_model(torch, device, **options):
+    """(f) ConstantPulse(dur[0], 2 rad/us, -2 rad/us, 0) on bench.py's 3x4
+    lattice at bench.py's sampling rate, the duration trainable from DUR0."""
+    from pulser_diff_torch import QuantumModel
+    from pulser_diff_torch.core import MockDevice, Pulse, Register, Sequence
+
+    coords = [(SPACING * (i % 4), SPACING * (i // 4)) for i in range(N_QUBITS)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    dur = seq.declare_variable("dur", dtype=int)
+    seq.add(Pulse.ConstantPulse(dur[0], 2.0, DET0, 0.0), "ryd")
+    return QuantumModel(seq, {"dur": np.array([DUR0])}, sampling_rate=SAMPLING_RATE,
+                        evaluation_times="Minimal", device=device, **options)
+
+
+def _duration_phase(torch, fe, device):
+    """(f) the duration gradient against the f64 stepper's: on the default
+    route (K1/K2), whose adjoint rebuilds each step's start state by
+    reverse-time steps on the mirror nodes, as the JAX package's lean
+    adjoint does, printed; with ckpt=True (K4/K5, the stored states) held
+    at the bars.  Then TRAIN_NOISY_EPOCHS epochs of fit on the default
+    route: the duration moves."""
+    def vag(m, want):
+        d = torch.tensor([DUR0], dtype=torch.float64, device=device, requires_grad=True)
+        _reset(fe)
+        value = m.expectation_fn()({"dur": d})[1][-1]
+        value.backward()
+        torch.cuda.synchronize()
+        if dict(fe.LAUNCHES) != want:
+            raise RuntimeError(f"duration step: launches {dict(fe.LAUNCHES)}, expected {want}")
+        return value.detach(), d.grad.detach()
+
+    model = _duration_model(torch, device)
+    value, grad = vag(model, K1K2)
+    v64, g64 = vag(_duration_model(torch, device, fused=False), NO_LAUNCH)
+    vc, gc = vag(_duration_model(torch, device, ckpt=True), K4K5)
+    _log(f"  (f) duration model: grid {model._t_max} ns, {DUR0} us; default route (K1/K2): "
+         f"value {float(value)!r}, d/d(dur) {float(grad[0])!r}; f64 {float(v64)!r}, "
+         f"{float(g64[0])!r}: |dv| {abs(float(value - v64)):.3e}, |dg| "
+         f"{abs(float(grad[0] - g64[0])):.3e} (the gradient: the mirror-node reconstruction of "
+         f"the lean adjoint at this sampling, not held; the value held at {VALUE_TOL:.0e})")
+    if abs(float(value - v64)) > VALUE_TOL:
+        raise RuntimeError(f"duration model: value vs f64 {abs(float(value - v64)):.3e}")
+    _hold_against_f64(torch, vc, gc, v64, g64, "duration model, ckpt=True (K4/K5)")
+    _reset(fe)
+    losses = model.fit(_train_loss, epochs=TRAIN_NOISY_EPOCHS)
+    launches = dict(fe.LAUNCHES)
+    moved = float(model.params["dur"].detach()[0]) - DUR0
+    _log(f"  (f) fit of the duration, {TRAIN_NOISY_EPOCHS} epochs: launches {launches}, losses "
+         f"{losses!r}, the duration moved {moved:+.6f} us")
+    if launches != _times(K1K2, TRAIN_NOISY_EPOCHS) or not abs(moved) > 0:
+        raise RuntimeError(f"duration fit: launches {launches}, moved {moved}")
+
+
+def _noisy_fit(torch, fe, device):
+    """(g) fit on the noisy 12-atom model: TRAIN_NOISY_EPOCHS epochs, one
+    drawn realization for all of them."""
+    from pulser_diff_torch import SimConfig
+
+    model, _ = _bench_model(torch, device, fused=None, noise_config=SimConfig(**TRAIN_NOISE))
+    model._default_substeps()
+    drawn = []
+    draw = model._draw
+    model._draw = lambda: drawn.append(1) or draw()
+    _reset(fe)
+    losses = model.fit(_train_loss, epochs=TRAIN_NOISY_EPOCHS)
+    launches = dict(fe.LAUNCHES)
+    _log(f"  (g) noisy fit, 12 atoms, {TRAIN_NOISY_EPOCHS} epochs: {len(drawn)} realization "
+         f"drawn, launches {launches}, losses {losses!r}")
+    if (len(drawn) != 1 or launches != _times(K1K2, TRAIN_NOISY_EPOCHS)
+            or not all(np.isfinite(losses))):
+        raise RuntimeError(f"noisy fit: {len(drawn)} draws, launches {launches}, losses {losses}")
+
+
+def _training_phase(torch, fe, device, p0, gen):
+    """Phase 14, training: (a) the noisy 12-atom model's value+grad (K1/K2
+    at 12 parts a side), (b) the noisy 16-atom model's (K4/K5 at 16), both
+    against the f64 stepper on the same draws; (c) synthetic 20 parts is
+    phase 11's, and here K2's cost of a second chunk; (d) fit, (e)
+    fit_population, (f) duration optimisation, (g) a noisy fit, all at 12
+    atoms."""
+    k2 = _noisy_step(torch, fe, device, 12, p0, gen, K1K2)
+    k5 = _noisy_step(torch, fe, device, 16, p0, gen, K4K5)
+    chunks = _chunk_cost(torch, fe, device, gen)
+    fit = _fit_phase(torch, fe, device, p0)
+    _duration_phase(torch, fe, device)
+    _noisy_fit(torch, fe, device)
+    return {"K2": k2, "K5": k5, "chunks": chunks, **fit}
+
+
 ME_DURATION = 400
 ME_PARAMS = 4
 ME_SPACING = 8.0
@@ -2016,6 +2346,14 @@ def main() -> int:
     mcwf = _mcwf_phase(torch, fe, device)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in {**me, **mcwf}.items()
                               if k.endswith("_ms")))
+    # 14. training: the noisy models' steps past 8 parts, fit, fit_population,
+    # durations, a noisy fit
+    _log("phase 14 training: noisy 12-atom (K1/K2) and 16-atom (K4/K5) value+grad vs f64 on "
+         "one draw; fit, fit_population, duration optimisation and a noisy fit at 12 atoms")
+    train = _training_phase(torch, fe, device, p0, gen)
+    _log(f"  fit {train['epoch_ms']:.2f} ms an epoch; fit_population {train['pop_eval_ms']:.2f} "
+         f"ms an evaluation; noisy steps {train['K2']['step_ms']:.2f} ms (12 atoms), "
+         f"{train['K5']['step_ms']:.2f} ms (16 atoms)")
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
@@ -2052,6 +2390,15 @@ def main() -> int:
         ("fused_bwd_ckpt_kernel (K5), 18 atoms fused=True", "fused_ckpt.cu", 1511, big["K5"]),
     ):
         kernels.append(entry(kname, src, replaces, e["launches"], e["err"], e["ms"],
+                             e["plain_ms"], e["bound"], e["by"]))
+    # the adjoints past 8 parts on the noisy models' steps (phase 14), their
+    # plain versions timed on the first PLAIN_STEPS steps
+    for kname, src, replaces, e in (
+        ("fused_bwd_kernel (K2), noisy 12 atoms", "fused_evolution.cu", 1026, train["K2"]),
+        ("fused_bwd_ckpt_kernel (K5), noisy 16 atoms", "fused_ckpt.cu", 1511, train["K5"]),
+    ):
+        kernels.append(entry(f"{kname}, pr = pc = {e['pr']} (plain_ms: first {PLAIN_STEPS} "
+                             "steps)", src, replaces, e["launches"], e["err"], e["ms"],
                              e["plain_ms"], e["bound"], e["by"]))
     # the noisy batch: the kernel on all R runs, its plain version timed on
     # the runs it was held against (named)

@@ -571,7 +571,7 @@ class TorchEmulator:
         if solver in self._PALLAS_METHODS or (
                 solver == SolverType.DP5_SE and fused is not False and self._fused_backend_ok()
                 and dim < self._FUSED_FWD_DIM_CAP):
-            check_parts(False, pr, pc)
+            check_parts(pr, pc)
             method = self._PALLAS_METHODS.get(solver, "DP5")
             shape = (int(self._initial_state.shape[1]), h.dim**h._a, h.dim**h._b, pr, pc, K,
                      _tableau(method)[2])

@@ -16,9 +16,11 @@
 // cotangent work) and takes a cotangent at every step.  The port also
 // routes here the shapes whose state K1/K2's clusters cannot hold (14 and
 // 15 atoms, state batches past nb = 2 at 12 atoms), and the noisy
-// Monte-Carlo batch from 14 atoms: its per-qubit build has 2 ceil(n / 2)
-// parts a side, which K4's assembly loops over (up to MAX_P_FWD = 32); K5
-// keeps MAX_P = 8 for its ZW cotangent partials a job.
+// Monte-Carlo batch from 14 atoms and a noisy model's gradient from 16
+// atoms: their per-qubit build has 2 ceil(n / 2) parts a side (16 at 16
+// atoms), which both kernels take up to MAX_PARTS = 32: K4's assembly loops
+// over any count, and K5's outer-product jobs reduce the parts in chunks of
+// P_CHUNK = 8 (ZW register partials a thread, one chunk at most 8 parts).
 //
 // What bounds them on this card.  At 16 atoms (da = db = 256, nb = 1) one
 // application of -iH is 8 real 256 x 256 x 256 products, 268 MFLOP.  The
@@ -96,8 +98,8 @@
 #include <stdint.h>
 
 #define MAX_S 7
-#define MAX_P 8             // K5's row / column parts per side (its ZW cotangent partials)
-#define MAX_P_FWD 32        // K4's: assemble_all loops over any count (18 at 18 atoms all local)
+#define MAX_PARTS 32        // row / column parts a side (18 at 18 atoms all local)
+#define P_CHUNK 8           // K5's parts per chunk of an outer-product job's reduction
 #define MAX_K 32            // kron pairs
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
@@ -108,7 +110,7 @@
 #define TN_MAX 16
 #define A_LD 36             // padded k-major rows in shared memory (16-byte multiples)
 #define B_LD 20
-#define ZW (2 * MAX_P)      // cotangent partials per job
+#define ZW (2 * P_CHUNK)    // cotangent partials per job and chunk
 
 struct Tab {
     int S;
@@ -119,6 +121,13 @@ struct Tab {
 struct Geo {
     int R, n_steps, nb, da, db, pr, pc;
 };
+
+// the width of a K5 outer-product job's row of partials: ZW a chunk of
+// P_CHUNK parts (ZW at most P_CHUNK parts a side)
+__host__ __device__ inline int zrow(const Geo& g) {
+    const int p = g.pr > g.pc ? g.pr : g.pc;
+    return ZW * ((p + P_CHUNK - 1) / P_CHUNK);
+}
 
 // read-only inputs
 struct In {
@@ -1048,7 +1057,7 @@ struct BwdLayout {  // float offsets inside one run's scratch (32 bits, as FwdLa
     unsigned q;       // kron pairs: h's side and diagonal terms
     unsigned sides;   // S + 1 sides: stage s at s, stage 0 of odd steps at S
     unsigned dacc;    // dbar accumulator (da, db)
-    unsigned zp;      // outer-product partials, S x n_out x ZW
+    unsigned zp;      // outer-product partials, S x n_out x zrow (room for 2 MAX_PARTS)
     unsigned kt;      // kron R-side products, 4 K N
     unsigned kf[2];   // the cotangent fields B1, B2, D1, D2 of gv[.], 4 K N each
     unsigned kmp;     // B1 C, D1 C, u_x C, u_y C, R u_x, R u_y, R B2, R D2, 8 K N
@@ -1077,14 +1086,14 @@ __host__ __device__ inline BwdLayout bwd_layout(int S, int nb, int da, int db, i
     L.sides = L.q + 2 * N;
     L.dacc = L.sides + (size_t)(S + 1) * L.side_sz;
     L.zp = L.dacc + M;
-    L.kt = L.zp + (size_t)S * L.n_out * ZW;
+    L.kt = L.zp + (size_t)S * L.n_out * 2 * MAX_PARTS;
     L.kf[0] = L.kt + 4 * (size_t)K * N;
     L.kf[1] = L.kf[0] + 4 * (size_t)K * N;
     L.kmp = L.kf[1] + 4 * (size_t)K * N;
     L.zkp = L.kmp + 8 * (size_t)K * N;
     // the same sum in 64 bits (the launch checks it against 2^32)
     L.per_run = (size_t)(8 * S + 12) * N + (size_t)(S + 1) * side_floats(da, db) + M
-                + (size_t)S * L.n_out * ZW + 20 * (size_t)K * N + (size_t)S * L.n_tiles * K * 2;
+                + (size_t)S * L.n_out * 2 * MAX_PARTS + 20 * (size_t)K * N + (size_t)S * L.n_tiles * K * 2;
     return L;
 }
 
@@ -1264,7 +1273,7 @@ __device__ __forceinline__ void bwd_rev_end(const BwdCtx& c, float* run, int r, 
 //   W = sum_b g_x u_y^T - g_y u_x^T,  V = sum_b g_x u_x^T + g_y u_y^T  (da, da; jobs < n_or)
 //   Wc = sum_b u_y^T g_x - u_x^T g_y,  Vc = sum_b u_x^T g_x + u_y^T g_y  (db, db)
 // (K2's forms), reduced against the part stacks to (<Sym_p, W>, <Asym_p, V>)_p
-// or (<Sym_p, Wc>, -<Asym_p, Vc>)_p in one row of ZW at zp.
+// or (<Sym_p, Wc>, -<Asym_p, Vc>)_p in one row of zrow(g) at zp.
 template <int RM, int RN>
 __device__ __noinline__ void outer_job(BlockSmem& sm, const BwdCtx& c, int r, int jj, float* zp) {
     constexpr int TM = 16 * RM, TN = 8 * RN;
@@ -1304,27 +1313,38 @@ __device__ __noinline__ void outer_job(BlockSmem& sm, const BwdCtx& c, int r, in
                 v[r2][c2] = v[r2][c2] + (p[0][r2][c2] + p[1][r2][c2]);
             }
     }
-    float acc[ZW] = {};
+    // the parts in chunks of P_CHUNK, each reduced to its own ZW columns of
+    // the job's row (one chunk at most P_CHUNK parts)
+    const int n_parts = rows ? g.pr : g.pc;
+    const size_t nn = (size_t)n * n;
+    for (int c0 = 0; c0 < n_parts; c0 += P_CHUNK) {
+        // the chunk's parts: np of them, from the stacks at part c0
+        const int np = n_parts - c0;
+        const float *rsym = c.in.rsym + c0 * nn, *rasym = c.in.rasym + c0 * nn;
+        const float *csym = c.in.csym + c0 * nn, *casym = c.in.casym + c0 * nn;
+        float acc[ZW] = {};
 #pragma unroll
-    for (int r2 = 0; r2 < RM; ++r2)
+        for (int r2 = 0; r2 < RM; ++r2)
 #pragma unroll
-        for (int c2 = 0; c2 < RN; ++c2) {
-            const int i = i0 + tile_row<RM, RN>(r2), j = j0 + tile_col<RM, RN>(c2);
-            if (i >= n || j >= n) continue;
-            const size_t qd = (size_t)i * n + j, nn = (size_t)n * n;
+            for (int c2 = 0; c2 < RN; ++c2) {
+                const int i = i0 + tile_row<RM, RN>(r2), j = j0 + tile_col<RM, RN>(c2);
+                if (i >= n || j >= n) continue;
+                const size_t qd = (size_t)i * n + j;
 #pragma unroll
-            for (int pp = 0; pp < MAX_P; ++pp) {
-                if (rows && pp < g.pr) {
-                    acc[2 * pp] = acc[2 * pp] + c.in.rsym[pp * nn + qd] * w[r2][c2];
-                    acc[2 * pp + 1] = acc[2 * pp + 1] + c.in.rasym[pp * nn + qd] * v[r2][c2];
-                }
-                if (!rows && pp < g.pc) {
-                    acc[2 * pp] = acc[2 * pp] + c.in.csym[pp * nn + qd] * w[r2][c2];
-                    acc[2 * pp + 1] = acc[2 * pp + 1] - c.in.casym[pp * nn + qd] * v[r2][c2];
+                for (int pp = 0; pp < P_CHUNK; ++pp) {
+                    if (rows && pp < np) {
+                        acc[2 * pp] = acc[2 * pp] + rsym[pp * nn + qd] * w[r2][c2];
+                        acc[2 * pp + 1] = acc[2 * pp + 1] + rasym[pp * nn + qd] * v[r2][c2];
+                    }
+                    if (!rows && pp < np) {
+                        acc[2 * pp] = acc[2 * pp] + csym[pp * nn + qd] * w[r2][c2];
+                        acc[2 * pp + 1] = acc[2 * pp + 1] - casym[pp * nn + qd] * v[r2][c2];
+                    }
                 }
             }
-        }
-    block_reduce(sm, acc, rows ? 2 * g.pr : 2 * g.pc, zp + (size_t)jj * ZW, false);
+        block_reduce(sm, acc, 2 * np < ZW ? 2 * np : ZW, zp + (size_t)jj * zrow(g) + 2 * c0,
+                     false);
+    }
 }
 
 // One job of the part-matrix cotangents' first products (stage s): over
@@ -1502,7 +1522,7 @@ __device__ __noinline__ void bwd_phase_a(BlockSmem& sm, const BwdCtx& c, bool re
             }
             j -= n_mat;
         }
-        outer_job<RM, RN>(sm, c, r, j, run + c.L.zp + (size_t)c.s * c.L.n_out * ZW);
+        outer_job<RM, RN>(sm, c, r, j, run + c.L.zp + (size_t)c.s * c.L.n_out * zrow(g));
     }
 }
 
@@ -1582,12 +1602,13 @@ __device__ __noinline__ void reduce_zbar(const Geo& g, int S, int K, const BwdLa
         const int rem = (int)(idx - (size_t)r * S * nrow);
         const int s = rem / nrow, q = rem % nrow;
         const float* run = scratch + (size_t)r * L.per_run;
-        const float* zp = run + L.zp + (size_t)s * L.n_out * ZW;
+        const int zr = zrow(g);
+        const float* zp = run + L.zp + (size_t)s * L.n_out * zr;
         float v = 0.f;
         if (q < 2 * g.pr) {
-            for (int t = 0; t < n_or; ++t) v += zp[(size_t)t * ZW + q];
+            for (int t = 0; t < n_or; ++t) v += zp[(size_t)t * zr + q];
         } else if (q < 2 * g.pr + 2 * g.pc) {
-            for (int t = 0; t < n_oc; ++t) v += zp[(size_t)(n_or + t) * ZW + (q - 2 * g.pr)];
+            for (int t = 0; t < n_oc; ++t) v += zp[(size_t)(n_or + t) * zr + (q - 2 * g.pr)];
         } else {
             const int kq = q - 2 * g.pr - 2 * g.pc;
             const float* zk = run + L.zkp + (size_t)s * L.n_tiles * K * 2 + kq;
@@ -1804,7 +1825,7 @@ extern "C" int pdt_ckpt_fwd(const float* const* in_ptrs, const float* const* kro
                             const double* a, const int* bnz, void* stream) {
     Tab tab;
     if (make_tab(&tab, S, a, bnz)) return -1;
-    if (pr > MAX_P_FWD || pc > MAX_P_FWD) return -2;
+    if (pr > MAX_PARTS || pc > MAX_PARTS) return -2;
     if (K < 0 || K > MAX_K) return -4;
     if (fwd_layout(S, nb, da, db, K).per_run > 0xffffffffu) return -8;
     Plan plan;
@@ -1830,7 +1851,7 @@ extern "C" int pdt_ckpt_bwd(const float* const* in_ptrs, const float* const* kro
                             const double* a, const int* bnz, void* stream) {
     Tab tab;
     if (make_tab(&tab, S, a, bnz)) return -1;
-    if (pr > MAX_P || pc > MAX_P) return -2;
+    if (pr > MAX_PARTS || pc > MAX_PARTS) return -2;
     if (K < 0 || K > MAX_K) return -4;
     if (bwd_layout(S, nb, da, db, K).per_run > 0xffffffffu) return -8;
     Plan plan;

@@ -45,11 +45,14 @@
 //     per stage.
 //   - The stage's stream words (hi and lo, 4 (pr + pc) floats) are copied
 //     to shared memory once by the block and read as broadcasts while the
-//     parts are summed in ascending p: K1 takes up to MAX_P_FWD = 32 parts
-//     a side (a per-qubit noisy build has 2 ceil(n / 2), 12 at 12 atoms,
-//     in the same order and rounding at any count), K2 keeps MAX_P = 8 for
-//     its register partials.  At 12 parts a stage reads 12 + 12 part
-//     matrices from L2 against 2 + 2 for a global channel.
+//     parts are summed in ascending p: both kernels take up to MAX_PARTS =
+//     32 parts a side (a per-qubit noisy build has 2 ceil(n / 2), 12 at 12
+//     atoms, in the same order and rounding at any count).  At 12 parts a
+//     stage reads 12 + 12 part matrices from L2 against 2 + 2 for a global
+//     channel.  K2's stream cotangents take the parts in chunks of P_CHUNK
+//     = 8, one set of 2 P_CHUNK register partials a thread, and recompute
+//     their outer products for each chunk: at most 8 parts (a global
+//     channel) keep one chunk and the arithmetic of the 8-part form.
 //   - Kron pairs: per term, R_k's rows and columns (for R u and R^T u) and
 //     C_k (padded) are staged in shared memory; the products of the
 //     block's rows (T = R u, then T C^T or T C) stay in shared memory.
@@ -87,8 +90,8 @@
 namespace cg = cooperative_groups;
 
 #define MAX_S 7
-#define MAX_P 8       // K2's row / column parts per side (its 2 MAX_P cotangent partials)
-#define MAX_P_FWD 32  // K1's: a per-qubit (all-local) build has 2 ceil(n / 2), 18 at 18 atoms
+#define MAX_PARTS 32  // parts a side: a per-qubit (all-local) build has 2 ceil(n / 2), 18 at 18 atoms
+#define P_CHUNK 8     // K2's parts per chunk of its stream cotangents (2 P_CHUNK register partials)
 #define MAX_K 32  // kron pairs (12 atoms XY: 8; an SLM-masked 16-atom XY sequence: 20)
 #define MAX_C 16  // blocks in a cluster (above 8 only as a non-portable size)
 #define NTHREADS 256
@@ -267,7 +270,7 @@ __device__ __forceinline__ void assemble_side(float* ore, float* oim, const floa
 // folded in before the final rounding), for the block's rows; Hcol likewise,
 // whole, stored as H^T: gre = re, gim = -im.  mirror: hi word of the mirror
 // streams only.  The block first copies the stage's 4 (pr + pc) stream words
-// to shared memory, once (any part count up to MAX_P_FWD); the caller has
+// to shared memory, once (any part count up to MAX_PARTS); the caller has
 // synchronised the block since the previous stage's reads.
 __device__ void assemble(const Smem& sh, const Parts& pt, const float* const* z, bool two_word,
                          const Geo& g, int S, int r, int k, int s, int r0) {
@@ -817,94 +820,107 @@ __device__ __forceinline__ void outer4(const Mat& Ax, const Mat& Ay, const Mat& 
 // (the column side is stored transposed, and P^T - P = -Asym).  The block
 // takes W's and V's columns of its rows (every row of g against its rows of
 // u) and the terms of Wc and Vc from its rows; the warp partials go to
-// red[., 0 .. 2pr + 2pc).
+// red[., 0 .. 2pr + 2pc).  The parts go in chunks of P_CHUNK, each over the
+// whole tile loop with its own 2 P_CHUNK register partials (a thread's tiles
+// are summed before its warp's), so each chunk recomputes W and V; with at
+// most P_CHUNK parts there is one chunk.
 __device__ void side_cotangents(const Smem& sh, const Geo& g, int r0, const Parts& pt,
                                 const float* us, int nrow) {
     const int da = g.da, db = g.db, rpb = g.rpb, ldu = db + 1;
     const size_t slab = slab_floats(g.nb, rpb, db);
-    float acc[2 * MAX_P] = {};
     const Tiles tr = tiles(da, rpb);
-    for (int t = threadIdx.x; t < tr.count; t += blockDim.x) {
-        int ii[TI], jj[TJ];
-        tile_at(tr, t, da, rpb, ii, jj);
-        float w[TI][TJ] = {}, v[TI][TJ] = {};
-        for (int b = 0; b < g.nb; ++b) {
-            const Mat gx = {sh.fx + (size_t)b * da * ldu, ldu, 1};
-            const Mat gy = {sh.fy + (size_t)b * da * ldu, ldu, 1};
-            const Mat ux = {us + (size_t)b * rpb * db, 1, db};
-            const Mat uy = {us + slab + (size_t)b * rpb * db, 1, db};
-            Outer o;
-            outer4(gx, gy, ux, uy, db, ii, jj, o);
+    for (int c0 = 0; c0 < g.pr; c0 += P_CHUNK) {
+        // the chunk's parts: np of them from rs / ra
+        const int np = g.pr - c0;
+        const float* rs = pt.rsym + (size_t)c0 * da * da;
+        const float* ra = pt.rasym + (size_t)c0 * da * da;
+        float acc[2 * P_CHUNK] = {};
+        for (int t = threadIdx.x; t < tr.count; t += blockDim.x) {
+            int ii[TI], jj[TJ];
+            tile_at(tr, t, da, rpb, ii, jj);
+            float w[TI][TJ] = {}, v[TI][TJ] = {};
+            for (int b = 0; b < g.nb; ++b) {
+                const Mat gx = {sh.fx + (size_t)b * da * ldu, ldu, 1};
+                const Mat gy = {sh.fy + (size_t)b * da * ldu, ldu, 1};
+                const Mat ux = {us + (size_t)b * rpb * db, 1, db};
+                const Mat uy = {us + slab + (size_t)b * rpb * db, 1, db};
+                Outer o;
+                outer4(gx, gy, ux, uy, db, ii, jj, o);
+#pragma unroll
+                for (int a = 0; a < TI; ++a) {
+#pragma unroll
+                    for (int c = 0; c < TJ; ++c) {
+                        w[a][c] = w[a][c] + (o.xy[a][c] - o.yx[a][c]);
+                        v[a][c] = v[a][c] + (o.xx[a][c] + o.yy[a][c]);
+                    }
+                }
+            }
 #pragma unroll
             for (int a = 0; a < TI; ++a) {
 #pragma unroll
                 for (int c = 0; c < TJ; ++c) {
-                    w[a][c] = w[a][c] + (o.xy[a][c] - o.yx[a][c]);
-                    v[a][c] = v[a][c] + (o.xx[a][c] + o.yy[a][c]);
-                }
-            }
-        }
+                    if (!tile_in(tr, t, a, c, da, rpb)) continue;
+                    const size_t q = (size_t)ii[a] * da + r0 + jj[c];
 #pragma unroll
-        for (int a = 0; a < TI; ++a) {
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) {
-                if (!tile_in(tr, t, a, c, da, rpb)) continue;
-                const size_t q = (size_t)ii[a] * da + r0 + jj[c];
-#pragma unroll
-                for (int p = 0; p < MAX_P; ++p) {
-                    if (p < g.pr) {
-                        acc[2 * p] = acc[2 * p] + pt.rsym[(size_t)p * da * da + q] * w[a][c];
-                        acc[2 * p + 1] = acc[2 * p + 1] + pt.rasym[(size_t)p * da * da + q] * v[a][c];
+                    for (int p = 0; p < P_CHUNK; ++p) {
+                        if (p < np) {
+                            acc[2 * p] = acc[2 * p] + rs[(size_t)p * da * da + q] * w[a][c];
+                            acc[2 * p + 1] = acc[2 * p + 1] + ra[(size_t)p * da * da + q] * v[a][c];
+                        }
                     }
                 }
             }
         }
+#pragma unroll
+        for (int q = 0; q < 2 * P_CHUNK; ++q)
+            if (q < 2 * np) warp_put(acc[q], sh.red, nrow, 2 * c0 + q);
     }
-#pragma unroll
-    for (int q = 0; q < 2 * MAX_P; ++q)
-        if (q < 2 * g.pr) warp_put(acc[q], sh.red, nrow, q);
-#pragma unroll
-    for (int q = 0; q < 2 * MAX_P; ++q) acc[q] = 0.f;
     const Tiles tc = tiles(db, db);
-    for (int t = threadIdx.x; t < tc.count; t += blockDim.x) {
-        int ii[TI], jj[TJ];
-        tile_at(tc, t, db, db, ii, jj);
-        float w[TI][TJ] = {}, v[TI][TJ] = {};
-        for (int b = 0; b < g.nb; ++b) {
-            const Mat ux = {us + (size_t)b * rpb * db, 1, db};
-            const Mat uy = {us + slab + (size_t)b * rpb * db, 1, db};
-            const Mat gx = {sh.fx + (size_t)(b * da + r0) * ldu, ldu, 1};
-            const Mat gy = {sh.fy + (size_t)(b * da + r0) * ldu, ldu, 1};
-            Outer o;
-            outer4(ux, uy, gx, gy, rpb, ii, jj, o);
+    for (int c0 = 0; c0 < g.pc; c0 += P_CHUNK) {
+        const int np = g.pc - c0;
+        const float* cs = pt.csym + (size_t)c0 * db * db;
+        const float* ca = pt.casym + (size_t)c0 * db * db;
+        float acc[2 * P_CHUNK] = {};
+        for (int t = threadIdx.x; t < tc.count; t += blockDim.x) {
+            int ii[TI], jj[TJ];
+            tile_at(tc, t, db, db, ii, jj);
+            float w[TI][TJ] = {}, v[TI][TJ] = {};
+            for (int b = 0; b < g.nb; ++b) {
+                const Mat ux = {us + (size_t)b * rpb * db, 1, db};
+                const Mat uy = {us + slab + (size_t)b * rpb * db, 1, db};
+                const Mat gx = {sh.fx + (size_t)(b * da + r0) * ldu, ldu, 1};
+                const Mat gy = {sh.fy + (size_t)(b * da + r0) * ldu, ldu, 1};
+                Outer o;
+                outer4(ux, uy, gx, gy, rpb, ii, jj, o);
+#pragma unroll
+                for (int a = 0; a < TI; ++a) {
+#pragma unroll
+                    for (int c = 0; c < TJ; ++c) {
+                        w[a][c] = w[a][c] + (o.yx[a][c] - o.xy[a][c]);
+                        v[a][c] = v[a][c] + (o.xx[a][c] + o.yy[a][c]);
+                    }
+                }
+            }
 #pragma unroll
             for (int a = 0; a < TI; ++a) {
 #pragma unroll
                 for (int c = 0; c < TJ; ++c) {
-                    w[a][c] = w[a][c] + (o.yx[a][c] - o.xy[a][c]);
-                    v[a][c] = v[a][c] + (o.xx[a][c] + o.yy[a][c]);
-                }
-            }
-        }
+                    if (!tile_in(tc, t, a, c, db, db)) continue;
+                    const size_t q = (size_t)ii[a] * db + jj[c];
 #pragma unroll
-        for (int a = 0; a < TI; ++a) {
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) {
-                if (!tile_in(tc, t, a, c, db, db)) continue;
-                const size_t q = (size_t)ii[a] * db + jj[c];
-#pragma unroll
-                for (int p = 0; p < MAX_P; ++p) {
-                    if (p < g.pc) {
-                        acc[2 * p] = acc[2 * p] + pt.csym[(size_t)p * db * db + q] * w[a][c];
-                        acc[2 * p + 1] = acc[2 * p + 1] - pt.casym[(size_t)p * db * db + q] * v[a][c];
+                    for (int p = 0; p < P_CHUNK; ++p) {
+                        if (p < np) {
+                            acc[2 * p] = acc[2 * p] + cs[(size_t)p * db * db + q] * w[a][c];
+                            acc[2 * p + 1] = acc[2 * p + 1] - ca[(size_t)p * db * db + q] * v[a][c];
+                        }
                     }
                 }
             }
         }
-    }
 #pragma unroll
-    for (int q = 0; q < 2 * MAX_P; ++q)
-        if (q < 2 * g.pc) warp_put(acc[q], sh.red, nrow, 2 * g.pr + q);
+        for (int q = 0; q < 2 * P_CHUNK; ++q)
+            if (q < 2 * np) warp_put(acc[q], sh.red, nrow, 2 * g.pr + 2 * c0 + q);
+    }
 }
 
 // The part-matrix cotangents of one stage (_kron_matrix_cotangents), from
@@ -1336,11 +1352,9 @@ static int launch_clusters(void (*kern)(Params...), int R, int C, size_t smem, v
     return (int)cudaGetLastError();
 }
 
-// max_p: MAX_P_FWD for K1, MAX_P for K2
-static int check_shape(int S, const double* a, const int* bnz, int pr, int pc, int K, Tab* tab,
-                       int max_p) {
+static int check_shape(int S, const double* a, const int* bnz, int pr, int pc, int K, Tab* tab) {
     if (make_tab(tab, S, a, bnz)) return -1;
-    if (pr > max_p || pc > max_p) return -2;
+    if (pr > MAX_PARTS || pc > MAX_PARTS) return -2;
     if (K < 0 || K > MAX_K) return -4;
     return 0;
 }
@@ -1357,7 +1371,7 @@ extern "C" int pdt_fused_fwd(const float* psi_re, const float* psi_im,
                              int n_eval, int S, const double* a, const int* bnz, int C,
                              void* stream) {
     Tab tab;
-    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab, MAX_P_FWD);
+    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab);
     if (bad) return bad;
     if (plan_ok(0, nb, da, db, pr, pc, K, S, C)) return -6;
     const size_t smem = pdt_fused_smem_bytes(0, nb, da, db, pr, pc, K, S, C);
@@ -1386,7 +1400,7 @@ extern "C" int pdt_fused_bwd(const float* st_re, const float* st_im,
                              int n_eval, int last_slot, int S, const double* a, const int* bnz,
                              int C, void* stream) {
     Tab tab;
-    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab, MAX_P);
+    const int bad = check_shape(S, a, bnz, pr, pc, K, &tab);
     if (bad) return bad;
     if (plan_ok(1, nb, da, db, pr, pc, K, S, C)) return -6;
     const size_t smem = pdt_fused_smem_bytes(1, nb, da, db, pr, pc, K, S, C);

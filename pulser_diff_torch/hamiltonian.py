@@ -258,10 +258,11 @@ class Hamiltonian:
     def config(self) -> NoiseModel:
         return self._config
 
-    def set_config(self, cfg: NoiseModel) -> None:
+    def set_config(self, cfg: NoiseModel, draws: Optional[NoiseDraws] = None) -> None:
         """Take a noise model and build the Hamiltonian of one draw from it
         (the noiseless one without stochastic noise), as the JAX package
-        does."""
+        does; ``draws`` gives the realization instead of a fresh draw (a
+        model's pinned one).  The realization stays in ``draws``."""
         if not isinstance(cfg, NoiseModel):
             raise ValueError(f"Object {cfg} is not a valid `NoiseModel`.")
         not_supported = set(cfg.noise_types) - SUPPORTED_NOISES[self._interaction]
@@ -277,7 +278,11 @@ class Hamiltonian:
         self._collapse_ops = collapse_operators(cfg, self.basis_name, self._basis_labels,
                                                 self._size, self.torch_device)
         self._config = cfg
-        self._ham_data = self.build_data(self._update_noise())
+        self.draws = self._update_noise() if draws is None else draws
+        qids = list(self._qid_index)
+        self._bad_atoms = dict(zip(qids, (self.draws.bad_atoms > 0.5).tolist()))
+        self._doppler_detune = dict(zip(qids, self.draws.doppler.tolist()))
+        self._ham_data = self.build_data(self.draws)
 
     def _count_noise_slots(self) -> int:
         return sum(len(cs.slots) for cs in self.samples_obj.channel_samples.values())
@@ -292,9 +297,6 @@ class Hamiltonian:
         if not ("SPAM" in self._config.noise_types
                 and host_float(self._config.state_prep_error) > 0):
             draws = draws._replace(bad_atoms=torch.zeros_like(draws.bad_atoms))
-        qids = list(self._qid_index)
-        self._bad_atoms = dict(zip(qids, (draws.bad_atoms > 0.5).tolist()))
-        self._doppler_detune = dict(zip(qids, draws.doppler.tolist()))
         return draws
 
     def _extract_samples(self, draws: NoiseDraws) -> dict:

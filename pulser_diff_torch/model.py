@@ -13,31 +13,52 @@ reaches them through the interaction weights.  ``expectation_population_fn``
 evaluates a stack of P candidate parameter sets: on CUDA below the fused
 cap in one launch of the fused kernels, the candidates on their runs axis.
 
+A pulse whose duration is a sequence variable makes the durations
+trainable, as in the JAX package: every pulse (constant waveforms only)
+becomes a tanh-edged boxcar (``waveform_funcs.constant_waveform``) on a
+grid padded to 64 ns (``_pad_duration``), so the duration is a smooth
+parameter and a small update keeps the shapes.
+
+``fit`` and ``fit_population`` train with ``torch.optim`` (Adam at lr
+1e-2 by default, optax's default in the JAX package), clamping the
+``constraints`` after every update (``check_constraints``).
+
 A ``noise_config`` with a Lindblad noise (dephasing, relaxation,
 depolarizing, eff_noise) reroutes the solve to ``DP5_ME``, as the JAX
 package does, so ``expectation_fn`` differentiates through ``mesolve``
 (noise rates given as tensors included); ``expectation_mcwf_fn``
-differentiates quantum-jump trajectories at fixed draws.
-
-The constructor takes the JAX package's parameters in its order.
-Duration optimisation, stochastic noise without a Lindblad noise
-(``noise_config``: ROADMAP queue 1 item 11), ``constraints`` and ``fit``
-are later slices: they raise NotImplementedError.
+differentiates quantum-jump trajectories at fixed draws.  Stochastic
+noise (doppler, amplitude, SPAM) builds the Hamiltonian of one drawn
+realization, all local (2 ceil(n / 2) parts a side), and differentiates
+it through the fused kernels, which take up to 32 parts.  The draw rules
+are the JAX package's, where the draw is a constant of each traced
+program: an eager ``expectation_fn`` call draws anew; ``fit`` trains on
+one realization (one per chunk length with ``steps_per_call``, one
+compiled program each there); the candidates of a population share one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional
+import math
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Mapping, Optional, Union
+from uuid import uuid4
 
+import numpy as np
 import torch
 from torch import nn
 
 from pulser_diff_torch.backend import _LINDBLAD_NOISES, TorchEmulator, check_options
 from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
+from pulser_diff_torch.core.channels import Rydberg
 from pulser_diff_torch.core.register import Register
+from pulser_diff_torch.core.sampler import ChannelSamples, SequenceSamples, _PulseTargetSlot
 from pulser_diff_torch.core.sequence import Sequence
-from pulser_diff_torch.core.variables import Expr
+from pulser_diff_torch.core.variables import Variable, VariableItem
+from pulser_diff_torch.core.waveforms import ConstantWaveform
+from pulser_diff_torch.hamiltonian import NoiseDraws
 from pulser_diff_torch.ops.fused_evolution import evolve_mc
 from pulser_diff_torch.ops.linalg import expect as _expect
 from pulser_diff_torch.ops.linalg import total_magnetization
@@ -46,6 +67,31 @@ from pulser_diff_torch.simresults import CoherentResults
 from pulser_diff_torch.solvers import SolverType, TimeGrid, mcsolve
 from pulser_diff_torch.solvers.mcwf import Uniforms
 from pulser_diff_torch.solvers.solver import ME_SOLVERS
+from pulser_diff_torch.waveform_funcs import constant_waveform
+
+# the noises whose draw enters the Hamiltonian (a realization per build)
+_STOCHASTIC_NOISES = {"SPAM", "doppler", "amplitude"}
+
+
+@dataclass
+class Parameter:
+    """Bookkeeping record for one model parameter."""
+
+    name: str
+    value: Union[int, float, torch.Tensor, None] = None
+    trainable: bool = False
+    type: str = ""
+
+
+def _pad_duration(total_ns: int, chunk: int = 64) -> int:
+    """Round the optimisation grid up to a chunk multiple, so that small
+    duration updates keep the shapes."""
+    return int(np.ceil(total_ns / chunk) * chunk)
+
+
+def _adam(tensors: list) -> torch.optim.Optimizer:
+    """The default optimiser: Adam at lr 1e-2 (optax.adam(1e-2)'s update)."""
+    return torch.optim.Adam(tensors, lr=1e-2)
 
 
 class QuantumModel(nn.Module):
@@ -66,17 +112,6 @@ class QuantumModel(nn.Module):
         **options: Any,
     ) -> None:
         super().__init__()
-        if constraints:
-            raise NotImplementedError(
-                "Parameter constraints come with the training API (fit, "
-                "check_constraints), which is not ported yet (ROADMAP queue 1 item 6).")
-        if noise_config is not None and noise_config.noise and not (
-                set(noise_config.noise) & _LINDBLAD_NOISES):
-            raise NotImplementedError(
-                f"A model with noise {tuple(noise_config.noise)} and no Lindblad noise is not "
-                "ported yet: its gradient runs through a per-qubit Hamiltonian, which needs "
-                "the adjoint kernels K2/K5 past 8 parts (ROADMAP queue 1 item 11). "
-                "TorchEmulator.run() runs the noisy simulation.")
         check_options(options, "QuantumModel")
         self.torch_device = resolve_device(device)
         trainable_param_values = dict(trainable_param_values or {})
@@ -93,10 +128,9 @@ class QuantumModel(nn.Module):
         self._substeps_cache: Optional[int] = None
         self._seq = seq
         self.register = seq.register
-
-        for call in seq._to_build_calls:
-            if call.name == "add" and isinstance(call.args[0].amplitude._duration, Expr):
-                raise NotImplementedError("Pulse-duration optimisation is not ported yet.")
+        # the pinned noise realization every emulator is built from (None:
+        # each build draws its own)
+        self._draws: Optional[NoiseDraws] = None
 
         # custom-waveform callables: (params, fn)
         self.callables: dict[str, Callable] = {
@@ -105,6 +139,8 @@ class QuantumModel(nn.Module):
             if isinstance(v, tuple) and len(v) == 2 and callable(v[1])
         }
         callable_params = {n: trainable_param_values.pop(n)[0] for n in self.callables}
+
+        self.seq_abs_repr, self.optimize_duration, self.seq_params = self._get_abstract_repr(seq)
 
         self.params = nn.ParameterDict()
         declared = set(seq.declared_variables)
@@ -119,14 +155,24 @@ class QuantumModel(nn.Module):
                     f"'{name}' is neither a declared sequence variable nor a register qubit id."
                 )
             self.params[name] = nn.Parameter(self._tensor(val))
+        for name, rec in self.seq_params.items():
+            if rec.trainable and name not in self.params and name not in self.callables:
+                raise ValueError(f"No value for trainable sequence parameter {name} is given.")
         for name, ptuple in callable_params.items():
             for i, v in enumerate(ptuple):
                 self.params[f"{name}_{i}"] = nn.Parameter(self._tensor(v))
 
+        # the static grid of duration optimisation
+        if self.optimize_duration:
+            self._t_max = _pad_duration(self._get_total_duration(self.params))
+        self.update_sequence()
+
     def _tensor(self, v: Any) -> torch.Tensor:
+        """A copy of ``v`` on the module's device (training updates it in
+        place, so it never shares the caller's memory)."""
         if isinstance(v, torch.Tensor):
-            return v.detach().to(dtype=DTYPE, device=self.torch_device).clone()
-        return torch.as_tensor(v, dtype=DTYPE, device=self.torch_device)
+            v = v.detach()
+        return torch.as_tensor(v, dtype=DTYPE, device=self.torch_device).clone()
 
     # ------------------------------------------------------------------
     def _build_values(self, params: Mapping[str, Any]) -> dict[str, Any]:
@@ -161,18 +207,149 @@ class QuantumModel(nn.Module):
         new._to_build_calls = list(self._seq._to_build_calls)
         return new
 
-    def _make_emulator(self, params: Mapping[str, Any]) -> TorchEmulator:
-        seq = self._seq
-        if self.trainable_qubits:
-            seq = self._clone_with_register(self._construct_register(params))
-        built = seq.build(**self._build_values(params)) if seq.is_parametrized() else seq
-        sim = TorchEmulator.from_sequence(
-            built,
-            sampling_rate=self.sampling_rate,
-            config=self.noise_config,
-            evaluation_times=self.evaluation_times,
-            device=self.torch_device,
+    # ------------------------------------------------------------------
+    # abstract representation and duration optimisation
+    # ------------------------------------------------------------------
+    def _get_abstract_repr(self, seq: Sequence) -> tuple[list[dict], bool, dict[str, Parameter]]:
+        """Each pulse's duration (under duration optimisation), amplitude,
+        detuning and phase as Parameter records; whether a duration is a
+        variable; the records by name."""
+        pulses = [call.args[0] for call in list(seq._calls) + list(seq._to_build_calls)
+                  if call.name == "add"]
+        optimize_duration = any(
+            isinstance(p.amplitude._duration, (Variable, VariableItem)) for p in pulses)
+        params: dict[str, Parameter] = {}
+
+        def _record(value: Any, kind: str) -> Parameter:
+            if isinstance(value, (Variable, VariableItem)):
+                rec = Parameter(value.var.name, trainable=True, type=kind)
+            else:
+                rec = Parameter(f"{kind[:4]}_var_{uuid4()}", value=value, trainable=False,
+                                type=kind)
+            params[rec.name] = rec
+            return rec
+
+        abs_repr = []
+        for p in pulses:
+            rec: dict[str, Any] = {}
+            dur = p.amplitude._duration
+            if optimize_duration:
+                if isinstance(dur, (Variable, VariableItem)):
+                    d_rec = Parameter(dur.var.name, trainable=True, type="duration")
+                else:  # ns -> us
+                    d_rec = Parameter(f"dur_var_{uuid4()}", value=float(dur) / 1000,
+                                      trainable=False, type="duration")
+                params[d_rec.name] = d_rec
+                rec["duration"] = d_rec
+            for key, wf in (("amplitude", p.amplitude), ("detuning", p.detuning)):
+                if isinstance(wf, ConstantWaveform):
+                    rec[key] = _record(wf.value, key)
+                elif optimize_duration:
+                    raise NotImplementedError(
+                        f"{key} waveform type {type(wf).__name__} is not supported with "
+                        "duration optimization.")
+            rec["phase"] = _record(p.phase, "phase")
+            abs_repr.append(rec)
+        return abs_repr, optimize_duration, params
+
+    def _param_value(self, rec: Parameter, params: Mapping[str, Any]) -> Any:
+        return params[rec.name] if rec.trainable else rec.value
+
+    def _get_total_duration(self, params: Mapping[str, Any]) -> int:
+        """The pulses' total duration in ns (read on the host), plus a 5 ns
+        margin."""
+        total = 0
+        for rec in self.seq_abs_repr:
+            val = self._param_value(rec["duration"], params)
+            total += int(float(torch.as_tensor(val, dtype=DTYPE).detach()) * 1000)
+        return total + 5
+
+    def _opt_duration_samples(self, params: Mapping[str, Any]):
+        """(amp, det, phase) on the padded grid of ``_t_max`` ns: each pulse
+        a tanh-edged boxcar from the end of the one before."""
+        t = torch.arange(self._t_max, dtype=DTYPE, device=self.torch_device)
+        amp = det = phase = torch.zeros(self._t_max, dtype=DTYPE, device=self.torch_device)
+        ti: Any = 0
+        for rec in self.seq_abs_repr:
+            tf = ti + self._param_value(rec["duration"], params)
+            amp = amp + constant_waveform(ti, tf, self._param_value(rec["amplitude"], params))(t)
+            det = det + constant_waveform(ti, tf, self._param_value(rec["detuning"], params))(t)
+            phase = phase + constant_waveform(ti, tf, self._param_value(rec["phase"], params))(t)
+            ti = tf
+        return amp, det, phase
+
+    def _opt_duration_samples_obj(self, params: Mapping[str, Any],
+                                  register: Register) -> SequenceSamples:
+        """The synthesised samples on the sequence's first channel (a global
+        Rydberg one if none is declared), in a field of (0, 0, 30)."""
+        amp, det, phase = self._opt_duration_samples(params)
+        ch = self._seq.declared_channels
+        name, chan = next(iter(ch.items())) if ch else ("rydberg_global", None)
+        chan = chan or Rydberg.Global()
+        cs = ChannelSamples(
+            amp=amp, det=det, phase=phase,
+            slots=[_PulseTargetSlot(0, self._t_max, frozenset(register.qubit_ids))],
+            addressing="Global", basis=chan.basis,
         )
+        return SequenceSamples(channel_samples={name: cs},
+                               _magnetic_field=np.array([0.0, 0.0, 30.0]),
+                               _in_xy=chan.basis == "XY", qubit_ids=register.qubit_ids)
+
+    # ------------------------------------------------------------------
+    # emulator construction
+    # ------------------------------------------------------------------
+    @property
+    def _stochastic(self) -> bool:
+        """Whether the noise configuration draws a realization per build."""
+        return self.noise_config is not None and bool(
+            set(self.noise_config.noise) & _STOCHASTIC_NOISES)
+
+    @contextmanager
+    def _pinned(self, draws: Optional[NoiseDraws]) -> Iterator[None]:
+        """Build every emulator from ``draws`` inside the block (an outer pin
+        wins; without stochastic noise, or with ``None``, nothing is
+        pinned)."""
+        if draws is None or self._draws is not None or not self._stochastic:
+            yield
+            return
+        self._draws = draws
+        try:
+            yield
+        finally:
+            self._draws = None
+
+    def _draw(self) -> Optional[NoiseDraws]:
+        """A fresh realization of the stochastic noise (None without it)."""
+        if not self._stochastic:
+            return None
+        with torch.no_grad():
+            return self._make_emulator(dict(self.params))._hamiltonian.draws
+
+    def _make_emulator(self, params: Mapping[str, Any]) -> TorchEmulator:
+        register = self._construct_register(params)
+        pinned = self._draws is not None
+        config = None if pinned else self.noise_config
+        if self.optimize_duration:
+            sim = TorchEmulator(
+                self._opt_duration_samples_obj(params, register), register, self.device,
+                sampling_rate=self.sampling_rate, config=config,
+                evaluation_times=self.evaluation_times, torch_device=self.torch_device,
+            )
+        else:
+            seq = self._seq
+            if self.trainable_qubits:
+                seq = self._clone_with_register(register)
+            built = seq.build(**self._build_values(params)) if seq.is_parametrized() else seq
+            sim = TorchEmulator.from_sequence(
+                built,
+                sampling_rate=self.sampling_rate,
+                config=config,
+                evaluation_times=self.evaluation_times,
+                device=self.torch_device,
+            )
+        if pinned:
+            sim._check_supported(self.noise_config)
+            sim._hamiltonian.set_config(self.noise_config.to_noise_model(), draws=self._draws)
         if self.initial_state is not None:
             sim.set_initial_state(self.initial_state)
         return sim
@@ -288,6 +465,12 @@ class QuantumModel(nn.Module):
             n_pop = len(next(iter(param_stack.values())))
             cands = [{k: v[i] for k, v in param_stack.items()} for i in range(n_pop)]
             sim = self._make_emulator(cands[0])
+            # the candidates share one realization, as under jax.vmap
+            with self._pinned(sim._hamiltonian.draws):
+                return population(sim, cands)
+
+        def population(sim: TorchEmulator, cands: list):
+            n_pop = len(cands)
             h = sim._hamiltonian
             times = sim._eval_times_array
             use_fused = (self.solver in TorchEmulator._PALLAS_METHODS or (
@@ -334,3 +517,178 @@ class QuantumModel(nn.Module):
         module's parameters; by default the total magnetization."""
         times, results = self._run()
         return times, results.expect([self._observable(obs)])[0]
+
+    # ------------------------------------------------------------------
+    # bookkeeping and training
+    # ------------------------------------------------------------------
+    def check_constraints(self) -> None:
+        """Clamp the trainable parameters to their constraint intervals, in
+        place."""
+        self._clamp(self.params)
+
+    def update_sequence(self) -> None:
+        """Re-materialise the register and the built sequence (``built_seq``)
+        from the current parameters; under duration optimisation, grow the
+        padded grid when the total duration outgrows it (the samples are
+        synthesised, so ``built_seq`` is None)."""
+        with torch.no_grad():
+            if self.trainable_qubits:
+                self.register = self._construct_register(self.params)
+            if self.optimize_duration:
+                total = self._get_total_duration(self.params)
+                if total > self._t_max:
+                    self._t_max = _pad_duration(total)
+                self.built_seq = None
+                return
+            seq = self._seq
+            if self.trainable_qubits:
+                seq = self._clone_with_register(self.register)
+            self.built_seq = (seq.build(**self._build_values(self.params))
+                              if seq.is_parametrized() else seq)
+
+    def _clamp(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        """Clamp, in place, each of ``tensors`` that has a constraint."""
+        with torch.no_grad():
+            for name, c in self.constraints.items():
+                if name in tensors:
+                    tensors[name].clamp_(c["min"], c["max"])
+
+    @staticmethod
+    def _chunks(total: int, steps_per_call: int, remainder_first: bool) -> list[int]:
+        """The step counts of the chunks that ``steps_per_call`` cuts
+        ``total`` steps into (the JAX package's compiled scan lengths)."""
+        k = max(int(steps_per_call), 1)
+        full, rem = divmod(total, k)
+        if not rem:
+            return [k] * full
+        return [rem] + [k] * full if remainder_first else [k] * full + [rem]
+
+    def fit(
+        self,
+        loss_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+        epochs: int = 50,
+        optimizer: Any = None,
+        obs: Optional[Cplx] = None,
+        verbose: bool = False,
+        callback: Optional[Callable] = None,
+        steps_per_call: int = 1,
+    ) -> list[float]:
+        """Optimise the trainable parameters; returns the loss of every epoch.
+
+        Args:
+            loss_fn: (eval_times, expectation_values) -> scalar loss.
+            optimizer: a callable that takes the list of tensors to optimise
+                and returns a ``torch.optim.Optimizer`` (default: Adam at lr
+                1e-2), or an optimiser already built over ``parameters()``.
+            steps_per_call: the epochs of one chunk; ``verbose`` and
+                ``callback(epoch, loss, params)`` fire once a chunk, and
+                each chunk length has its own noise realization, as each
+                compiled scan length has in the JAX package.  The losses do
+                not depend on it otherwise.
+
+        Every update is followed by ``check_constraints``, and the sequence
+        is updated at the end.  With stochastic noise every epoch of a chunk
+        trains on one drawn realization.
+        """
+        params = list(self.params.values())
+        opt = optimizer if isinstance(optimizer, torch.optim.Optimizer) else (
+            optimizer or _adam)(params)
+        exp_fn = self.expectation_fn(obs)
+        draws: dict[int, Optional[NoiseDraws]] = {}
+        losses: list[float] = []
+        for k in self._chunks(epochs, steps_per_call, remainder_first=False):
+            if k not in draws:
+                draws[k] = self._draw()
+            with self._pinned(draws[k]):
+                for _ in range(k):
+                    opt.zero_grad()
+                    loss = loss_fn(*exp_fn(dict(self.params)))
+                    loss.backward()
+                    opt.step()
+                    self.check_constraints()
+                    losses.append(float(loss.detach()))
+            if verbose:
+                print(f"epoch {len(losses) - 1}: loss={losses[-1]:.6f}")
+            if callback is not None:
+                callback(len(losses) - 1, losses[-1],
+                         {n: p.detach().clone() for n, p in self.params.items()})
+        self.update_sequence()
+        return losses
+
+    def fit_population(
+        self,
+        loss_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+        param_stack: Mapping[str, Any],
+        epochs: int = 50,
+        optimizer: Any = None,
+        obs: Optional[Cplx] = None,
+        verbose: bool = False,
+        steps_per_call: int = 1,
+    ) -> tuple[list, dict[str, torch.Tensor]]:
+        """Multi-start optimisation: P candidates (every value of
+        ``param_stack`` with a leading axis P) advance in lock-step, each
+        epoch one ``expectation_population_fn`` evaluation of all of them
+        and one update of each.  The candidates are independent: the summed
+        loss's gradient separates per candidate, and Adam's state is
+        elementwise, so one optimiser over the stack is P optimisers.
+
+        Args:
+            loss_fn: (eval_times, (n_eval,) expectations) -> scalar, as for
+                ``fit``; applied to each candidate.
+            optimizer: a callable that takes the list of stacked tensors and
+                returns a ``torch.optim.Optimizer`` (default: Adam at lr
+                1e-2).
+            steps_per_call: the epochs of one chunk (the remainder first);
+                ``verbose`` fires once a chunk.
+
+        Runs ``epochs + 1`` evaluations (the last one, of the final stack,
+        without gradient) and tracks each candidate's best-ever loss from
+        the stacks that produced it.  Returns ``(losses, final_stack)``:
+        one (P,) array a epoch and the stack after ``epochs`` updates; the
+        best candidate seen at any evaluation is loaded into the parameters.
+        """
+        if isinstance(optimizer, torch.optim.Optimizer):
+            raise TypeError("fit_population takes an optimizer factory: a callable of the "
+                            "list of stacked tensors.")
+        stack = {k: self._tensor(v).requires_grad_(True) for k, v in param_stack.items()}
+        opt = (optimizer or _adam)(list(stack.values()))
+        pop_fn = self.expectation_population_fn(obs)
+        n_pop = int(next(iter(stack.values())).shape[0])
+        best_loss = torch.full((n_pop,), math.inf, dtype=DTYPE, device=self.torch_device)
+        best_stack = {k: v.detach().clone() for k, v in stack.items()}
+        final_stack: dict[str, torch.Tensor] = {}
+        draws: dict[int, Optional[NoiseDraws]] = {}
+        losses: list = []
+        for k in self._chunks(epochs + 1, steps_per_call, remainder_first=True):
+            if k not in draws:
+                draws[k] = self._draw()
+            with self._pinned(draws[k]):
+                for _ in range(k):
+                    last = len(losses) == epochs
+                    opt.zero_grad()
+                    with torch.set_grad_enabled(not last):
+                        times, vals = pop_fn(stack)
+                        per = torch.stack([loss_fn(times, vals[i]) for i in range(n_pop)])
+                    if not last:
+                        per.sum().backward()
+                    per = per.detach()
+                    improved = per < best_loss
+                    best_loss = torch.where(improved, per, best_loss)
+                    best_stack = {
+                        n: torch.where(improved.reshape((-1,) + (1,) * (v.ndim - 1)),
+                                       stack[n].detach(), v)
+                        for n, v in best_stack.items()}
+                    final_stack = {n: v.detach().clone() for n, v in stack.items()}
+                    if not last:
+                        opt.step()
+                        self._clamp(stack)
+                    losses.append(per.cpu().numpy())
+            if verbose:
+                print(f"epoch {len(losses) - 1}: best={losses[-1].min():.6f} "
+                      f"median={np.median(losses[-1]):.6f}")
+        best = int(torch.argmin(best_loss))
+        with torch.no_grad():
+            for name, v in best_stack.items():
+                self.params[name].copy_(v[best])
+        self.update_sequence()
+        return losses[:epochs], final_stack

@@ -50,9 +50,9 @@ take the plain version for tensors on the CPU and launch the kernel for
 tensors on a CUDA device; on any other device they raise.  ``LAUNCHES``
 counts kernel launches (the plain versions never count).
 
-The forward kernels take up to 32 row and 32 column parts (a per-qubit
-noisy build has 2 ceil(n / 2) a side), the adjoint kernels 8;
-``parts_fit`` / ``check_parts`` decide on the host, before any launch.
+Every kernel takes up to 32 row and 32 column parts (a per-qubit noisy
+build has 2 ceil(n / 2) a side); ``parts_fit`` / ``check_parts`` decide on
+the host, before any launch.
 
 Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
 ``prepare_fused_inputs``, ``_unpack_zbar``, ``_zero_like_aux``) follows
@@ -110,11 +110,10 @@ _KRON_FN_KEYS = ("kr", "kc") + _ZKF_KEYS + _ZKB_KEYS
 # sequence: 20)
 _K_MAX = 32
 
-# row / column parts a side: the forward kernels K1/K4 take up to 32 (a
-# per-qubit (all-local) build has 2 ceil(n / 2): 18 at 18 atoms); the
-# adjoint kernels K2/K5 keep 8, for their 2 * 8 cotangent partials
-_P_MAX_FWD = 32
-_P_MAX_BWD = 8
+# row / column parts a side that every kernel takes (a per-qubit
+# (all-local) build has 2 ceil(n / 2): 18 at 18 atoms); the adjoint kernels
+# reduce their stream cotangents in chunks of 8 parts
+_P_MAX = 32
 
 # kernel launches since the last reset (plain versions never count)
 LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
@@ -263,27 +262,18 @@ def _fn_keys(data: dict) -> tuple[str, ...]:
     return _FN_KEYS + (_KRON_FN_KEYS if "kr" in data else ())
 
 
-def parts_fit(bwd: bool, pr: int, pc: int) -> bool:
-    """Whether the adjoint (``bwd=True``, K2/K5) or the forward kernels
-    (K1/K4) take ``pr`` row and ``pc`` column parts."""
-    cap = _P_MAX_BWD if bwd else _P_MAX_FWD
-    return pr <= cap and pc <= cap
+def parts_fit(pr: int, pc: int) -> bool:
+    """Whether the fused kernels take ``pr`` row and ``pc`` column parts."""
+    return pr <= _P_MAX and pc <= _P_MAX
 
 
-def check_parts(bwd: bool, pr: int, pc: int) -> None:
+def check_parts(pr: int, pc: int) -> None:
     """Raise ValueError, before any launch, where :func:`parts_fit` refuses
-    the parts; the adjoint's message names the open ROADMAP item."""
-    if parts_fit(bwd, pr, pc):
-        return
-    if bwd:
+    the parts."""
+    if not parts_fit(pr, pc):
         raise ValueError(
-            f"The fused adjoint kernels K2/K5 take at most {_P_MAX_BWD} row and "
-            f"{_P_MAX_BWD} column parts (pr={pr}, pc={pc}): a gradient through a per-qubit "
-            "(noisy or local-channel) Hamiltonian needs them past 8 parts, ROADMAP queue 1 "
-            "item 11. Run it without gradients, or with fused=False on the f64 stepper.")
-    raise ValueError(
-        f"The fused forward kernels K1/K4 take at most {_P_MAX_FWD} row and {_P_MAX_FWD} "
-        f"column parts (pr={pr}, pc={pc}); pass fused=False for the f64 stepper.")
+            f"The fused kernels K1/K2/K4/K5 take at most {_P_MAX} row and {_P_MAX} column "
+            f"parts (pr={pr}, pc={pc}); pass fused=False for the f64 stepper.")
 
 
 def _check_shapes(data: dict, S: int, *states, slots: torch.Tensor | None = None,
@@ -793,9 +783,8 @@ def _launch_check(err: int, what: str, pr: int, pc: int) -> None:
         raise ValueError(f"{what}: unsupported tableau.")
     if err == -2:
         raise ValueError(
-            f"{what} refused pr={pr}, pc={pc} parts: the forward kernels take at most "
-            f"{_P_MAX_FWD} a side, the adjoint kernels K2/K5 at most {_P_MAX_BWD} (ROADMAP "
-            "queue 1 item 11).")
+            f"{what} refused pr={pr}, pc={pc} parts: the fused kernels take at most "
+            f"{_P_MAX} a side.")
     if err == -3:
         raise RuntimeError(f"{what}: the device does not support cooperative launches.")
     if err == -4:
@@ -908,7 +897,7 @@ def _fused_fwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int, l
     names = ("psi_re", "psi_im", "rp", "cp", "hb_hi", "hb_lo", "hs", "diag", "diag_lo") + _ZF_KEYS
     _check_cuda({**{k: data[k] for k in names + knames}, "slots": slots}, device)
     a_arr, bnz, S = _tableau_c(method)
-    check_parts(False, pr, pc)
+    check_parts(pr, pc)
     C, _ = cluster_plan(False, nb, da, db, pr, pc, K, S)
     lib = _library()
     rsym, rasym, csym, casym = _parts_sym(data)
@@ -947,7 +936,7 @@ def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
         device,
     )
     a_arr, bnz, S = _tableau_c(method)
-    check_parts(True, pr, pc)
+    check_parts(pr, pc)
     C, _ = cluster_plan(True, nb, da, db, pr, pc, K, S)
     lib = _library()
     rsym, rasym, csym, casym = _parts_sym(data)
@@ -1112,7 +1101,7 @@ def _ckpt_launch(fn_name: str, bwd: int, data: dict, method: str, tensors: dict,
     K = _n_kron(data)
     kron, knames = _kron_ptrs(data, False)
     _check_cuda({**tensors, **{k: data[k] for k in knames}}, device)
-    check_parts(bool(bwd), pr, pc)
+    check_parts(pr, pc)
     lib = _ckpt_library()
     a_arr, bnz, S = _tableau_c(method)
     rsym, rasym, csym, casym = _parts_sym(data)
@@ -1315,11 +1304,7 @@ def evolve_mc(hams, psi0: Cplx, grid, method: str = "DP5", ckpt: bool = False) -
     per-step buffer."""
     data = prepare_mc_inputs(hams, psi0, grid.times, method)
     pr, pc = int(data["rp"].shape[0]), int(data["cp"].shape[0])
-    check_parts(False, pr, pc)
-    if torch.is_grad_enabled() and any(v.requires_grad for v in data.values()):
-        # refused before the forward launch, on every device: the card's
-        # adjoint kernels would refuse the backward
-        check_parts(True, pr, pc)
+    check_parts(pr, pc)
     slots_np = np.asarray(grid.write_slots, dtype=np.int32)
     last_slot = int(slots_np[-1])
     if last_slot >= grid.n_eval:

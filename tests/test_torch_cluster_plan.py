@@ -135,3 +135,16 @@ def test_kernel_phases_edits_match_the_source(source):
     for name, edits in variants.items():
         for old, _ in edits:
             assert old in src, (name, old)
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("P", [12, 32])
+def test_per_qubit_parts_keep_the_state_batches(bwd, P):
+    """A per-qubit build's parts (12 a side at 12 atoms, up to the 32 the
+    kernels take) add 4 (pr + pc) stream words a block, and K2 (8 warps +
+    2) x (2pr + 2pc) reduction floats: at 12 atoms K1 still takes nb = 3
+    and K2 nb = 2."""
+    most = 2 if bwd else 3
+    C, smem = tfe.cluster_plan(bwd, most, 64, 64, P, P, 0, 6)
+    assert C == 16 and smem == 4 * tfe._smem_floats(bwd, most, 64, 64, P, P, 0, 6, 16)
+    assert smem <= tfe._SMEM_LIMIT

@@ -20,12 +20,14 @@ import pulser_diff_tpu.core as jcore
 import pulser_diff_torch.core as tcore
 from pulser_diff_tpu import SimConfig as JSimConfig
 from pulser_diff_tpu import TpuEmulator
+from pulser_diff_tpu import hamiltonian as jham
 from pulser_diff_tpu.hamiltonian import NoiseDraws as JDraws
 from pulser_diff_tpu.model import QuantumModel as JModel
 from pulser_diff_tpu.ops import total_magnetization as j_total_mag
 from pulser_diff_tpu.solvers import TimeGrid as JGrid
 from pulser_diff_torch import QuantumModel, SimConfig, TorchEmulator
 from pulser_diff_torch import TimeGrid as TGrid
+from pulser_diff_torch import hamiltonian as tham
 from pulser_diff_torch.ops.linalg import total_magnetization
 from pulser_diff_torch.simresults import CoherentResults, NoisyResults
 
@@ -192,10 +194,33 @@ def test_model_value_and_grad_match_jax(kind):
                                atol=F64_TOL)
 
 
-def test_stochastic_only_model_and_leakage_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        QuantumModel(_model_sequence(tcore, "ising"), {"omega": 1.7},
-                     noise_config=SimConfig(noise=("doppler",)), device="cpu")
+def test_stochastic_only_model_and_leakage_raise(monkeypatch):
+    """A doppler-only model differentiates one drawn realization on the
+    Schrodinger stepper (kets, not density matrices), as JAX's does: from
+    the same draws, value and gradient to MODEL_TOL.  Leakage still
+    raises, naming item 8."""
+    dop = np.array([0.7, -0.4])
+
+    def draws(lib, cls, key, cfg, n, n_slots):
+        d = dop if "doppler" in cfg.noise_types else np.zeros(n)
+        return cls(*(lib.asarray(x) for x in (np.zeros(n), d, np.ones(max(n_slots, 1)))))
+
+    monkeypatch.setattr(jham, "draw_noise", lambda *a: draws(jnp, JDraws, *a))
+    monkeypatch.setattr(tham, "draw_noise", lambda *a: draws(torch, tham.NoiseDraws, *a))
+    jm = JModel(_model_sequence(jcore, "ising"), {"omega": jnp.asarray(1.7)},
+                noise_config=JSimConfig(noise=("doppler",)), evaluation_times="Minimal")
+    tm = QuantumModel(_model_sequence(tcore, "ising"), {"omega": 1.7},
+                      noise_config=SimConfig(noise=("doppler",)), evaluation_times="Minimal",
+                      device="cpu")
+    jfn = jm.expectation_fn()
+    jv, jg = jax.value_and_grad(lambda om: jfn({"omega": om})[1][-1])(jnp.asarray(1.7))
+    om = torch.tensor(1.7, dtype=torch.float64, requires_grad=True)
+    tv = tm.expectation_fn()({"omega": om})[1][-1]
+    tv.backward()
+    assert abs(float(tv.detach()) - float(jv)) < MODEL_TOL
+    assert abs(float(om.grad) - float(jg)) < MODEL_TOL
+    _, states = tm._states_fn({"omega": om.detach()})
+    assert tuple(states.shape[1:]) == (4, 1)
     with pytest.raises(NotImplementedError, match="item 8"):
         _pair(noise=("eff_noise",), with_leakage=True, eff_noise_rates=(0.1,),
               eff_noise_opers=(np.eye(3),))

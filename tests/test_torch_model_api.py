@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: the signatures of ``QuantumModel`` and
 ``TorchEmulator.run`` (pulser_diff_torch.model, backend).
 
-The port takes the JAX package's parameters in its order, raises on what
-it does not run yet (noise, constraints, unknown options), warns on
+The port takes the JAX package's parameters in its order (constraints and
+stochastic noise included), raises on unknown options, warns on
 ``time_grad`` / ``dist_grad`` as the JAX package warns, and gives
 ``forward()`` (states) and ``expectation()`` (complex values) the JAX
 package's returns.  Four atoms of the bench.py workload, on the CPU, on
@@ -60,10 +60,19 @@ def test_positional_order_matches_jax():
 
 
 def test_noise_and_constraints_raise_naming_the_queue():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        _port_model(noise_config=SimConfig(noise=("doppler",)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _port_model(constraints={"amp_samples_0": {"min": 0.0, "max": 4.0}})
+    """Stochastic noise and constraints are taken, as the JAX package takes
+    them: the constraints clamp as JAX's check_constraints clamps, and the
+    noisy model's Hamiltonian is one drawn, all-local realization."""
+    cons = {"amp_samples_0": {"min": 1.5, "max": 2.5}}
+    jm, tm = _jax_model(constraints=cons), _port_model(constraints=cons)
+    assert tm.constraints == jm.constraints == cons
+    jm.check_constraints()
+    tm.check_constraints()
+    np.testing.assert_array_equal(to_numpy(tm.params["amp_samples_0"]),
+                                  np.asarray(jm.params["amp_samples_0"]))
+    noisy = _port_model(noise_config=SimConfig(noise=("doppler",)))
+    h = noisy._make_emulator(dict(noisy.params))._hamiltonian._ham_data
+    assert (h.row_parts.shape[0], h.col_parts.shape[0]) == (2 * (N_ATOMS // 2),) * 2
     # the noiseless defaults are accepted
     _port_model(constraints={}, noise_config=SimConfig())
 

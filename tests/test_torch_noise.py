@@ -312,13 +312,15 @@ def test_noisy_route_on_cpu_and_refusals(monkeypatch):
 
 
 def test_part_caps():
-    """Forward kernels up to 32 parts a side, adjoint kernels up to 8; the
-    adjoint's refusal names the open ROADMAP item."""
-    assert tfe.parts_fit(False, 32, 32) and not tfe.parts_fit(False, 33, 2)
-    assert tfe.parts_fit(True, 8, 8) and not tfe.parts_fit(True, 9, 2)
-    with pytest.raises(ValueError, match="item 11"):
-        tfe.check_parts(True, 2, 9)
-    tfe.check_parts(False, 18, 18)
+    """Every fused kernel, forward and adjoint, takes up to 32 parts a side
+    (a per-qubit build has 2 ceil(n / 2)); 33 is refused on the host,
+    naming the cap.  K2's cluster holds the 12-atom noisy shape (12 parts
+    a side, one state)."""
+    assert tfe.parts_fit(32, 32) and not tfe.parts_fit(33, 2) and not tfe.parts_fit(2, 33)
+    with pytest.raises(ValueError, match="at most 32"):
+        tfe.check_parts(2, 33)
+    tfe.check_parts(18, 18)
+    assert tfe.cluster_fits(True, 1, 64, 64, 12, 12, 0, 6)
 
 
 def test_lindblad_and_model_noise_raise():
@@ -329,9 +331,14 @@ def test_lindblad_and_model_noise_raise():
     res = tsim.run()
     assert type(res).__name__ == "NoisyResults"
     assert {sum(r.bitstring_counts.values()) for r in res} == {15 * 5}
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        QuantumModel(_two_pulse_sequence(tcore, 2), noise_config=tsc.SimConfig(noise=("doppler",)),
-                     device="cpu")
+    # a model with stochastic noise only builds one drawn realization, all
+    # local (one amplitude and one detuning stream a qubit)
+    model = QuantumModel(_two_pulse_sequence(tcore, 2), noise_config=tsc.SimConfig(
+        noise=("doppler",)), sampling_rate=0.5, device="cpu")
+    ham = model._make_emulator(dict(model.params))._hamiltonian
+    assert (ham._ham_data.row_parts.shape[0], ham._ham_data.col_parts.shape[0]) == (2, 2)
+    assert bool((ham.draws.doppler != 0).all())
+    assert torch.isfinite(model.expectation_fn()(dict(model.params))[1]).all()
     with pytest.raises(NotImplementedError, match="item 8"):
         tsim.set_config(tsc.SimConfig(noise=("eff_noise",), with_leakage=True,
                                       eff_noise_rates=(0.1,), eff_noise_opers=(np.eye(3),)))

@@ -5,14 +5,13 @@ the noisy batch's shapes, against the Pallas kernels in interpret mode.
     (all-local) noisy build, the runs' Hamiltonians built from the same
     draws in both packages (JAX's ``jax.vmap`` of its build), against
     ``pallas_evolve_mc``;
-  - a synthetic data dict with pr = pc = 12 parts a side (past the 8 the
-    adjoint kernels take) through K1's and K4's plain versions against
-    ``fused_evolve_states`` / ``fused_evolve_ckpt``.
+  - a synthetic data dict with pr = pc = 12 parts a side through K1's and
+    K4's plain versions against ``fused_evolve_states`` /
+    ``fused_evolve_ckpt``, and a gradient at 12 parts (K2's plain version)
+    against the Pallas adjoint.
 
 Both sides differ only in the summation order inside each product: f32
-round-off, K1_TOL as in tests/test_torch_fused.py.  The noisy batch never
-differentiates; a differentiable call with more than 8 parts is refused
-before any launch.
+round-off, K1_TOL and K2_REL_TOL as in tests/test_torch_fused.py.
 """
 
 import functools
@@ -34,7 +33,7 @@ from pulser_diff_torch.hamiltonian import NoiseDraws as TDraws
 from pulser_diff_torch.ops import fused_evolution as tfe
 from pulser_diff_torch.solvers import TimeGrid as TGrid
 
-from tests.test_torch_fused import K1_TOL, _same_inputs, _setup
+from tests.test_torch_fused import K1_TOL, K2_REL_TOL, _max_rel, _same_inputs, _setup
 from tests.torch_port_cases import batched, emulators, random_state, to_numpy
 
 torch.set_num_threads(1)
@@ -111,21 +110,39 @@ def test_twelve_parts_match_the_pallas_kernels(n_atoms):
 
 
 def test_differentiable_call_past_eight_parts_is_refused():
-    """A gradient through 12 parts would need the adjoint kernels past
-    their cap: evolve_mc refuses it before the forward, naming the open
-    item; without gradients it runs."""
-    _, tb, _, tg, (re, im) = _noisy_batch()
+    """A gradient through 12 parts a side (past one 8-part chunk of the
+    adjoint's partials): evolve_mc's gradient in the interaction diagonal
+    (dbar) and in the row streams (their zbar columns, every part) through
+    K2's plain version, against jax.grad through pallas_evolve_mc (the
+    Pallas adjoint, interpret mode), at K2_REL_TOL."""
+    jb, tb, jg, tg, (re, im) = _noisy_batch()
     rng = np.random.default_rng(0)
-    ham = tb[0]._replace(row_parts=torch.as_tensor(rng.normal(size=(12, 2, 2)) / 8),
-                         col_parts=torch.as_tensor(rng.normal(size=(12, 4, 4)) / 8),
-                         row_streams=Cplx(tb[0].row_streams.re[:1].repeat(12, 1),
-                                          tb[0].row_streams.im[:1].repeat(12, 1)),
-                         col_streams=Cplx(tb[0].col_streams.re[:1].repeat(12, 1),
-                                          tb[0].col_streams.im[:1].repeat(12, 1)))
-    psi = Cplx(torch.as_tensor(re), torch.as_tensor(im))
-    leaf = ham.int_diag.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="item 11"):
-        tfe.evolve_mc([ham._replace(int_diag=leaf)], psi, tg)
-    with torch.no_grad():
-        s = tfe.evolve_mc([ham._replace(int_diag=leaf)], psi, tg)
-    assert torch.isfinite(s.re).all()
+    rp = rng.normal(size=(12, 2, 2)) / 8
+    cp = rng.normal(size=(12, 4, 4)) / 8
+    rs_re, rs_im = (to_numpy(x[:1]).repeat(12, 0) for x in (tb[0].row_streams.re,
+                                                           tb[0].row_streams.im))
+    cs_re, cs_im = (to_numpy(x[:1]).repeat(12, 0) for x in (tb[0].col_streams.re,
+                                                           tb[0].col_streams.im))
+    diag = to_numpy(tb[0].int_diag)
+    w_re, w_im = rng.normal(size=(2, 1, 2, 1, 2, 4))
+
+    def jloss(d, r):
+        jh = jax.tree_util.tree_map(lambda x: x[:1], jb)._replace(
+            row_parts=jnp.asarray(rp)[None], col_parts=jnp.asarray(cp)[None],
+            row_streams=JCplx(r[None], jnp.asarray(rs_im)[None]),
+            col_streams=JCplx(jnp.asarray(cs_re)[None], jnp.asarray(cs_im)[None]),
+            int_diag=d[None])
+        st = jpe.pallas_evolve_mc(jh, JCplx(jnp.asarray(re), jnp.asarray(im)), jg, interpret=True)
+        return jnp.sum(w_re * st.re + w_im * st.im)
+
+    jgd, jgr = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(diag), jnp.asarray(rs_re))
+    d = torch.tensor(diag, requires_grad=True)
+    r = torch.tensor(rs_re, requires_grad=True)
+    ham = tb[0]._replace(row_parts=torch.as_tensor(rp), col_parts=torch.as_tensor(cp),
+                         row_streams=Cplx(r, torch.as_tensor(rs_im)),
+                         col_streams=Cplx(torch.as_tensor(cs_re), torch.as_tensor(cs_im)),
+                         int_diag=d)
+    st = tfe.evolve_mc([ham], Cplx(torch.as_tensor(re), torch.as_tensor(im)), tg)
+    (torch.as_tensor(w_re) * st.re + torch.as_tensor(w_im) * st.im).sum().backward()
+    assert _max_rel(d.grad, jgd) < K2_REL_TOL
+    assert _max_rel(r.grad, jgr) < K2_REL_TOL
