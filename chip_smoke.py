@@ -110,7 +110,25 @@ Phases (each raises on failure, so the script exits non-zero):
      launches; each candidate's losses against a lone fit from it);
      duration optimisation (ConstantPulse(dur[0], 2, -2, 0) on the 3x4
      lattice: the duration gradient against the f64 stepper's, 3 epochs of
-     fit move it); fit on the noisy model, one realization for 3 epochs.
+     fit move it); fit on the noisy model, one realization for 3 epochs;
+ 15. the rest of the front end: (a) bench.py's 12-atom model with a
+     rydberg_local channel beside its global one (two disjoint target
+     groups in turn, a phase shift, Blackman pulses of trainable area,
+     ramped detunings; pr = pc = 8 parts) on the default route (one K1 and
+     one K2 launch; the value held against the f64 stepper at 1e-6, value
+     and gradient against the same step through K1/K2's plain versions at
+     1e-6 / 1e-6, the gradient's distance to the f64 stepper printed beside
+     the plain versions' own: the lean adjoint's rebuild) and with
+     ckpt=True (one K4 and one K5 launch, value and gradient held at 1e-6 /
+     1e-5); (b) a modulated run() on AnalogDevice with an EOM block (one K1
+     launch, the final state against the f64 stepper at 1e-6); (c)
+     bench_xy.py's 12-atom step under an SLM mask on two qubits (K = 16
+     kron pairs, one K1 and one K2 launch) and (d) the 16-atom one (K = 20,
+     one K4 and one K5 launch), value, gradient and q1's coordinate
+     gradient against the f64 stepper at 1e-6 / 1e-5 / 1e-5; every kernel
+     at these shapes against its plain version (on every step in (a) and
+     (b), on a window around the SLM window's end in (c) and (d)), timed,
+     with its bound.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -119,6 +137,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -929,17 +948,8 @@ def _population_phase(torch, fe, device, p0, gen, n_qubits: int, n_pop: int):
         vals[:, -1].sum().backward()
         return vals.detach(), stack.grad.detach()
 
-    _reset(fe)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vals, grads = pop_step()
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(fe.LAUNCHES)
-    want = ({"fused_fwd": 0, "fused_bwd": 0, "fused_fwd_ckpt": 1, "fused_bwd_ckpt": 1} if ckpt
-            else {"fused_fwd": 1, "fused_bwd": 1, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0})
-    if launches != want:
-        raise RuntimeError(f"{label}: expected {want}, got {launches}")
+    (vals, grads), launches, first_ms = _counted(torch, fe, label, pop_step,
+                                                 K4K5 if ckpt else K1K2)
     if vals.shape != (n_pop, 2) or not (torch.isfinite(vals).all() and torch.isfinite(grads).all()):
         raise RuntimeError(f"{label}: bad output: values {vals}, grads {grads}")
     # each candidate against its own step (R = 1)
@@ -959,59 +969,41 @@ def _population_phase(torch, fe, device, p0, gen, n_qubits: int, n_pop: int):
         torch, lambda: [_value_and_grad(torch, model, c, device) for c in cands], 3)
     _log(f"  {label}: population step {pop_ms:.2f} ms, {n_pop} sequential steps {seq_ms:.2f} ms "
          f"(warm medians of 3, first population step {first_ms:.1f} ms)")
-    # the kernels at the R-run shapes, and at R = 1 (run 0's inputs)
+    # the kernels at the R-run shapes, and at R = 1 (run 0's inputs); the
+    # plain versions on the first PLAIN_STEPS steps (seconds a step at R > 1)
     data, slots, n_eval, last_slot = _population_inputs(torch, fe, model, cands, device)
     shared = ("rp", "cp", "hb_hi", "hb_lo", "hs")
     one = {k: v if k in shared else v[:1] for k, v in data.items()}
-    times = {}
-    S = 6
+    ks, k_in = _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt,
+                             n=PLAIN_STEPS, reps=5)
+    in1 = [t[:1].contiguous() for t in k_in]
     if ckpt:
-        fwd_err, bwd_err, _, k_in = _check_ckpt(torch, fe, data, "DP5", gen, label, times)
         plans = _ckpt_plans(torch, fe, data, label)
-        fwd_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(data, "DP5"), 5)
-        bwd_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(data, "DP5", *k_in), 5)
         fwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(one, "DP5"), 5)
-        bwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(
-            one, "DP5", *[t[:1].contiguous() for t in k_in]), 5)
-        out = fe.fused_bwd_ckpt(data, "DP5", *k_in)
-        fwd_bound = _bound_ms(fe, data, None, k_in[:2], S, "fwd_ckpt")
-        bwd_bound = _bound_ms(fe, data, None, (*k_in, *out), S, "bwd_ckpt")
+        bwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(one, "DP5", *in1), 5)
         _log(f"  {label}: K4 plan {plans['K4']['blocks']} blocks, tile {plans['K4']['tile']}; "
              f"K5 {plans['K5']['blocks']} blocks, tile {plans['K5']['tile']}")
-        names = ("fused_fwd_ckpt", "fused_bwd_ckpt")
-        plain = (times["k4_plain"], times["k5_plain"])
+        names = ("K4", "K5")
     else:
         plan = _log_plan(fe, fe._library(), data, "DP5", label)
-        fwd_err, bwd_err, _, k_in = _check_kernels(torch, fe, data, slots, n_eval, last_slot,
-                                                   "DP5", gen, label, times)
         resident = {name: fe.resident_clusters(data, "DP5", bwd)
                     for bwd, name in ((False, "K1"), (True, "K2"))}
-        fwd_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(data, "DP5", slots, n_eval), 5)
-        bwd_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(data, "DP5", slots, n_eval, last_slot,
-                                                           *k_in), 5)
-        in1 = [t[:1].contiguous() for t in k_in]
         fwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(one, "DP5", slots, n_eval), 5)
         bwd1_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(one, "DP5", slots, n_eval, last_slot,
                                                             *in1), 5)
-        out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *k_in)
-        fwd_bound = _bound_ms(fe, data, slots, k_in[:2], S, "fwd")
-        bwd_bound = _bound_ms(fe, data, slots, (*k_in, *out), S, "bwd")
         _log(f"  {label}: {n_pop} clusters of C = {plan['K1']['C']} blocks; resident at once "
              f"{resident} clusters, so {-(-n_pop // resident['K1'])} / "
              f"{-(-n_pop // resident['K2'])} waves")
-        names = ("fused_fwd", "fused_bwd")
-        plain = (times["k1_plain"], times["k2_plain"])
-    kind = "K4/K5" if ckpt else "K1/K2"
-    _log(f"  {label}: {kind} at R = {n_pop} {fwd_ms:.3f} / {bwd_ms:.3f} ms, at R = 1 "
-         f"{fwd1_ms:.3f} / {bwd1_ms:.3f} ms (CUDA events, warm medians of 5); bounds at R = "
-         f"{n_pop} {fwd_bound[0]:.4f} ms by {fwd_bound[1]} / {bwd_bound[0]:.4f} ms by "
-         f"{bwd_bound[1]}")
-    del data, k_in, out, one, model
+        names = ("K1", "K2")
+    fwd, bwd = ks[names[0]], ks[names[1]]
+    _log(f"  {label}: {names[0]}/{names[1]} at R = {n_pop} {fwd['ms']:.3f} / {bwd['ms']:.3f} ms, "
+         f"at R = 1 {fwd1_ms:.3f} / {bwd1_ms:.3f} ms (CUDA events, warm medians of 5); bounds "
+         f"at R = {n_pop} {fwd['bound']:.4f} ms by {fwd['by']} / {bwd['bound']:.4f} ms by "
+         f"{bwd['by']}")
+    del data, k_in, in1, one, model
     torch.cuda.empty_cache()
-    return [dict(launches=launches[names[0]], err=fwd_err, ms=fwd_ms, plain_ms=plain[0],
-                 bound=fwd_bound[0], by=fwd_bound[1]),
-            dict(launches=launches[names[1]], err=bwd_err, ms=bwd_ms, plain_ms=plain[1],
-                 bound=bwd_bound[0], by=bwd_bound[1])]
+    counts = ("fused_fwd_ckpt", "fused_bwd_ckpt") if ckpt else ("fused_fwd", "fused_bwd")
+    return [dict(e, launches=launches[c]) for e, c in zip((fwd, bwd), counts)]
 
 
 def _xy_ckpt_phase(torch, fe, device, n: int):
@@ -1443,15 +1435,73 @@ def _train_loss(times, vals):
     return vals[-1]
 
 
-def _cut_steps(data, n: int):
-    """The kernels' inputs of the first ``n`` steps."""
+def _cut_steps(data, n: int, start: int = 0):
+    """The kernels' inputs of the ``n`` steps from ``start`` (the first
+    ``n`` by default; the checkpointed kernels store every step, so a
+    window from elsewhere needs no slots)."""
     out = dict(data)
     for k in ("hb_hi", "hb_lo", "hs"):
-        out[k] = data[k][:n].contiguous()
+        out[k] = data[k][start:start + n].contiguous()
     for k in data:
         if k.startswith("z"):
-            out[k] = data[k][:, :n].contiguous()
+            out[k] = data[k][:, start:start + n].contiguous()
     return out
+
+
+def _counted(torch, fe, label, fn, want: dict):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, held to ``want``: (result, launches, host ms)."""
+    _reset(fe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fe.LAUNCHES)
+    if launches != want:
+        raise RuntimeError(f"{label}: expected {want}, got {launches}")
+    return res, launches, ms
+
+
+def _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt: bool, *,
+                  n=None, start: int = 0, reps: int = 3):
+    """K1 and K2 (K4 and K5 with ``ckpt``) on ``data``: each against its
+    plain version on the ``n`` steps from ``start`` (every step when ``n``
+    is None), then timed on every step (CUDA events, warm median of
+    ``reps``) with its bound.  Returns ({"K1": entry, "K2": entry} or K4 /
+    K5, the adjoint's inputs); an entry holds err, ms, plain_ms, bound, by
+    and plain_steps."""
+    n_steps = fe._dims(data)[1]
+    n = n_steps if n is None else min(n, n_steps)
+    start = max(0, min(start, n_steps - n))
+    lo, S, times = fe._n_kron(data) > 0, 6, {}
+    win = data if n == n_steps else _cut_steps(data, n, start)
+    tag = label if n == n_steps else f"{label} (steps {start}-{start + n - 1} of {n_steps})"
+    if ckpt:
+        errs = _check_ckpt(torch, fe, win, "DP5", gen, tag, times)[:2]
+        fwd, bwd = (lambda: fe.fused_fwd_ckpt(data, "DP5", lo=lo)), fe.fused_bwd_ckpt
+        names, kinds, bslots = ("K4", "K5"), ("fwd_ckpt", "bwd_ckpt"), None
+        args = (data, "DP5")
+    else:
+        # the window's own slots: its first grid point's and the last one's
+        cslots = slots if n == n_steps else torch.cat([slots[:n], slots[-1:]])
+        errs = _check_kernels(torch, fe, win, cslots, n_eval, last_slot, "DP5", gen, tag,
+                              times)[:2]
+        fwd, bwd = (lambda: fe.fused_fwd(data, "DP5", slots, n_eval, lo=lo)), fe.fused_bwd
+        names, kinds, bslots = ("K1", "K2"), ("fwd", "bwd"), slots
+        args = (data, "DP5", slots, n_eval, last_slot)
+    st = fwd()
+    k_in = (st[0], st[1], *[torch.randn(tuple(st[0].shape), generator=gen,
+                                        dtype=torch.float32).to(st[0].device) for _ in range(2)])
+    outs = (st, (*k_in, *bwd(*args, *k_in)))
+    fns = (fwd, lambda: bwd(*args, *k_in))
+    entries = {}
+    for i, name in enumerate(names):
+        bound, by = _bound_ms(fe, data, bslots, outs[i], S, kinds[i])
+        entries[name] = dict(err=errs[i], ms=_cuda_time_ms(torch, fns[i], reps),
+                             plain_ms=times[f"k{name[1]}_plain"], bound=bound, by=by,
+                             plain_steps=n)
+    return entries, k_in
 
 
 def _times(counts: dict, n: int) -> dict:
@@ -1476,17 +1526,10 @@ def _noisy_step(torch, fe, device, n_qubits: int, p0, gen, want: dict):
         substeps = model._default_substeps()
         with torch.no_grad():
             sim = model._make_emulator(dict(model.params))
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset(fe)
-        t0 = time.perf_counter()
-        value, grad, vals = _value_and_grad(torch, model, p0, device)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(fe.LAUNCHES)
+        (value, grad, vals), launches, first_ms = _counted(
+            torch, fe, label, lambda: _value_and_grad(torch, model, p0, device), want)
         peak = _peak_gib(torch)
-        if launches != want:
-            raise RuntimeError(f"{label}: expected {want}, got {launches}")
         step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model, p0, device), 3)
     f64, _ = _bench_model(torch, device, fused=False, n_qubits=n_qubits,
                           noise_config=SimConfig(**TRAIN_NOISE))
@@ -1501,38 +1544,17 @@ def _noisy_step(torch, fe, device, n_qubits: int, p0, gen, want: dict):
          f"warm median of 3 (first {first_ms:.1f} ms), peak {peak:.2f} GiB; f64 stepper "
          f"{f64_ms:.1f} ms (once)")
     _hold_against_f64(torch, value, grad, v64, g64, label)
-    S = 6
-    cut = _cut_steps(data, PLAIN_STEPS)
-    tag = f"{label} (first {PLAIN_STEPS} of {n_steps} steps)"
-    times: dict = {}
-    if want["fused_bwd_ckpt"]:
-        _, err, _, _ = _check_ckpt(torch, fe, cut, "DP5", gen, tag, times)
-        st = fe.fused_fwd_ckpt(data, "DP5")
-        lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32).to(device)
-               for _ in range(2)]
-        ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(data, "DP5", *st, *lam), 3)
-        out = fe.fused_bwd_ckpt(data, "DP5", *st, *lam)
-        bound, by = _bound_ms(fe, data, None, (*st, *lam, *out), S, "bwd_ckpt")
-        plain_ms, name = times["k5_plain"], "fused_bwd_ckpt"
-    else:
-        cslots = torch.cat([slots[:PLAIN_STEPS], slots[-1:]])
-        _, err, _, _ = _check_kernels(torch, fe, cut, cslots, n_eval, last_slot, "DP5", gen, tag,
-                                      times)
-        st = fe.fused_fwd(data, "DP5", slots, n_eval)
-        lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32).to(device)
-               for _ in range(2)]
-        ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(data, "DP5", slots, n_eval, last_slot,
-                                                       *st, *lam), 5)
-        out = fe.fused_bwd(data, "DP5", slots, n_eval, last_slot, *st, *lam)
-        bound, by = _bound_ms(fe, data, slots, (*st, *lam, *out), S, "bwd")
-        plain_ms, name = times["k2_plain"], "fused_bwd"
-    kname = "K5" if want["fused_bwd_ckpt"] else "K2"
-    _log(f"  {label}: {kname} at pr = pc = {pr} {ms:.3f} ms (CUDA events, warm median), bound "
-         f"{bound:.4f} ms by {by}; plain {plain_ms:.1f} ms on the first {PLAIN_STEPS} steps")
-    del data, cut, st, lam, out, model, f64, sim
+    ckpt = bool(want["fused_bwd_ckpt"])
+    ks, _ = _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt,
+                          n=PLAIN_STEPS, reps=3 if ckpt else 5)
+    kname, name = ("K5", "fused_bwd_ckpt") if ckpt else ("K2", "fused_bwd")
+    e = ks[kname]
+    _log(f"  {label}: {kname} at pr = pc = {pr} {e['ms']:.3f} ms (CUDA events, warm median), "
+         f"bound {e['bound']:.4f} ms by {e['by']}; plain {e['plain_ms']:.1f} ms on the first "
+         f"{PLAIN_STEPS} steps")
+    del data, model, f64, sim
     torch.cuda.empty_cache()
-    return dict(launches=launches[name], err=err, ms=ms, plain_ms=plain_ms, bound=bound, by=by,
-                pr=pr, step_ms=step_ms)
+    return dict(e, launches=launches[name], pr=pr, step_ms=step_ms)
 
 
 def _chunk_cost(torch, fe, device, gen):
@@ -2053,6 +2075,333 @@ def _mcwf_phase(torch, fe, device, n_anchor: int = 3, n_big: int = MCWF_BIG_N,
     return out
 
 
+# phase 15, the rest of the front end on the card: (a) bench.py's 3x4
+# register with its global channel and 8-parameter amplitude (over
+# LOCAL_GLOBAL_NS) beside a rydberg_local channel that targets two
+# disjoint groups in turn (one on each side of the row / column split),
+# a phase shift on the second, Blackman amplitudes of trainable area and
+# ramped detunings; (b) the same register on AnalogDevice, modulated,
+# with an EOM block; (c) / (d) bench_xy.py's sequence under an SLM mask
+# on two qubits whose first pulse ends at SLM_FIRST_NS.  The kernels are
+# held against their plain versions on every step in (a) and (b), across
+# the retarget, the phase shift and the EOM block; in (c) / (d) on
+# FE_PLAIN_STEPS steps (K1/K2) or FE_CKPT_PLAIN_STEPS (K4/K5) around the
+# SLM window's end.  (a)'s default-route gradient is held against the
+# same step through K1/K2's plain versions (the kernels' share of its
+# distance to the f64 stepper); that distance itself is the lean
+# adjoint's rebuild and is printed beside the plain versions' own.
+LOCAL_GLOBAL_NS = 480
+LOCAL_A = ("q0", "q1", "q6")
+LOCAL_B = ("q4", "q9", "q10")
+LOCAL_AREAS = np.array([1.2, 0.9])
+LOCAL_PHASE = 0.7
+SLM_QUBITS = ("q0", "q6")
+SLM_FIRST_NS = 160
+FE_PLAIN_STEPS = 24
+FE_CKPT_PLAIN_STEPS = 8
+# (a)'s default-route gradient against the same step through K1/K2's plain
+# versions: a tenth of GRAD_TOL, so that a distance to the f64 stepper
+# past GRAD_TOL cannot come from the kernels
+PLAIN_GRAD_TOL = 1e-6
+FWD_ONLY = {"fused_fwd": 1, "fused_bwd": 0, "fused_fwd_ckpt": 0, "fused_bwd_ckpt": 0}
+
+
+def _local_model(torch, device, fused, **options):
+    """(a): bench.py's model with a local channel beside its global one;
+    returns (model, p0)."""
+    from pulser_diff_torch import QuantumModel
+    from pulser_diff_torch.core import (
+        BlackmanWaveform, ConstantWaveform, CustomWaveform, MockDevice, Pulse, RampWaveform,
+        Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    coords = [(SPACING * (i % 4), SPACING * (i // 4)) for i in range(N_QUBITS)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.declare_channel("loc", "rydberg_local", initial_target=LOCAL_A)
+    amp_var = seq.declare_variable("amp_samples", size=LOCAL_GLOBAL_NS)
+    area = seq.declare_variable("area", size=2)
+    seq.add(Pulse(CustomWaveform(amp_var, duration=LOCAL_GLOBAL_NS),
+                  ConstantWaveform(LOCAL_GLOBAL_NS, DET0), 0.0), "ryd")
+    seq.add(Pulse(BlackmanWaveform(160, area[0]), RampWaveform(160, -1.0, 1.0), 0.0), "loc",
+            protocol="no-delay")
+    seq.target(LOCAL_B, "loc")
+    seq.phase_shift(LOCAL_PHASE, *LOCAL_B, basis="ground-rydberg")
+    seq.add(Pulse(BlackmanWaveform(200, area[1]), RampWaveform(200, 1.0, -1.0), 0.0), "loc")
+    M = torch.as_tensor(_interpolate_sine_np(N_PARAMS, LOCAL_GLOBAL_NS), device=device)
+    p0 = np.linspace(1.0, 3.0, N_PARAMS)
+    model = QuantumModel(
+        seq, {"amp_samples": ((p0,), lambda v: M @ v), "area": LOCAL_AREAS},
+        sampling_rate=SAMPLING_RATE, evaluation_times="Minimal", device=device,
+        **({} if fused is None else {"fused": fused}), **options)
+    return model, p0
+
+
+def _local_value_and_grad(torch, model, p0, device):
+    """(value, gradient in the 8 parameters then the 2 areas, values)."""
+    p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
+    a = torch.tensor(LOCAL_AREAS, dtype=torch.float64, device=device, requires_grad=True)
+    _, vals = model.expectation_fn()({"amp_samples_0": p, "area": a})
+    vals[-1].backward()
+    return vals[-1].detach(), torch.cat([p.grad, a.grad]).detach(), vals.detach()
+
+
+def _modulated_sequence():
+    """(b): the 3x4 register on AnalogDevice: a Blackman pulse, an EOM
+    block of two pulses (the second phase-drift corrected), an
+    interpolated pulse."""
+    from pulser_diff_torch.core import (
+        AnalogDevice, BlackmanWaveform, ConstantWaveform, InterpolatedWaveform, Pulse,
+        RampWaveform, Register, Sequence,
+    )
+
+    seq = Sequence(Register.rectangle(3, 4, spacing=SPACING, prefix="q"), AnalogDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(Pulse(BlackmanWaveform(240, 1.0), RampWaveform(240, -4.0, 4.0), 0.0), "ryd")
+    seq.enable_eom_mode("ryd", 3.0, 0.0)
+    seq.add_eom_pulse("ryd", 64, 0.3)
+    seq.delay(40, "ryd")
+    seq.add_eom_pulse("ryd", 48, 0.5, correct_phase_drift=True)
+    seq.disable_eom_mode("ryd")
+    seq.add(Pulse(InterpolatedWaveform(200, [0.0, 6.0, 3.0, 0.0]), ConstantWaveform(200, -2.0),
+                  0.8), "ryd")
+    return seq
+
+
+def _xy_slm_model(torch, device, fused, n_qubits: int = N_QUBITS):
+    """(c) / (d): bench_xy.py's model under an SLM mask on SLM_QUBITS, its
+    first pulse a constant one ending at SLM_FIRST_NS, then the
+    8-parameter amplitude; q1's coordinates trainable."""
+    from pulser_diff_torch import QuantumModel
+    from pulser_diff_torch.core import (
+        ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    rest = XY_DURATION - SLM_FIRST_NS
+    coords = [(XY_SPACING * (i % 4), XY_SPACING * (i // 4)) for i in range(n_qubits)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("mw", "microwave_global")
+    seq.config_slm_mask(SLM_QUBITS)
+    amp_var = seq.declare_variable("amp_samples", size=rest)
+    seq.add(Pulse.ConstantPulse(SLM_FIRST_NS, 1.0, 0.0, 0.0), "mw")
+    seq.add(Pulse(CustomWaveform(amp_var, duration=rest), ConstantWaveform(rest, 0.0), 0.0),
+            "mw")
+    M = torch.as_tensor(_interpolate_sine_np(N_PARAMS, rest), device=device)
+    model = QuantumModel(
+        seq, {"amp_samples": ((XY_P0,), lambda v: M @ v), "q1": coords[1]},
+        sampling_rate=SAMPLING_RATE, evaluation_times="Minimal", device=device,
+        **({} if fused is None else {"fused": fused}))
+    return model, coords[1]
+
+
+def _slm_step(fe, data) -> int:
+    """The first step whose kron on/off streams differ from the first
+    step's (the SLM window's end), or 0 without kron pairs."""
+    if not fe._n_kron(data):
+        return 0
+    on = data["zkh_re"][0, :, :, 0]
+    changed = (on != on[0, 0]).any(-1).nonzero()
+    return int(changed[0]) if changed.numel() else 0
+
+
+def _fe_kernels(torch, fe, sim, substeps: int, device, gen, label: str, ckpt: bool, n=None,
+                reps: int = 3):
+    """The kernels of one phase-15 run at its shapes: K1 and K2, or K4 and
+    K5 with ``ckpt``, against their plain versions on every step, or on
+    ``n`` steps around the SLM window's end, then timed on every step
+    with their bounds (``_held_kernels``).  Returns {kernel: entry} with
+    pr, pc, K."""
+    data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
+    R_, n_steps, pr, pc = fe._dims(data)[:4]
+    K = fe._n_kron(data)
+    if ckpt:
+        plans = _ckpt_plans(torch, fe, data, label)
+        where = f"on {plans['K4']['blocks']} / {plans['K5']['blocks']} blocks"
+    else:
+        plan = _log_plan(fe, fe._library(), data, "DP5", label)
+        where = f"clusters {plan['K1']['C']} / {plan['K2']['C']} blocks"
+    start = 0 if n is None else _slm_step(fe, data) - n // 2
+    out, _ = _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt, n=n,
+                           start=start, reps=reps)
+    (a, ea), (b, eb) = out.items()
+    _log(f"  {label}: pr = {pr}, pc = {pc}, K = {K}, {n_steps} steps; {a} {ea['ms']:.3f} ms "
+         f"(bound {ea['bound']:.4f} ms by {ea['by']}), {b} {eb['ms']:.3f} ms (bound "
+         f"{eb['bound']:.4f} ms by {eb['by']}) (CUDA events, warm median of {reps}) {where}; "
+         f"plain {ea['plain_ms']:.1f} / {eb['plain_ms']:.1f} ms on {ea['plain_steps']} steps")
+    for e in out.values():
+        e.update(pr=pr, pc=pc, K=K)
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _plain_versions(fe):
+    """K1 and K2's wrappers replaced by their plain versions (which count
+    no launch) for the steps run inside."""
+    saved = fe.fused_fwd, fe.fused_bwd
+    fe.fused_fwd, fe.fused_bwd = fe.fused_fwd_plain, fe.fused_bwd_plain
+    try:
+        yield
+    finally:
+        fe.fused_fwd, fe.fused_bwd = saved
+
+
+def _entry(kname, src, replaces, launches, e, what):
+    """A phase-15 kernel entry: its shape in the name."""
+    return (f"{kname}, {what} (pr = {e['pr']}, pc = {e['pc']}, K = {e['K']}; plain_ms: "
+            f"{e['plain_steps']} steps)", src, replaces, launches, e)
+
+
+def _fe_local(torch, fe, device, gen):
+    """(a): the local-addressing model's value+grad on the default route
+    (K1/K2): the value against the f64 stepper, the gradient against the
+    same step's through K1/K2's plain versions, and its distance to the
+    f64 stepper's printed beside theirs; with ckpt=True (K4/K5) value and
+    gradient against the f64 stepper; the four kernels on every step
+    against their plain versions."""
+    label = "(a) 12 atoms, global + local channels"
+    model, p0 = _local_model(torch, device, fused=None)
+    (v, g, vals), la, first_ms = _counted(
+        torch, fe, label, lambda: _local_value_and_grad(torch, model, p0, device), K1K2)
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grad {g}")
+    step_ms, _ = _host_time_ms(torch, lambda: _local_value_and_grad(torch, model, p0, device), 3)
+    with _plain_versions(fe):
+        plain_ms, (vp, gp, _) = _host_time_ms(
+            torch, lambda: _local_value_and_grad(torch, model, p0, device), 1)
+    ck_model, _ = _local_model(torch, device, fused=None, ckpt=True)
+    (vc, gc, _), lc, _ = _counted(
+        torch, fe, f"{label}, ckpt=True",
+        lambda: _local_value_and_grad(torch, ck_model, p0, device), K4K5)
+    f64, _ = _local_model(torch, device, fused=False)
+    f64_ms, (v64, g64, _) = _host_time_ms(
+        torch, lambda: _local_value_and_grad(torch, f64, p0, device), 1)
+    dv, dg, dgp = abs(float(v) - float(v64)), (g - g64).abs(), (gp - g64).abs()
+    dvk, dgk = abs(float(v) - float(vp)), float((g - gp).abs().max())
+    _log(f"  {label}: launches {la}; value+grad {step_ms:.2f} ms warm median of 3 (first "
+         f"{first_ms:.1f} ms); through K1/K2's plain versions {plain_ms:.1f} ms, f64 stepper "
+         f"{f64_ms:.1f} ms (once each)")
+    _log(f"  {label}, default route (K1/K2): value {float(v)!r}  f64 {float(v64)!r}  |dv| "
+         f"{dv:.3e} (tol {VALUE_TOL:.0e}); against the plain versions' step |dv| {dvk:.3e} (tol "
+         f"{VALUE_TOL:.0e}), max|dg| {dgk:.3e} (tol {PLAIN_GRAD_TOL:.0e})")
+    _log(f"  {label}, default route (K1/K2) against the f64 stepper: max|dg| "
+         f"{float(dg[:-2].max()):.3e} on the 8 parameters, {float(dg[-2:].max()):.3e} on the 2 "
+         f"areas (|area grad| {float(g64[-2:].abs().max()):.4e}); the plain versions' step "
+         f"{float(dgp[:-2].max()):.3e} / {float(dgp[-2:].max()):.3e}: the lean adjoint's "
+         f"rebuild of each step's start state, not held; with ckpt=True (stored states) it is "
+         f"held at {GRAD_TOL:.0e}")
+    if dv > VALUE_TOL or dvk > VALUE_TOL or dgk > PLAIN_GRAD_TOL:
+        raise RuntimeError(f"{label}: value vs f64 {dv:.3e}; against the plain versions' step "
+                           f"|dv| {dvk:.3e}, |dg| {dgk:.3e}")
+    _hold_against_f64(torch, vc, gc, v64, g64, f"{label}, ckpt=True (K4/K5)")
+    substeps = model._default_substeps()
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    ks = _fe_kernels(torch, fe, sim, substeps, device, gen, label, ckpt=False)
+    ks.update(_fe_kernels(torch, fe, sim, substeps, device, gen, f"{label}, ckpt=True",
+                          ckpt=True))
+    what = "12 atoms global + local"
+    return [
+        _entry("fused_fwd_kernel (K1)", "fused_evolution.cu", 594, la["fused_fwd"], ks["K1"], what),
+        _entry("fused_bwd_kernel (K2)", "fused_evolution.cu", 1026, la["fused_bwd"], ks["K2"],
+               what),
+        _entry("fused_fwd_ckpt_kernel (K4)", "fused_ckpt.cu", 1479, lc["fused_fwd_ckpt"],
+               ks["K4"], what + " ckpt=True"),
+        _entry("fused_bwd_ckpt_kernel (K5)", "fused_ckpt.cu", 1511, lc["fused_bwd_ckpt"],
+               ks["K5"], what + " ckpt=True"),
+    ]
+
+
+def _fe_modulated(torch, fe, device, gen):
+    """(b): the modulated run() on the default route (one K1 launch), its
+    final state against the f64 stepper; K1 at its shape on every step
+    against its plain version."""
+    from pulser_diff_torch import TorchEmulator
+
+    label = "(b) 12 atoms AnalogDevice, modulated, EOM block"
+    seq = _modulated_sequence()
+    sim = TorchEmulator.from_sequence(seq, sampling_rate=SAMPLING_RATE,
+                                      evaluation_times="Minimal", with_modulation=True,
+                                      device=device)
+    res, lb, first_ms = _counted(torch, fe, label, lambda: sim.run(), FWD_ONLY)
+    run_ms, _ = _host_time_ms(torch, lambda: sim.run(), 3)
+    ref = sim.run(fused=False)
+    err = max(_max_err(res.states.re[-1], ref.states.re[-1]),
+              _max_err(res.states.im[-1], ref.states.im[-1]))
+    _log(f"  {label}: {seq.get_duration()} ns programmed, {sim._tot_duration} ns modulated "
+         f"(fall time {seq.declared_channels['ryd'].fall_time} ns), EOM blocks "
+         f"{seq._eom_blocks['ryd']}; launches {lb}; run() {run_ms:.2f} ms warm median of 3 "
+         f"(first {first_ms:.1f} ms); final state vs the f64 stepper max|diff| {err:.3e} (tol "
+         f"{VALUE_TOL:.0e})")
+    if not torch.isfinite(res.states.re).all() or err > VALUE_TOL:
+        raise RuntimeError(f"{label}: final state vs f64 {err:.3e} > {VALUE_TOL:.0e}")
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, ckpt=False)
+    return [_entry("fused_fwd_kernel (K1)", "fused_evolution.cu", 594, lb["fused_fwd"], ks["K1"],
+                   "12 atoms modulated run()")]
+
+
+def _fe_xy_slm(torch, fe, device, gen, n: int):
+    """(c) / (d): the XY value+grad under an SLM mask at ``n`` atoms on the
+    default route (K1/K2 at 12 atoms, K4/K5 at 16), value, gradient and
+    q1's coordinate gradient against the f64 stepper; the kernels at its
+    doubled kron pairs against their plain versions."""
+    ckpt = n > N_QUBITS
+    want = K4K5 if ckpt else K1K2
+    label = f"({'d' if ckpt else 'c'}) {n} atoms XY, SLM mask on {SLM_QUBITS}"
+    model, c1 = _xy_slm_model(torch, device, fused=None, n_qubits=n)
+    (v, g, cg, vals), lx, first_ms = _counted(
+        torch, fe, label, lambda: _xy_value_and_grad(torch, model, c1, device), want)
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()
+                                  and torch.isfinite(cg).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grad {g}, coords {cg}")
+    reps = 1 if ckpt else 3  # a 16-atom step takes seconds
+    step_ms, _ = _host_time_ms(torch, lambda: _xy_value_and_grad(torch, model, c1, device),
+                               reps)
+    f64, _ = _xy_slm_model(torch, device, fused=False, n_qubits=n)
+    t0 = time.perf_counter()
+    v64, g64, c64, _ = _xy_value_and_grad(torch, f64, c1, device)
+    torch.cuda.synchronize()
+    f64_ms = (time.perf_counter() - t0) * 1e3
+    del f64
+    dv, dg, dc = (abs(float(v) - float(v64)), float((g - g64).abs().max()),
+                  float((cg - c64).abs().max()))
+    _log(f"  {label}: launches {lx}; value+grad {step_ms:.2f} ms warm median of {reps} (first "
+         f"{first_ms:.1f} ms); f64 stepper {f64_ms:.1f} ms (once)")
+    _log(f"  {label}: value {float(v)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} (tol "
+         f"{VALUE_TOL:.0e}); max|dg| {dg:.3e}, max|dc| {dc:.3e} (tol {GRAD_TOL:.0e}), "
+         f"coordinate grad {cg.cpu().numpy().tolist()!r}")
+    if dv > VALUE_TOL or dg > GRAD_TOL or dc > GRAD_TOL or float(cg.abs().max()) == 0.0:
+        raise RuntimeError(f"{label}: fused path vs f64 stepper: |dv| {dv:.3e}, "
+                           f"|dg| {dg:.3e}, |dc| {dc:.3e}")
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    ks = _fe_kernels(torch, fe, sim, model._default_substeps(), device, gen, label, ckpt=ckpt,
+                     n=FE_CKPT_PLAIN_STEPS if ckpt else FE_PLAIN_STEPS, reps=reps)
+    del model, sim
+    torch.cuda.empty_cache()
+    what = f"{n} atoms XY SLM"
+    if ckpt:
+        return [_entry("fused_fwd_ckpt_kernel with its kron-pair branch (K4, K3)",
+                       "fused_ckpt.cu", 1479, lx["fused_fwd_ckpt"], ks["K4"], what),
+                _entry("fused_bwd_ckpt_kernel with its kron-pair branch (K5, K3)",
+                       "fused_ckpt.cu", 1511, lx["fused_bwd_ckpt"], ks["K5"], what)]
+    return [_entry("fused_fwd_kernel with its kron-pair branch (K1, K3)", "fused_evolution.cu",
+                   594, lx["fused_fwd"], ks["K1"], what),
+            _entry("fused_bwd_kernel with its kron-pair branch (K2, K3)", "fused_evolution.cu",
+                   1026, lx["fused_bwd"], ks["K2"], what)]
+
+
+def _front_end_phase(torch, fe, device, gen, xy16: int = 16):
+    """Phase 15: (a) the local-addressing model, (b) the modulated run(),
+    (c) the 12-atom XY SLM step (K1/K2, K = 16), (d) the 16-atom one
+    (K4/K5, K = 20).  Returns the kernels' entries."""
+    return (_fe_local(torch, fe, device, gen) + _fe_modulated(torch, fe, device, gen)
+            + _fe_xy_slm(torch, fe, device, gen, N_QUBITS)
+            + _fe_xy_slm(torch, fe, device, gen, xy16))
+
 def main() -> int:
     import torch
 
@@ -2100,8 +2449,10 @@ def main() -> int:
         sim = fused_model._make_emulator(dict(fused_model.params))
     data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
     plan12 = _log_plan(fe, fe._library(), data, "DP5", "12 atoms (main path)")
+    main_plain: dict = {}  # the plain versions' times (once), reported in phase 7
     k1_err, k2_err, _, (st_re, st_im, lam_re, lam_im) = _check_kernels(
-        torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms (main path)")
+        torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms (main path)",
+        main_plain)
     _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, (st_re, st_im, lam_re, lam_im),
                  "12 atoms")
     small = []
@@ -2178,7 +2529,7 @@ def main() -> int:
     d16, _, _, _ = _kernel_inputs(torch, sim16, substeps16, device)
     del sim16
     k4_err, k5_err, _, (st16_re, st16_im, lam16_re, lam16_im) = _check_ckpt(
-        torch, fe, d16, "DP5", gen, "16 atoms (main path)")
+        torch, fe, d16, "DP5", gen, "16 atoms (main path)", main_plain)
     plans16 = _ckpt_plans(torch, fe, d16, "16 atoms")
     _two_k5_runs(torch, fe, d16, (st16_re, st16_im, lam16_re, lam16_im), "16 atoms")
     # the kron-pair branches (K3) at the XY shapes (after the ising checks,
@@ -2247,18 +2598,15 @@ def main() -> int:
     _log("phase 7 times (CUDA events, warm medians)")
     n_kernel = 10
     k1_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(data, "DP5", slots, n_eval), n_kernel)
-    k1_plain_ms = _cuda_time_ms(
-        torch, lambda: fe.fused_fwd_plain(data, "DP5", slots, n_eval), 3)
     k2_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd(
         data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im), n_kernel)
-    k2_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_plain(
-        data, "DP5", slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im), 3)
     k4_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt(d16, "DP5"), n_kernel)
-    k4_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd_ckpt_plain(d16, "DP5"), 2)
     k5_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt(
         d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), n_kernel)
-    k5_plain_ms = _cuda_time_ms(torch, lambda: fe.fused_bwd_ckpt_plain(
-        d16, "DP5", st16_re, st16_im, lam16_re, lam16_im), 2)
+    # the plain versions ran once in phase 3 (host-bound loops of small
+    # launches, seconds each), on the same inputs
+    k1_plain_ms, k2_plain_ms = main_plain["k1_plain"], main_plain["k2_plain"]
+    k4_plain_ms, k5_plain_ms = main_plain["k4_plain"], main_plain["k5_plain"]
     step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, fused_model, p0, device), 5)
     step16_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model16, p0, device), 5)
     S = 6
@@ -2355,6 +2703,13 @@ def main() -> int:
          f"ms an evaluation; noisy steps {train['K2']['step_ms']:.2f} ms (12 atoms), "
          f"{train['K5']['step_ms']:.2f} ms (16 atoms)")
 
+    # 15. the rest of the front end: local channels, modulation and EOM,
+    # the SLM mask's doubled kron pairs
+    _log("phase 15 front end: (a) 12-atom global + local channels value+grad (K1/K2; K4/K5 "
+         "with ckpt=True), (b) 12-atom modulated run() with an EOM block (K1), (c) 12-atom XY "
+         "under an SLM mask (K1/K2), (d) 16-atom XY under an SLM mask (K4/K5)")
+    front = _front_end_phase(torch, fe, device, gen)
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -2379,13 +2734,19 @@ def main() -> int:
               xy_step["launches"]["fused_bwd"], xy["k2_err"], k2x_ms, plain["k2_plain"],
               k2x_bound, k2x_by),
     ]
-    # the runs axis (population) and K4/K5 at 18 atoms (fused=True); each
-    # with the launches of its own path's run
+    # the runs axis (population; its plain versions timed on the first
+    # PLAIN_STEPS steps) and K4/K5 at 18 atoms (fused=True); each with the
+    # launches of its own path's run
+    cut = f"(plain_ms: first {PLAIN_STEPS} steps)"
     for kname, src, replaces, e in (
-        (f"fused_fwd_kernel (K1), population R = {POP_12}", "fused_evolution.cu", 594, pop12[0]),
-        (f"fused_bwd_kernel (K2), population R = {POP_12}", "fused_evolution.cu", 1026, pop12[1]),
-        (f"fused_fwd_ckpt_kernel (K4), population R = {POP_16}", "fused_ckpt.cu", 1479, pop16[0]),
-        (f"fused_bwd_ckpt_kernel (K5), population R = {POP_16}", "fused_ckpt.cu", 1511, pop16[1]),
+        (f"fused_fwd_kernel (K1), population R = {POP_12} {cut}", "fused_evolution.cu", 594,
+         pop12[0]),
+        (f"fused_bwd_kernel (K2), population R = {POP_12} {cut}", "fused_evolution.cu", 1026,
+         pop12[1]),
+        (f"fused_fwd_ckpt_kernel (K4), population R = {POP_16} {cut}", "fused_ckpt.cu", 1479,
+         pop16[0]),
+        (f"fused_bwd_ckpt_kernel (K5), population R = {POP_16} {cut}", "fused_ckpt.cu", 1511,
+         pop16[1]),
         ("fused_fwd_ckpt_kernel (K4), 18 atoms fused=True", "fused_ckpt.cu", 1479, big["K4"]),
         ("fused_bwd_ckpt_kernel (K5), 18 atoms fused=True", "fused_ckpt.cu", 1511, big["K5"]),
     ):
@@ -2406,6 +2767,9 @@ def main() -> int:
         kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
                              e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
                              e["by"]))
+    for kname, src, replaces, count, e in front:
+        kernels.append(entry(kname, src, replaces, count, e["err"], e["ms"], e["plain_ms"],
+                             e["bound"], e["by"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

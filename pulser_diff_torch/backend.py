@@ -138,8 +138,8 @@ class TorchEmulator:
             self.torch_device,
         )
         self.set_evaluation_times(evaluation_times)
-        # the port has no measure(): the basis is the Hamiltonian's
-        self._meas_basis = self._hamiltonian.basis_name
+        # the sequence's measurement basis, else the Hamiltonian's
+        self._meas_basis = self.samples_obj._measurement or self._hamiltonian.basis_name
         self.set_initial_state("all-ground")
         # pair distances, filled by run(dist_grad=True)
         self.dist_dict: dict[str, torch.Tensor] = {}
@@ -738,15 +738,18 @@ class TorchEmulator:
         sampling_rate: float = 1.0,
         config: Optional[SimConfig] = None,
         evaluation_times: Union[float, str, Any] = "Full",
+        with_modulation: bool = False,
         *,
         device: DeviceLike = None,
     ) -> "TorchEmulator":
         """Build an emulator straight from a built Sequence, on ``device``
-        (CUDA unless ``"cpu"`` is passed)."""
+        (CUDA unless ``"cpu"`` is passed); ``with_modulation=True`` samples
+        the channels' modulated output, on a grid longer by the fall
+        time."""
         torch_device = resolve_device(device)
         if not isinstance(sequence, Sequence):
             raise TypeError("The provided sequence has to be a valid Sequence instance.")
-        if sequence.is_parametrized():
+        if sequence.is_parametrized() or sequence.is_register_mappable():
             raise ValueError(
                 "The provided sequence needs to be built to be simulated. "
                 "Call `Sequence.build()` with the necessary parameters."
@@ -755,8 +758,15 @@ class TorchEmulator:
             raise ValueError("The provided sequence has no declared channels.")
         if all(not slots or slots[-1].tf == 0 for slots in sequence._schedule.values()):
             raise ValueError("No instructions given for the channels in the sequence.")
+        if with_modulation and sequence._slm_mask_targets:
+            raise NotImplementedError(
+                "Simulation of sequences combining an SLM mask and output "
+                "modulation is not supported."
+            )
         return cls(
-            sample(sequence, extended_duration=sequence.get_duration(), device=torch_device),
+            sample(sequence, modulation=with_modulation,
+                   extended_duration=sequence.get_duration(include_fall_time=with_modulation),
+                   device=torch_device),
             sequence.register,
             sequence.device,
             sampling_rate,

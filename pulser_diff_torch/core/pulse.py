@@ -5,13 +5,16 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+import torch
+
 from pulser_diff_torch.core.variables import Expr, evaluate
-from pulser_diff_torch.core.waveforms import ConstantWaveform, Waveform
+from pulser_diff_torch.core.waveforms import ConstantWaveform, CustomWaveform, Waveform
 
 
 class Pulse:
     """A pulse on a channel: amplitude wf (rad/us, >=0), detuning wf
-    (rad/us) and a carrier phase (rad)."""
+    (rad/us), a carrier phase (rad) and a phase shift applied to its
+    targets' phase reference at its end."""
 
     def __init__(
         self,
@@ -66,6 +69,42 @@ class Pulse:
             phase,
             post_phase_shift,
         )
+
+    @classmethod
+    def ConstantAmplitude(
+        cls, amplitude: Any, detuning: Waveform, phase: Any,
+        post_phase_shift: Any = 0.0,
+    ) -> "Pulse":
+        return cls(ConstantWaveform(detuning._duration, amplitude), detuning, phase,
+                   post_phase_shift)
+
+    @classmethod
+    def ConstantDetuning(
+        cls, amplitude: Waveform, detuning: Any, phase: Any,
+        post_phase_shift: Any = 0.0,
+    ) -> "Pulse":
+        return cls(amplitude, ConstantWaveform(amplitude._duration, detuning), phase,
+                   post_phase_shift)
+
+    @classmethod
+    def ArbitraryPhase(
+        cls, amplitude: Waveform, phase: Waveform, post_phase_shift: Any = 0.0,
+    ) -> "Pulse":
+        """Pulse with a time-dependent carrier phase phi(t): a phase
+        modulation is a detuning delta(t) = -dphi/dt, so the pulse gets a
+        CustomWaveform detuning equal to minus the phase's derivative
+        (central differences, rad/ns -> rad/us) and the carrier phase
+        phi(0).  Neither waveform may be parametrized."""
+        if not isinstance(phase, Waveform):
+            raise TypeError("ArbitraryPhase requires a phase Waveform.")
+        if amplitude.is_parametrized or phase.is_parametrized:
+            raise NotImplementedError(
+                "ArbitraryPhase does not support parametrized waveforms: build() them first."
+            )
+        ph = phase.samples
+        det = -torch.gradient(ph)[0] * 1e3
+        return cls(amplitude, CustomWaveform(det, duration=phase.duration), ph[0],
+                   post_phase_shift)
 
     def __repr__(self) -> str:
         return f"Pulse({self.amplitude!r}, {self.detuning!r}, phase={self.phase})"

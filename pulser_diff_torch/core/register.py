@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Any, Iterable, Mapping
 
+import numpy as np
 import torch
 
 from pulser_diff_torch.config import DTYPE
@@ -57,8 +58,13 @@ class Register:
         coords: Iterable[Any],
         prefix: str | None = None,
         labels: Iterable[QubitId] | None = None,
+        center: bool = False,
     ) -> "Register":
         coords = list(coords)
+        if center:
+            arr = torch.stack([torch.as_tensor(c, dtype=DTYPE) for c in coords])
+            arr = arr - arr.mean(dim=0)
+            coords = list(arr)
         if labels is not None:
             ids = list(labels)
             if len(ids) != len(coords):
@@ -68,6 +74,110 @@ class Register:
         else:
             ids = list(range(len(coords)))
         return cls(dict(zip(ids, coords)))
+
+    @classmethod
+    def rectangle(cls, rows: int, columns: int, spacing: float = 4.0,
+                  prefix: str | None = None) -> "Register":
+        xs, ys = np.meshgrid(np.arange(columns), np.arange(rows))
+        coords = np.stack([xs.ravel(), ys.ravel()], axis=-1) * spacing
+        return cls.from_coordinates(coords - coords.mean(axis=0), prefix=prefix)
+
+    @classmethod
+    def square(cls, side: int, spacing: float = 4.0, prefix: str | None = None) -> "Register":
+        return cls.rectangle(side, side, spacing, prefix)
+
+    @classmethod
+    def linear(cls, n: int, spacing: float = 4.0, prefix: str | None = None) -> "Register":
+        coords = np.stack([np.arange(n) * spacing, np.zeros(n)], axis=-1)
+        return cls.from_coordinates(coords - coords.mean(axis=0), prefix=prefix)
+
+    @classmethod
+    def triangular_lattice(cls, rows: int, atoms_per_row: int, spacing: float = 4.0,
+                           prefix: str | None = None) -> "Register":
+        coords = [((c + 0.5 * (r % 2)) * spacing, r * spacing * np.sqrt(3) / 2)
+                  for r in range(rows) for c in range(atoms_per_row)]
+        arr = np.asarray(coords)
+        return cls.from_coordinates(arr - arr.mean(axis=0), prefix=prefix)
+
+    @staticmethod
+    def _hex_ring(ring: int) -> list:
+        """The 6 ring triangular-lattice points at hex distance ``ring`` from
+        the origin (axial coordinates (i, j), basis a = (1, 0),
+        b = (1/2, sqrt(3)/2); ring = max(|i|, |j|, |i + j|)), sorted by
+        angle."""
+        a = np.array([1.0, 0.0])
+        b = np.array([0.5, np.sqrt(3) / 2])
+        pts = [i * a + j * b
+               for i in range(-ring, ring + 1) for j in range(-ring, ring + 1)
+               if max(abs(i), abs(j), abs(i + j)) == ring]
+        pts.sort(key=lambda p: np.arctan2(p[1], p[0]))
+        return pts
+
+    @classmethod
+    def hexagon(cls, layers: int, spacing: float = 4.0, prefix: str | None = None) -> "Register":
+        """A central atom plus ``layers`` full rings on the triangular
+        lattice (1 + 3 L (L + 1) atoms)."""
+        if layers < 1:
+            raise ValueError("hexagon needs at least one layer.")
+        pts = [np.zeros(2)]
+        for ring in range(1, layers + 1):
+            pts.extend(cls._hex_ring(ring))
+        arr = np.asarray(pts) * spacing
+        return cls.from_coordinates(arr - arr.mean(axis=0), prefix=prefix)
+
+    @classmethod
+    def max_connectivity(cls, n_qubits: int, device, spacing: float | None = None,
+                         prefix: str | None = None) -> "Register":
+        """The first ``n_qubits`` sites of a triangular lattice at the
+        device's minimal atom distance, spiralling out from the center."""
+        if n_qubits < 1:
+            raise ValueError("Need at least one qubit.")
+        if spacing is None:
+            spacing = float(device.min_atom_distance)
+            if spacing <= 0:
+                raise ValueError(
+                    f"Device '{device.name}' has no minimal atom distance; "
+                    "pass an explicit spacing."
+                )
+        elif spacing < float(device.min_atom_distance):
+            raise ValueError(
+                f"spacing {spacing} below the device minimum {device.min_atom_distance}."
+            )
+        pts = [np.zeros(2)]
+        ring = 1
+        while len(pts) < n_qubits:
+            pts.extend(cls._hex_ring(ring))
+            ring += 1
+        arr = np.asarray(pts[:n_qubits]) * spacing
+        return cls.from_coordinates(arr - arr.mean(axis=0), prefix=prefix)
+
+    @classmethod
+    def cuboid(cls, rows: int, columns: int, layers: int, spacing: float = 4.0,
+               prefix: str | None = None) -> "Register":
+        """3D grid of rows x columns x layers atoms."""
+        zs, ys, xs = np.meshgrid(np.arange(layers), np.arange(rows), np.arange(columns),
+                                 indexing="ij")
+        coords = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=-1) * spacing
+        return cls.from_coordinates(coords - coords.mean(axis=0), prefix=prefix)
+
+    @classmethod
+    def cubic(cls, side: int, spacing: float = 4.0, prefix: str | None = None) -> "Register":
+        """side^3 cubic lattice."""
+        return cls.cuboid(side, side, side, spacing, prefix)
+
+    def rotated(self, degrees: float) -> "Register":
+        """New register with all coordinates rotated counterclockwise around
+        the origin (2D only)."""
+        if self._dim != 2:
+            raise ValueError("rotated() only applies to 2D registers.")
+        th = np.deg2rad(degrees)
+        rot = torch.as_tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]],
+                              dtype=DTYPE)
+        return Register({qid: rot.to(c.device) @ c for qid, c in self._coords.items()})
+
+    def with_coords(self, coords: Mapping[QubitId, Any]) -> "Register":
+        """New register with (a subset of) coordinates replaced."""
+        return Register({**self._coords, **coords})
 
     def __repr__(self) -> str:
         return f"Register({self._coords})"

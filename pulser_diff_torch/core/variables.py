@@ -51,13 +51,46 @@ class Expr:
     def __truediv__(self, o: Any) -> "Expr":
         return self._binop(o, operator.truediv, "div")
 
+    def __rtruediv__(self, o: Any) -> "Expr":
+        return self._binop(o, operator.truediv, "div", reverse=True)
+
+    def __pow__(self, o: Any) -> "Expr":
+        return self._binop(o, operator.pow, "pow")
+
     def __neg__(self) -> "Expr":
         return OpCall(operator.neg, (self,), "neg")
+
+    def __abs__(self) -> "Expr":
+        return OpCall(_unary(torch.abs), (self,), "abs")
 
     def __getitem__(self, idx: int) -> "Expr":
         if isinstance(self, Variable):
             return VariableItem(self, idx)
         return OpCall(lambda x: x[idx], (self,), f"getitem[{idx}]")
+
+    # the math functions of pulser's ParamObj
+    def tanh(self) -> "Expr":
+        return OpCall(_unary(torch.tanh), (self,), "tanh")
+
+    def sin(self) -> "Expr":
+        return OpCall(_unary(torch.sin), (self,), "sin")
+
+    def cos(self) -> "Expr":
+        return OpCall(_unary(torch.cos), (self,), "cos")
+
+    def exp(self) -> "Expr":
+        return OpCall(_unary(torch.exp), (self,), "exp")
+
+    def sqrt(self) -> "Expr":
+        return OpCall(_unary(torch.sqrt), (self,), "sqrt")
+
+    def log(self) -> "Expr":
+        return OpCall(_unary(torch.log), (self,), "log")
+
+
+def _unary(fn: Callable) -> Callable:
+    """``fn`` on a tensor, a number made an f64 tensor first."""
+    return lambda x: fn(x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=DTYPE))
 
 
 class Variable(Expr):
@@ -144,3 +177,7 @@ class OpCall(Expr):
 def evaluate(x: Any, values: Mapping[str, Any]) -> Any:
     """Evaluate ``x`` if it is an Expr, else return it unchanged."""
     return x.evaluate(values) if isinstance(x, Expr) else x
+
+
+def contains_expr(x: Any) -> bool:
+    return isinstance(x, Expr)

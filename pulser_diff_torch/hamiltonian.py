@@ -11,11 +11,12 @@ as kron pairs.  Physics as in the JAX package:
   - van der Waals C6/r^6 n_i n_j;
   - XY C3 (1 - 3 cos^2 theta)/r^3 (sigma+ sigma- + h.c.), theta the angle
     between the pair and the magnetic field.
-The port has the ground-rydberg basis of the global Rydberg channel and
-the XY basis of the global microwave channel (no local channels, digital
-or all bases, SLM masks).  The interaction weights are differentiable in
-the qubit coordinates, or in the pair distances set through
-``_dist_override``.
+The port has the ground-rydberg basis of the global and local Rydberg
+channels and the XY basis of the microwave channel, with the SLM mask in
+both (the masked qubits' amplitude zeroed in its window in ising mode;
+the XY terms time-windowed); a Raman channel (the digital and all bases)
+raises.  The interaction weights are differentiable in the qubit
+coordinates, or in the pair distances set through ``_dist_override``.
 
 Noise as in the JAX package: ``draw_noise`` draws one run's bad atoms
 (SPAM state preparation), Doppler detunings and per-slot amplitude
@@ -220,6 +221,10 @@ class Hamiltonian:
         self._dist_override: dict[str, torch.Tensor] = {}
         self._last_dist: tuple = ((), None)  # (qubit ids, (n, n) distances) of the last build
         self._interaction = "XY" if samples_obj._in_xy else "ising"
+        if self._interaction == "ising" and "digital" in samples_obj.used_bases:
+            raise NotImplementedError(
+                "A Raman (digital-basis) channel needs the digital and all bases (ROADMAP "
+                "queue 1 item 8), which are not ported yet.")
         self.basis_name = "XY" if self._interaction == "XY" else "ground-rydberg"
         self.dim, self._basis_labels = _BASIS_TABLE[self.basis_name]
         self._size = len(self._qdict)
@@ -584,9 +589,11 @@ class Hamiltonian:
           - cross pairs, grouped by row site i -> (s+_i lift,
             sum_{j>=a} W_ij s-_j lift)
 
-        W carries the coordinates' gradient into R_k / C_k.  This is the
-        unmasked branch: the JAX package time-windows the terms with on/off
-        streams under an SLM mask, and the port has no SLM mask yet."""
+        W carries the coordinates' gradient into R_k / C_k.  Under an SLM
+        mask the terms come twice, the full set over W and the masked set
+        over W without the masked qubits' pairs, time-windowed by on/off
+        streams: the masked set inside the mask's window, the full set
+        after it."""
         d, a, b = self.dim, self._a, self._b
         da, db = d**a, d**b
         dev = W.device
@@ -603,28 +610,48 @@ class Hamiltonian:
         du_row = [lift(sig_du, i, a) for i in range(a)]
         ud_col = [lift(sig_ud, j, b) for j in range(b)]
         du_col = [lift(sig_du, j, b) for j in range(b)]
-        rows, cols = [], []
-        # within-row pairs
-        if a >= 2:
-            m = torch.zeros(da, da, dtype=DTYPE, device=dev)
-            for i in range(a):
-                for j in range(i + 1, a):
-                    m = m + W[i, j] * t(ud_row[i] @ du_row[j])
-            rows.append(m)
-            cols.append(torch.eye(db, dtype=DTYPE, device=dev))
-        # within-col pairs
-        if b >= 2:
-            m = torch.zeros(db, db, dtype=DTYPE, device=dev)
-            for i in range(b):
-                for j in range(i + 1, b):
-                    m = m + W[a + i, a + j] * t(ud_col[i] @ du_col[j])
-            rows.append(torch.eye(da, dtype=DTYPE, device=dev))
-            cols.append(m)
-        # cross pairs grouped by row site
-        if a and b:
-            du_col_j = t(np.stack(du_col))  # (b, db, db)
-            for i in range(a):
-                rows.append(t(ud_row[i]))
-                cols.append(torch.einsum("j,jcd->cd", W[i, a:], du_col_j))
-        zs = torch.ones(len(rows), n_samples, dtype=DTYPE, device=dev)
+
+        def build_set(Wset: torch.Tensor) -> tuple[list, list]:
+            rows, cols = [], []
+            # within-row pairs
+            if a >= 2:
+                m = torch.zeros(da, da, dtype=DTYPE, device=dev)
+                for i in range(a):
+                    for j in range(i + 1, a):
+                        m = m + Wset[i, j] * t(ud_row[i] @ du_row[j])
+                rows.append(m)
+                cols.append(torch.eye(db, dtype=DTYPE, device=dev))
+            # within-col pairs
+            if b >= 2:
+                m = torch.zeros(db, db, dtype=DTYPE, device=dev)
+                for i in range(b):
+                    for j in range(i + 1, b):
+                        m = m + Wset[a + i, a + j] * t(ud_col[i] @ du_col[j])
+                rows.append(torch.eye(da, dtype=DTYPE, device=dev))
+                cols.append(m)
+            # cross pairs grouped by row site
+            if a and b:
+                du_col_j = t(np.stack(du_col))  # (b, db, db)
+                for i in range(a):
+                    rows.append(t(ud_row[i]))
+                    cols.append(torch.einsum("j,jcd->cd", Wset[i, a:], du_col_j))
+            return rows, cols
+
+        mask_end = self.samples_obj._slm_mask.end
+        if mask_end > 0:
+            # the full set off and the masked set (no pair with a masked
+            # qubit) on inside the mask's window
+            unmask = np.ones(self._size)
+            for q in self.samples_obj._slm_mask.targets:
+                unmask[self._qid_index[q]] = 0.0
+            rows_f, cols_f = build_set(W)
+            rows_m, cols_m = build_set(W * t(np.outer(unmask, unmask)))
+            coeff = np.ones(self._duration - 1)
+            coeff[:mask_end] = 0.0
+            on = self._adapt_to_sampling_rate(t(coeff))[:n_samples]
+            rows, cols = rows_f + rows_m, cols_f + cols_m
+            zs = torch.stack([on] * len(rows_f) + [1.0 - on] * len(rows_m))
+        else:
+            rows, cols = build_set(W)
+            zs = torch.ones(len(rows), n_samples, dtype=DTYPE, device=dev)
         return torch.stack(rows), torch.stack(cols), Cplx(zs, torch.zeros_like(zs))

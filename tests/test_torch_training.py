@@ -134,9 +134,13 @@ def test_constant_waveform_matches_jax():
         got = twf.constant_waveform(ti if isinstance(ti, int) else f64(ti), f64(tf), f64(value),
                                     steep)(f64(t))
         np.testing.assert_allclose(to_numpy(got), np.asarray(want), rtol=0, atol=F64_TOL)
-    seq = _param_seq(tcore)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        twf.constant_waveform(0, seq.declared_variables["omega"], 1.0)
+    # a sequence variable as the end time: a deferred Expr in both packages
+    jvar, tvar = (_param_seq(c).declared_variables["omega"] for c in (jcore, tcore))
+    jexpr = jwf.constant_waveform(0, jvar, 1.3)(jnp.asarray(t))
+    texpr = twf.constant_waveform(0, tvar, 1.3)(torch.as_tensor(t, dtype=torch.float64))
+    assert texpr.variables() == {"omega"}
+    np.testing.assert_allclose(to_numpy(texpr.evaluate({"omega": 0.12})),
+                               np.asarray(jexpr.evaluate({"omega": 0.12})), rtol=0, atol=F64_TOL)
 
 
 def test_duration_grid_and_samples_match_jax():
