@@ -81,8 +81,8 @@ Phases (each raises on failure, so the script exits non-zero):
      with sample_state; the device sampler's bit marginals within 5
      standard errors of the exact mixture's, without and with detection
      flips (20000 samples a run, 8 runs);
- 12. the Lindblad path of bench_mesolve.py (no kernel on it, as in the JAX
-     package; every count stays 0): the 10-atom value+grad step through
+ 12. the Lindblad path of bench_mesolve.py at half its duration (200 ns;
+     no kernel on it, as in the JAX package; every count stays 0): the 10-atom value+grad step through
      QuantumModel with dephasing (DP5_ME, the dense form at dim 1024)
      against the factored form (1e-10 on the value, 1e-8 on the gradient)
      and DP5_ME_F32 (1e-5 / 1e-5), its final trace within 1e-10 of 1, its
@@ -92,7 +92,7 @@ Phases (each raises on failure, so the script exits non-zero):
      trace and Hermiticity within 1e-10, time and peak; dephasing +
      doppler run() at 8 atoms, R = 4 (one mesolve a run), counts summing
      to runs x samples_per_run;
- 13. quantum-jump trajectories (bench_mcwf.py, no kernel): the 3-atom
+ 13. quantum-jump trajectories (bench_mcwf.py at 200 ns, no kernel): the 3-atom
      run(solver="MCWF", n_traj=1024) populations against DP5_ME within
      4/sqrt(R); 12 atoms MCWF_F32 at R = 64, timed, its final counts
      summing to 1; at 10 atoms expectation_mcwf_fn's value and gradient
@@ -128,7 +128,27 @@ Phases (each raises on failure, so the script exits non-zero):
      gradient against the f64 stepper at 1e-6 / 1e-5 / 1e-5; every kernel
      at these shapes against its plain version (on every step in (a) and
      (b), on a window around the SLM window's end in (c) and (d)), timed,
-     with its bound.
+     with its bound;
+ 16. the other bases: bench.py's model with a raman_global pulse of
+     trainable amplitude beside its rydberg_global one (the all basis,
+     three levels a site, da = 3^a; the total Rydberg occupation) through
+     QuantumModel on the default route: at 2 and 6 atoms (3 x 3, 27 x 27)
+     one K1 and one K2 launch on a cluster of one block (C = 1), at 6 atoms
+     with ckpt=True one K4 and one K5 launch; at 8 atoms (81 x 81) K1/K2's
+     plan refuses on the host before any launch and the step takes one K4
+     and one K5 launch, as at 10 atoms (243 x 243, dim 59049); (c)
+     bench.py's model on raman_global alone (the digital basis, 64 x 64, no
+     interaction, K1/K2 at C = 16); each step against the f64 stepper at
+     1e-6 / 1e-5 with its time and peak device memory, its kernels against
+     their plain versions (on every step; at 8 and 10 atoms on the first
+     PLAIN_STEPS), timed with their bounds; (d) a 4-atom Lindblad run() on
+     the leakage-extended basis (dim 81, no kernel): the dense and
+     factored forms within 1e-10, trace and Hermiticity 1e-10, the weights
+     reading |x> as 0; (e) at 12 atoms (f64 stepper, no kernel)
+     expectation_fn_of_times and deriv_time with the pulse boundaries
+     repaired, against a central difference at three interior times, and
+     deriv_param at the final time against a central difference along the
+     gradient, 1e-5 relative, timed.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -1415,7 +1435,8 @@ def _mc_phase(torch, fe, device, gen):
 
 
 # the Lindblad workload of bench_mesolve.py: a 4-wide lattice at 8 um,
-# 400 ns, a 4-parameter sine-interpolated amplitude, detuning -1 rad/us,
+# 400 ns (200 ns here: ME_DURATION), a 4-parameter sine-interpolated
+# amplitude, detuning -1 rad/us,
 # dephasing 0.05 rad/us, sampling_rate 0.5; the final total magnetization
 # and its gradient in the 4 parameters
 # phase 14, training: bench.py's loss (the final total magnetization), the
@@ -1745,7 +1766,9 @@ def _training_phase(torch, fe, device, p0, gen):
     return {"K2": k2, "K5": k5, "chunks": chunks, **fit}
 
 
-ME_DURATION = 400
+# bench_mesolve.py's pulse runs 400 ns; phases 12 and 13 run it for 200 ns
+# (101 steps), the depth cut that keeps the script inside its time limit
+ME_DURATION = 200
 ME_PARAMS = 4
 ME_SPACING = 8.0
 ME_DET0 = -1.0
@@ -2208,8 +2231,8 @@ def _slm_step(fe, data) -> int:
 
 def _fe_kernels(torch, fe, sim, substeps: int, device, gen, label: str, ckpt: bool, n=None,
                 reps: int = 3):
-    """The kernels of one phase-15 run at its shapes: K1 and K2, or K4 and
-    K5 with ``ckpt``, against their plain versions on every step, or on
+    """The kernels of one phase-15 or phase-16 run at its shapes: K1 and
+    K2, or K4 and K5 with ``ckpt``, against their plain versions on every step, or on
     ``n`` steps around the SLM window's end, then timed on every step
     with their bounds (``_held_kernels``).  Returns {kernel: entry} with
     pr, pc, K."""
@@ -2250,7 +2273,7 @@ def _plain_versions(fe):
 
 
 def _entry(kname, src, replaces, launches, e, what):
-    """A phase-15 kernel entry: its shape in the name."""
+    """A phase-15 or phase-16 kernel entry: its shape in the name."""
     return (f"{kname}, {what} (pr = {e['pr']}, pc = {e['pc']}, K = {e['K']}; plain_ms: "
             f"{e['plain_steps']} steps)", src, replaces, launches, e)
 
@@ -2401,6 +2424,317 @@ def _front_end_phase(torch, fe, device, gen, xy16: int = 16):
     return (_fe_local(torch, fe, device, gen) + _fe_modulated(torch, fe, device, gen)
             + _fe_xy_slm(torch, fe, device, gen, N_QUBITS)
             + _fe_xy_slm(torch, fe, device, gen, xy16))
+
+
+# phase 16, the other bases: bench.py's model with a raman_global pulse of
+# trainable amplitude beside its rydberg_global one (the all basis, three
+# levels a site, da = 3^a), the observable the total Rydberg occupation;
+# bench.py's model on raman_global alone (the digital basis); leakage; the
+# time derivatives
+RAMAN_AMP0 = 0.8
+RAMAN_DET = 0.5
+RAMAN_PHASE = 0.3
+# the all basis: K1/K2 at C = 1 on 3 x 3 and 27 x 27; K4/K5 from 7 atoms
+# (K1/K2's plan refuses before any launch) and at 6 atoms with ckpt=True;
+# 10 atoms (243 x 243, dim 59049) is the largest below the checkpoint
+# threshold 2^16
+ALL_SMALL_N = 2
+ALL_K1K2_N = 6
+ALL_REFUSED_N = 8
+ALL_BIG_N = 10
+# leakage: a 4-atom register (dim 81) leaking |r> and |g> into |x>
+LEAK_N = 4
+LEAK_RATES = (0.3, 0.2)
+# the time derivatives: a central difference of the same function, its
+# step (us) and bar; the parameter derivative's step along the gradient
+DERIV_EPS = 1e-6
+DERIV_REL_TOL = 1e-5
+PARAM_EPS = 1e-5
+
+
+def _all_model(torch, device, fused, n_qubits: int, raman_only: bool = False, **options):
+    """bench.py's model at ``n_qubits`` atoms with a raman_global pulse of
+    trainable amplitude beside the rydberg_global one (the all basis), or
+    with bench.py's amplitude on raman_global alone (the digital basis);
+    returns (model, p0, observable): the total Rydberg occupation's
+    diagonal in the all basis, None (the total magnetization) in the
+    digital one."""
+    from pulser_diff_torch import QuantumModel
+    from pulser_diff_torch.core import (
+        ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
+    )
+    from pulser_diff_torch.ops.linalg import _interpolate_sine_np
+
+    coords = [(SPACING * (i % 4), SPACING * (i // 4)) for i in range(n_qubits)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    if not raman_only:
+        seq.declare_channel("ryd", "rydberg_global")
+    seq.declare_channel("ram", "raman_global")
+    amp_var = seq.declare_variable("amp_samples", size=DURATION)
+    seq.add(Pulse(CustomWaveform(amp_var, duration=DURATION), ConstantWaveform(DURATION, DET0),
+                  0.0), "ram" if raman_only else "ryd")
+    M = torch.as_tensor(_interpolate_sine_np(N_PARAMS, DURATION), device=device)
+    p0 = np.linspace(1.0, 3.0, N_PARAMS)
+    params = {"amp_samples": ((p0,), lambda v: M @ v)}
+    obs = None
+    if not raman_only:
+        r = seq.declare_variable("raman_amp")
+        seq.add(Pulse.ConstantPulse(DURATION, r, RAMAN_DET, RAMAN_PHASE), "ram",
+                protocol="no-delay")
+        params["raman_amp"] = RAMAN_AMP0
+        digits = np.stack(np.unravel_index(np.arange(3**n_qubits), (3,) * n_qubits), axis=1)
+        obs = torch.as_tensor((digits == 0).sum(1).astype(np.float64), device=device)
+    model = QuantumModel(seq, params, sampling_rate=SAMPLING_RATE, evaluation_times="Minimal",
+                         device=device, **({} if fused is None else {"fused": fused}), **options)
+    return model, p0, obs
+
+
+def _all_value_and_grad(torch, model, p0, obs, device):
+    """(value, gradient in the 8 parameters and the Raman amplitude,
+    values)."""
+    p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
+    params = {"amp_samples_0": p}
+    if "raman_amp" in model.params:
+        params["raman_amp"] = torch.tensor(RAMAN_AMP0, dtype=torch.float64, device=device,
+                                           requires_grad=True)
+    _, vals = model.expectation_fn(obs)(params)
+    vals[-1].backward()
+    grad = torch.cat([v.grad.reshape(-1) for v in params.values()])
+    return vals[-1].detach(), grad.detach(), vals.detach()
+
+
+def _all_step(torch, fe, device, gen, n: int, label: str, want: dict, raman_only: bool = False,
+              plain_n=None, **options):
+    """One phase-16 value+grad step on its route, counted (exactly one
+    launch of each kernel of ``want``), timed with its peak device memory,
+    held against the f64 stepper at VALUE_TOL / GRAD_TOL; its kernels at
+    its shapes against their plain versions (every step, or the first
+    ``plain_n``), timed, with their bounds.  Returns {kernel: entry} with
+    the launches."""
+    model, p0, obs = _all_model(torch, device, None, n, raman_only, **options)
+    step = lambda: _all_value_and_grad(torch, model, p0, obs, device)  # noqa: E731
+    (v, g, vals), launches, first_ms = _counted(torch, fe, label, step, want)
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grad {g}")
+    torch.cuda.reset_peak_memory_stats()
+    reps = 1 if n >= ALL_BIG_N else 3
+    step_ms, _ = _host_time_ms(torch, step, reps)
+    peak = _peak_gib(torch)
+    f64, _, _ = _all_model(torch, device, False, n, raman_only)
+    f64_ms, (v64, g64, _) = _host_time_ms(
+        torch, lambda: _all_value_and_grad(torch, f64, p0, obs, device), 1)
+    del f64
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    h = sim._hamiltonian
+    _log(f"  {label}: basis {h.basis_name} ({h.dim} levels), da x db = {h.dim**h._a} x "
+         f"{h.dim**h._b}; launches {launches}; value+grad {step_ms:.2f} ms warm median of "
+         f"{reps} (first {first_ms:.1f} ms), peak device memory {peak:.3f} GiB; f64 stepper "
+         f"{f64_ms:.1f} ms (once)")
+    _hold_against_f64(torch, v, g, v64, g64, label)
+    ckpt = want["fused_fwd_ckpt"] > 0
+    ks = _fe_kernels(torch, fe, sim, model._default_substeps(), device, gen, label, ckpt=ckpt,
+                     n=plain_n, reps=reps)
+    for name, e in ks.items():
+        e["launches"] = launches[{"K1": "fused_fwd", "K2": "fused_bwd", "K4": "fused_fwd_ckpt",
+                                  "K5": "fused_bwd_ckpt"}[name]]
+        e.update(step_ms=step_ms, peak=peak, da=h.dim**h._a, db=h.dim**h._b)
+    del model, sim
+    torch.cuda.empty_cache()
+    return ks
+
+
+def _all_refused(torch, fe, device, n: int) -> None:
+    """K1/K2's plan refuses the shape on the host (ValueError naming
+    ckpt=True) before any launch."""
+    model, _, _ = _all_model(torch, device, None, n)
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, model._default_substeps(), device)
+    R, n_steps, pr, pc, nb, da, db = fe._dims(data)
+    for bwd in (False, True):
+        if fe.cluster_fits(bwd, nb, da, db, pr, pc, 0, 6):
+            raise RuntimeError(f"{n} atoms ({da} x {db}): K{2 if bwd else 1}'s plan fits")
+    st = torch.zeros((R, n_eval, nb, da, db), dtype=torch.float32, device=device)
+    _reset(fe)
+    for name, call in (("K1", lambda: fe.fused_fwd(data, "DP5", slots, n_eval)),
+                       ("K2", lambda: fe.fused_bwd(data, "DP5", slots, n_eval, last_slot,
+                                                   st, st, st, st))):
+        try:
+            call()
+        except ValueError as exc:
+            if "ckpt=True" not in str(exc):
+                raise
+            _log(f"  {n} atoms ({da} x {db}): {name} refused on the host as expected: {exc}")
+        else:
+            raise RuntimeError(f"{n} atoms: {name} accepted a shape its plan refuses")
+    _no_launch(fe, f"{n} atoms, the refusals")
+    del data, sim, model
+
+
+def _leakage_phase(torch, fe, device, n: int = LEAK_N) -> dict:
+    """(d): a Lindblad run() on the leakage-extended basis [r, g, x] at
+    ``n`` atoms (no kernel): the dense and factored forms within
+    ME_FORM_VALUE_TOL of each other at every time, the final trace and
+    Hermiticity within ME_TRACE_TOL, the final weights equal to a host
+    projection that reads |x> as 0, the samples summing to the shots."""
+    from pulser_diff_torch import SimConfig, TorchEmulator
+    from pulser_diff_torch.core import MockDevice, Pulse, Register, Sequence
+
+    coords = [(ME_SPACING * (i % 4), ME_SPACING * (i // 4)) for i in range(n)]
+    seq = Sequence(Register.from_coordinates(coords, prefix="q"), MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(Pulse.ConstantPulse(ME_DURATION, 2.0, -1.0, 0.0), "ryd")
+    ops = []
+    for frm in (0, 1):  # |x><r|, |x><g|
+        op = np.zeros((3, 3))
+        op[2, frm] = 1.0
+        ops.append(op)
+    cfg = SimConfig(noise="eff_noise", eff_noise_rates=LEAK_RATES, eff_noise_opers=tuple(ops),
+                    with_leakage=True)
+    sim = TorchEmulator.from_sequence(seq, sampling_rate=ME_SAMPLING, config=cfg,
+                                      evaluation_times=0.5, device=device)
+    label = f"(d) {n} atoms leakage (dim {sim.dim**n})"
+    _reset(fe)
+    out = {}
+    for form in ("dense", "factored"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run(me_form=form)
+        torch.cuda.synchronize()
+        out[form] = (res, (time.perf_counter() - t0) * 1e3)
+    _no_launch(fe, label)
+    dense, factored = out["dense"][0], out["factored"][0]
+    diff = max(_max_err(dense.states.re, factored.states.re),
+               _max_err(dense.states.im, factored.states.im))
+    rho = dense.states[-1]
+    dtr, herm = _rho_checks(torch, rho, label)
+    pops = torch.diagonal(rho.re).double().cpu().numpy()
+    digits = np.stack(np.unravel_index(np.arange(3**n), (3,) * n), axis=1)
+    bits = (digits == 0).astype(np.int64) @ (1 << np.arange(n - 1, -1, -1))
+    want = np.bincount(bits, weights=pops, minlength=2**n)
+    got = dense[-1]._weights().double().cpu().numpy()
+    dw = float(np.abs(got - want / want.sum()).max())
+    leaked = float(pops[(digits == 2).any(1)].sum())
+    shots = dense.sample_final_state(1000)
+    _log(f"  {label}: dense {out['dense'][1]:.1f} ms, factored {out['factored'][1]:.1f} ms; "
+         f"forms max|diff| {diff:.3e} (tol {ME_FORM_VALUE_TOL:.0e}); |tr - 1| {dtr:.3e}, "
+         f"max|rho - rho^H| {herm:.3e}; population in |x> {leaked:.4f}; weights vs the host "
+         f"projection (x reads 0) {dw:.3e}; {sum(shots.values())} shots")
+    if diff > ME_FORM_VALUE_TOL or dw > 1e-12 or leaked < 1e-3 or sum(shots.values()) != 1000:
+        raise RuntimeError(f"{label}: forms {diff:.3e}, weights {dw:.3e}, leaked {leaked:.3e}")
+    return {"leak_dense_ms": out["dense"][1], "leak_factored_ms": out["factored"][1]}
+
+
+def _derivative_phase(torch, fe, device) -> dict:
+    """(e): bench.py's 12-atom sequence on the f64 stepper (no kernel):
+    expectation_fn_of_times on every sampled time and deriv_time with the
+    pulse boundaries repaired, against a central difference of the same
+    function at three interior times between the streams' samples;
+    deriv_param at one time against a central difference along the
+    gradient; each within DERIV_REL_TOL relative."""
+    from pulser_diff_torch import deriv_param, deriv_time
+    from pulser_diff_torch.ops.linalg import total_magnetization
+
+    label = f"(e) {N_QUBITS} atoms, time derivatives"
+    model, p0 = _bench_model(torch, device, fused=False, n_qubits=N_QUBITS, duration=DURATION)
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    sim.set_evaluation_times("Full")
+    obs = total_magnetization(N_QUBITS, dense=False, device=device)
+    _reset(fe)
+    fn = sim.expectation_fn_of_times(obs)
+    t = sim.evaluation_times
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dfdt = deriv_time(fn, t, pulse_endtimes=sim.endtimes)
+    torch.cuda.synchronize()
+    dt_ms = (time.perf_counter() - t0) * 1e3
+    n_t = int(t.shape[0])
+    # at an evaluation time on a sample of the drive's streams (linearly
+    # interpolated, so H(t) has a kink there) the stepped function has
+    # only one-sided derivatives; the central difference is taken at
+    # interior times between samples
+    pos = sim._eval_times_array / sim._hamiltonian._ham_data.sample_dt
+    between = [i for i in range(2, n_t - 2) if abs(pos[i] - round(pos[i])) > 0.1
+               and all(abs(i - e) > 2 for e in sim.endtimes)]
+    if len(between) < 3:
+        raise RuntimeError(f"{label}: {len(between)} interior times between samples")
+    worst = 0.0
+    with torch.no_grad():
+        for i in (between[len(between) // 4], between[len(between) // 2],
+                  between[3 * len(between) // 4]):
+            e = torch.zeros_like(t)
+            e[i] = DERIV_EPS
+            fd = float(fn(t + e).sum() - fn(t - e).sum()) / (2 * DERIV_EPS)
+            rel = abs(float(dfdt[i]) - fd) / abs(fd)
+            worst = max(worst, rel)
+            _log(f"  {label}: t = {float(t[i]):.3f} us  deriv_time {float(dfdt[i])!r}  central "
+                 f"difference {fd!r}  rel {rel:.3e}")
+    # deriv_param at one time: the final value's gradient in the 8
+    # parameters, against a central difference along it
+    fnp = model.expectation_fn()
+    p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (g,) = deriv_param(lambda x: fnp({"amp_samples_0": x})[1], [p],
+                       times=np.array([0.0, DURATION / 1000]), t=DURATION)
+    torch.cuda.synchronize()
+    dp_ms = (time.perf_counter() - t0) * 1e3
+    u = g / g.norm()
+    with torch.no_grad():
+        fd = float(fnp({"amp_samples_0": p + PARAM_EPS * u})[1][-1]
+                   - fnp({"amp_samples_0": p - PARAM_EPS * u})[1][-1]) / (2 * PARAM_EPS)
+    rel_p = abs(float(g.norm()) - fd) / abs(fd)
+    _no_launch(fe, label)
+    _log(f"  {label}: deriv_time over {n_t} times {dt_ms:.1f} ms (f64 stepper, forward and "
+         f"backward); worst rel {worst:.3e} (tol {DERIV_REL_TOL:.0e}); deriv_param at "
+         f"{DURATION} ns {dp_ms:.1f} ms, |g| {float(g.norm())!r} against the central difference "
+         f"{fd!r}, rel {rel_p:.3e}")
+    if worst > DERIV_REL_TOL or rel_p > DERIV_REL_TOL:
+        raise RuntimeError(f"{label}: deriv_time rel {worst:.3e}, deriv_param rel {rel_p:.3e}")
+    return {"deriv_time_ms": dt_ms, "deriv_param_ms": dp_ms}
+
+
+def _bases_phase(torch, fe, device, gen):
+    """Phase 16: the all basis on K1/K2 (2 and 6 atoms, C = 1) and K4/K5 (6
+    atoms with ckpt=True, 8 and 10 atoms by default, K1/K2 refusing 8
+    atoms on the host first), the digital basis at 12 atoms (K1/K2, C =
+    16), leakage, the time derivatives.  Returns the kernels' entries and
+    the times of (d) and (e)."""
+    label = "(a/b) {n} atoms, all basis{extra}"
+    small = _all_step(torch, fe, device, gen, ALL_SMALL_N, label.format(n=ALL_SMALL_N, extra=""),
+                      K1K2)
+    mid = _all_step(torch, fe, device, gen, ALL_K1K2_N, label.format(n=ALL_K1K2_N, extra=""),
+                    K1K2)
+    mid_ck = _all_step(torch, fe, device, gen, ALL_K1K2_N,
+                       label.format(n=ALL_K1K2_N, extra=", ckpt=True"), K4K5, ckpt=True)
+    _all_refused(torch, fe, device, ALL_REFUSED_N)
+    refused = _all_step(torch, fe, device, gen, ALL_REFUSED_N,
+                        label.format(n=ALL_REFUSED_N, extra=""), K4K5, plain_n=PLAIN_STEPS)
+    big = _all_step(torch, fe, device, gen, ALL_BIG_N, label.format(n=ALL_BIG_N, extra=""),
+                    K4K5, plain_n=PLAIN_STEPS)
+    digital = _all_step(torch, fe, device, gen, N_QUBITS,
+                        f"(c) {N_QUBITS} atoms, digital basis (raman_global)", K1K2,
+                        raman_only=True)
+    times = {**_leakage_phase(torch, fe, device), **_derivative_phase(torch, fe, device)}
+    entries = []
+    for what, ks in ((f"all basis {ALL_SMALL_N} atoms", small),
+                     (f"all basis {ALL_K1K2_N} atoms", mid),
+                     (f"all basis {ALL_K1K2_N} atoms ckpt=True", mid_ck),
+                     (f"all basis {ALL_REFUSED_N} atoms", refused),
+                     (f"all basis {ALL_BIG_N} atoms", big),
+                     (f"digital basis {N_QUBITS} atoms", digital)):
+        for name, e in ks.items():
+            src, line = (("fused_evolution.cu", 594 if name == "K1" else 1026)
+                         if name in ("K1", "K2") else
+                         ("fused_ckpt.cu", 1479 if name == "K4" else 1511))
+            kname = {"K1": "fused_fwd_kernel (K1)", "K2": "fused_bwd_kernel (K2)",
+                     "K4": "fused_fwd_ckpt_kernel (K4)", "K5": "fused_bwd_ckpt_kernel (K5)"}[name]
+            entries.append(_entry(kname, src, line, e["launches"], e,
+                                  f"{what}, {e['da']} x {e['db']}"))
+    return entries, times
+
 
 def main() -> int:
     import torch
@@ -2710,6 +3044,15 @@ def main() -> int:
          "under an SLM mask (K1/K2), (d) 16-atom XY under an SLM mask (K4/K5)")
     front = _front_end_phase(torch, fe, device, gen)
 
+    # 16. the other bases: the all basis at da = 3^a (K1/K2 at C = 1, K4/K5),
+    # the digital basis, leakage, the time derivatives
+    _log(f"phase 16 other bases: all-basis value+grad at {ALL_SMALL_N} / {ALL_K1K2_N} atoms "
+         f"(K1/K2, C = 1; K4/K5 with ckpt=True), {ALL_REFUSED_N} / {ALL_BIG_N} atoms (K4/K5), "
+         f"the digital basis at {N_QUBITS} atoms (K1/K2), leakage at {LEAK_N} atoms, time "
+         "derivatives")
+    bases, bases_ms = _bases_phase(torch, fe, device, gen)
+    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in bases_ms.items()))
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -2767,7 +3110,7 @@ def main() -> int:
         kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
                              e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
                              e["by"]))
-    for kname, src, replaces, count, e in front:
+    for kname, src, replaces, count, e in front + bases:
         kernels.append(entry(kname, src, replaces, count, e["err"], e["ms"], e["plain_ms"],
                              e["bound"], e["by"]))
     print(smi)

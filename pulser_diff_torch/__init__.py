@@ -12,16 +12,20 @@ Importing this package changes no global torch state.
 
 from pulser_diff_torch.backend import TorchEmulator
 from pulser_diff_torch.cplx import Cplx
+from pulser_diff_torch.derivative import deriv_param, deriv_time
 from pulser_diff_torch.model import QuantumModel
-from pulser_diff_torch.simconfig import SimConfig
+from pulser_diff_torch.simconfig import NoiseModel, SimConfig
 from pulser_diff_torch.solvers import SolverType, TimeGrid, sesolve
 
 __all__ = [
     "Cplx",
+    "NoiseModel",
     "QuantumModel",
     "SimConfig",
     "SolverType",
     "TimeGrid",
     "TorchEmulator",
+    "deriv_param",
+    "deriv_time",
     "sesolve",
 ]

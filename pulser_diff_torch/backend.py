@@ -31,7 +31,11 @@ matrices, or one ``mesolve`` a run under stochastic noise;
 ``solver="MCWF"`` / ``"MCWF_F32"`` unravel them into quantum-jump
 trajectories instead (``_run_mcwf``), sampled into :class:`NoisyResults`.
 ``expectation_fn_of_dists`` differentiates an expectation in the
-inter-qubit distances, through the coherent routing.
+inter-qubit distances, through the coherent routing;
+``expectation_fn_of_times`` in the evaluation times, on the f64 stepper.
+Every basis runs: ground-rydberg, digital (Raman channels), all (three
+levels a site, da = 3^a on the fused kernels), XY, and the
+leakage-extended ones.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from pulser_diff_torch.hamiltonian import DRAW_FIELDS, Hamiltonian, draw_noise, 
 from pulser_diff_torch.ops.fused_evolution import (
     _NB_MAX, _tableau, check_parts, cluster_fits, cluster_plan, evolve_mc, evolve_states,
 )
-from pulser_diff_torch.result import QuantumResult
+from pulser_diff_torch.result import _ONE_LABEL, QuantumResult, _level_projection_matrix
 from pulser_diff_torch.simconfig import NoiseModel, SimConfig, host_float
 from pulser_diff_torch.simresults import CoherentResults, NoisyResults, SampledResult
 from pulser_diff_torch.solvers import SolverType, TimeGrid, mcsolve, mesolve, sesolve
@@ -138,8 +142,11 @@ class TorchEmulator:
             self.torch_device,
         )
         self.set_evaluation_times(evaluation_times)
-        # the sequence's measurement basis, else the Hamiltonian's
-        self._meas_basis = self.samples_obj._measurement or self._hamiltonian.basis_name
+        # the sequence's measurement basis, else the Hamiltonian's (digital
+        # for the digital and all bases)
+        basis_name = self._hamiltonian.basis_name
+        self._meas_basis = self.samples_obj._measurement or (
+            "digital" if basis_name in ("digital", "all") else basis_name)
         self.set_initial_state("all-ground")
         # pair distances, filled by run(dist_grad=True)
         self.dist_dict: dict[str, torch.Tensor] = {}
@@ -162,6 +169,11 @@ class TorchEmulator:
     @property
     def basis_name(self) -> str:
         return self._hamiltonian.basis_name
+
+    @property
+    def basis(self) -> dict[str, Cplx]:
+        """The one-site kets of the basis, by level label."""
+        return self._hamiltonian.basis
 
     @property
     def config(self) -> SimConfig:
@@ -245,6 +257,37 @@ class TorchEmulator:
         """Pair keys 'q1-q2' in the order expectation_fn_of_dists takes."""
         qids = list(self._hamiltonian._qdict)
         return [f"{q1}-{q2}" for q1, q2 in itertools.combinations(qids, 2)]
+
+    @property
+    def endtimes(self) -> list:
+        """The pulse slots' boundaries as indices of the sampled grid (two
+        a slot end, and 0), for ``deriv_time``'s repair of the time
+        derivative there."""
+        end_ts = [0]
+        remaining = np.linspace(0, self._tot_duration,
+                                int(self._sampling_rate * (self._tot_duration + 1))).astype(int)
+        for cs in self.samples_obj.channel_samples.values():
+            for sl in cs.slots:
+                pos = int(np.searchsorted(remaining, sl.tf, side="left"))
+                end_ts += [pos - 1, pos]
+        return sorted(end_ts)
+
+    def build_operator(self, operations) -> Cplx:
+        """The dense operator on the register of ``[(op, qubits), ...]``
+        (``Hamiltonian.build_operator``)."""
+        return self._hamiltonian.build_operator(operations)
+
+    def get_hamiltonian(self, time: float) -> Cplx:
+        """The dense H at ``time`` (ns) of the noiseless build, or of the
+        current draw under stochastic noise."""
+        if time > self._tot_duration:
+            raise ValueError(
+                f"Provided time (`time` = {time}) must be less than or equal to the sequence "
+                f"duration ({self._tot_duration}).")
+        if time < 0:
+            raise ValueError(
+                f"Provided time (`time` = {time}) must be greater than or equal to 0.")
+        return self._hamiltonian._hamiltonian(time / 1000)
 
     @property
     def evaluation_times(self) -> torch.Tensor:
@@ -337,9 +380,11 @@ class TorchEmulator:
         """Whether the fused solve takes the checkpointed kernels K4/K5.
 
         By default they run from dim 2^16, as in the JAX package, and also
-        wherever K1 or K2 cannot hold the shape (their cluster plan, decided
-        before any launch): 14 and 15 atoms, or a state batch past nb = 2
-        at 12 atoms, which the JAX package runs on its VMEM kernels.  An
+        wherever K1 or K2 cannot hold the shape (their cluster plan, the
+        launch's own rule, decided before any launch): 14 and 15 atoms, a
+        state batch past nb = 2 at 12 atoms, the all basis from 7 atoms
+        (one block a run at da = 3^a), which the JAX package runs on its
+        VMEM kernels.  An
         explicit ``ckpt=False`` on such a shape raises the plan's
         ValueError, which names ``ckpt=True``."""
         da, db = int(ham_data.row_parts.shape[-1]), int(ham_data.col_parts.shape[-1])
@@ -450,6 +495,28 @@ class TorchEmulator:
 
         return fn
 
+    def expectation_fn_of_times(self, obs: Any, solver: str = SolverType.DP5_SE,
+                                **options: Any) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Function: evaluation times (n_eval,) -> expectation trace
+        (n_eval,), for ``deriv_time``.  The times keep the grid's structure
+        (``TimeGrid.with_values``) and carry their gradient into its step
+        sizes, so the solve takes the f64 stepper (``fused=False``), as in
+        the JAX package: the fused kernels take the step sizes as
+        constants."""
+        from pulser_diff_torch.ops.linalg import expect as _expect
+
+        obs = as_cplx(obs, dtype=DTYPE, device=self.torch_device).to(device=self.torch_device)
+        h = self._hamiltonian
+        substeps = int(options.get("substeps", self._auto_substeps(options)))
+        grid0 = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
+
+        def fn(times: torch.Tensor) -> torch.Tensor:
+            states = self._solve_states(h._ham_data, solver, substeps, grid0.with_values(times),
+                                        solver_opts={**options, "fused": False})
+            return _expect(obs, states).re
+
+        return fn
+
     def run(self, time_grad: bool = False, dist_grad: bool = False,
             solver: str = SolverType.DP5_SE, **options: Any):
         """Simulate the sequence on the emulator's device.
@@ -470,7 +537,8 @@ class TorchEmulator:
         ``time_grad`` / ``dist_grad`` are taken for parity with the JAX
         package and warn, as there: gradients in the evaluation times or
         the distances come from differentiating a function
-        (``expectation_fn_of_dists``); ``dist_grad`` fills ``dist_dict``
+        (``expectation_fn_of_times`` with ``deriv_time``,
+        ``expectation_fn_of_dists``); ``dist_grad`` fills ``dist_dict``
         with the pair distances.
 
         Options: ``substeps`` / ``max_step`` (fixed-step refinement),
@@ -486,7 +554,8 @@ class TorchEmulator:
         if time_grad:
             warnings.warn(
                 "run(time_grad=True) only exposes metadata: gradients with respect "
-                "to evaluation times come from differentiating a function of them.",
+                "to evaluation times flow through the function returned by "
+                "expectation_fn_of_times() (see derivative.deriv_time).",
                 UserWarning, stacklevel=2,
             )
         if dist_grad:
@@ -689,15 +758,25 @@ class TorchEmulator:
             probs = torch.diagonal(re, dim1=-2, dim2=-1).abs()
         else:
             probs = (re**2 + im**2).reshape(re.shape[0], re.shape[1], -1)
-        if h.dim != 2:
-            raise NotImplementedError(
-                "Sampling systems with more than two levels a site is not ported yet "
-                "(ROADMAP queue 1 item 8).")
-        if self._meas_basis != h.basis_name:
-            probs = torch.zeros_like(probs)
-            probs[..., 0] = 1.0
-        elif self._meas_basis == "ground-rydberg":
-            probs = torch.flip(probs, (-1,))  # r-first ordering -> bit order
+        if h.dim == 2:
+            if self._meas_basis != h.basis_name:
+                probs = torch.zeros_like(probs)
+                probs[..., 0] = 1.0
+            elif self._meas_basis == "ground-rydberg":
+                probs = torch.flip(probs, (-1,))  # r-first ordering -> bit order
+        elif h.dim in (3, 4):
+            # the bright level reads 1, every other level 0: one 0/1
+            # projection (2^n, d^n) on the device
+            labels = list(h._basis_labels)
+            one_label = _ONE_LABEL.get(self._meas_basis)
+            if one_label is None or one_label not in labels:
+                raise RuntimeError(
+                    f"Unknown measurement basis '{self._meas_basis}' for a {h.dim}-level system.")
+            P = torch.as_tensor(_level_projection_matrix(h._size, h.dim, labels.index(one_label)),
+                                dtype=probs.dtype, device=probs.device)
+            probs = torch.einsum("ks,rts->rtk", P, probs)
+        else:
+            raise NotImplementedError("Cannot sample systems with single-atom dimension > 4.")
         weights = torch.clamp(probs, min=0.0)
         return weights / weights.sum(-1, keepdim=True)
 

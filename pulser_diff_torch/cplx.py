@@ -66,6 +66,15 @@ class Cplx(NamedTuple):
 
     __rmul__ = __mul__
 
+    def __truediv__(self, other: "Cplx | Scalar | torch.Tensor") -> "Cplx":
+        if isinstance(other, Cplx):
+            den = other.re * other.re + other.im * other.im
+            return Cplx((self.re * other.re + self.im * other.im) / den,
+                        (self.im * other.re - self.re * other.im) / den)
+        if isinstance(other, complex):
+            return self / as_cplx(other, like=self)
+        return Cplx(self.re / other, self.im / other)
+
     def __neg__(self) -> "Cplx":
         return Cplx(-self.re, -self.im)
 
@@ -75,11 +84,31 @@ class Cplx(NamedTuple):
     def conj(self) -> "Cplx":
         return Cplx(self.re, -self.im)
 
+    @property
+    def T(self) -> "Cplx":
+        """Transpose (all axes reversed, as numpy's ``.T``)."""
+        perm = tuple(range(self.re.ndim - 1, -1, -1))
+        return Cplx(self.re.permute(perm), self.im.permute(perm))
+
+    @property
+    def mH(self) -> "Cplx":
+        """Conjugate transpose over the last two axes."""
+        return Cplx(self.re.transpose(-1, -2), -self.im.transpose(-1, -2))
+
     def abs2(self) -> torch.Tensor:
         return self.re * self.re + self.im * self.im
 
+    def abs(self) -> torch.Tensor:
+        return torch.sqrt(self.abs2())
+
     def reshape(self, *shape) -> "Cplx":
         return Cplx(self.re.reshape(*shape), self.im.reshape(*shape))
+
+    def flatten(self) -> "Cplx":
+        return Cplx(self.re.reshape(-1), self.im.reshape(-1))
+
+    def astype(self, dtype: torch.dtype) -> "Cplx":
+        return Cplx(self.re.to(dtype), self.im.to(dtype))
 
     def transpose(self, *axes) -> "Cplx":
         return Cplx(self.re.permute(*axes), self.im.permute(*axes))
@@ -141,3 +170,41 @@ def cstack(xs: Sequence[Cplx], axis: int = 0) -> Cplx:
         torch.stack([x.re for x in xs], dim=axis),
         torch.stack([x.im for x in xs], dim=axis),
     )
+
+
+def czeros(shape, dtype=None, device=None) -> Cplx:
+    z = torch.zeros(shape, dtype=dtype or DTYPE, device=device)
+    return Cplx(z, z.clone())
+
+
+def cones(shape, dtype=None, device=None) -> Cplx:
+    return Cplx(torch.ones(shape, dtype=dtype or DTYPE, device=device),
+                torch.zeros(shape, dtype=dtype or DTYPE, device=device))
+
+
+def ceye(n: int, dtype=None, device=None) -> Cplx:
+    return Cplx(torch.eye(n, dtype=dtype or DTYPE, device=device),
+                torch.zeros(n, n, dtype=dtype or DTYPE, device=device))
+
+
+def cexp_i(theta: torch.Tensor) -> Cplx:
+    """exp(i theta) for real theta."""
+    return Cplx(torch.cos(theta), torch.sin(theta))
+
+
+def cmatmul(a: Cplx, b: Cplx) -> Cplx:
+    """Complex matmul from four real ones."""
+    return Cplx(a.re @ b.re - a.im @ b.im, a.re @ b.im + a.im @ b.re)
+
+
+def cdot(a: Cplx, b: Cplx) -> Cplx:
+    """<a|b> = sum(conj(a) * b) over all elements."""
+    return Cplx((a.re * b.re + a.im * b.im).sum(), (a.re * b.im - a.im * b.re).sum())
+
+
+def cnorm(a: Cplx) -> torch.Tensor:
+    return torch.sqrt(a.abs2().sum())
+
+
+def cconcat(xs: Sequence[Cplx], axis: int = 0) -> Cplx:
+    return Cplx(torch.cat([x.re for x in xs], dim=axis), torch.cat([x.im for x in xs], dim=axis))

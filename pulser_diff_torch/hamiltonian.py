@@ -11,12 +11,14 @@ as kron pairs.  Physics as in the JAX package:
   - van der Waals C6/r^6 n_i n_j;
   - XY C3 (1 - 3 cos^2 theta)/r^3 (sigma+ sigma- + h.c.), theta the angle
     between the pair and the magnetic field.
-The port has the ground-rydberg basis of the global and local Rydberg
-channels and the XY basis of the microwave channel, with the SLM mask in
-both (the masked qubits' amplitude zeroed in its window in ising mode;
-the XY terms time-windowed); a Raman channel (the digital and all bases)
-raises.  The interaction weights are differentiable in the qubit
-coordinates, or in the pair distances set through ``_dist_override``.
+The bases are the JAX package's: ground-rydberg (the Rydberg channels),
+digital (the Raman channels: |g>, |h>), all (both: |r>, |g>, |h>, three
+levels a site) and XY (the microwave channel), each with one dark level
+|x> more under leakage noise.  The SLM mask acts in both interaction
+modes (the masked qubits' amplitude zeroed in its window in ising mode;
+the XY terms time-windowed).  The digital basis has no interaction term.
+The interaction weights are differentiable in the qubit coordinates, or
+in the pair distances set through ``_dist_override``.
 
 Noise as in the JAX package: ``draw_noise`` draws one run's bad atoms
 (SPAM state preparation), Doppler detunings and per-slot amplitude
@@ -30,7 +32,11 @@ one part stack; lifted parts are built once and kept.
 The Lindblad noises become :class:`CollapseOps`, one (d, d) operator per
 site, scaled by sqrt(rate) (``collapse_operators``): dephasing,
 relaxation, depolarizing and ``eff_noise``, as the JAX package builds
-them.  A rate given as a tensor keeps its gradient into the operators.
+them, lifted into the leakage-extended bases with the dark level left
+untouched.  A rate given as a tensor keeps its gradient into the
+operators.  ``build_operator`` lifts named or given one-site operators to
+the register, and ``_hamiltonian`` materializes H(t) densely, both for
+introspection.
 """
 
 from __future__ import annotations
@@ -45,25 +51,31 @@ from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sampler import SequenceSamples
-from pulser_diff_torch.ops.apply import FactoredHamiltonian
+from pulser_diff_torch.ops.apply import FactoredHamiltonian, h_matrix
+from pulser_diff_torch.ops.linalg import basis_state, kron
 from pulser_diff_torch.simconfig import SUPPORTED_NOISES, NoiseModel, doppler_sigma, host_float
 
-# basis tables: (dimension, labels); the digital and all bases are a
-# later slice
+# basis tables: (dimension, labels, projector names)
 _BASIS_TABLE = {
-    "XY": (2, ["u", "d"]),
-    "ground-rydberg": (2, ["r", "g"]),
+    "XY": (2, ["u", "d"], ["uu", "du", "ud", "dd"]),
+    "ground-rydberg": (2, ["r", "g"], ["gr", "rr", "gg"]),
+    "digital": (2, ["g", "h"], ["hg", "hh", "gg"]),
+    "all": (3, ["r", "g", "h"], ["gr", "hg", "rr", "gg", "hh"]),
 }
 
 # operator ids (amplitude, detuning) per sampled basis
 _OP_IDS = {
     "ground-rydberg": ("sigma_gr", "sigma_rr"),
+    "digital": ("sigma_hg", "sigma_gg"),
     "XY": ("sigma_du", "sigma_uu"),
 }
 
 
 def _local_op_np(dim: int, basis: list[str], name: str) -> np.ndarray:
-    """|b1><b2| as a dense real numpy matrix from a 'sigma_xy' name."""
+    """|b1><b2| as a dense real numpy matrix from a 'sigma_xy' name, or
+    the identity for 'I'."""
+    if name == "I":
+        return np.eye(dim)
     b1, b2 = name[6], name[7]
     m = np.zeros((dim, dim))
     m[basis.index(b1), basis.index(b2)] = 1.0
@@ -90,14 +102,17 @@ class CollapseOps(NamedTuple):
 def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubits: int,
                        device: torch.device) -> CollapseOps:
     """The collapse operators of ``config``'s Lindblad noises on ``n_qubits``
-    sites of the basis ``basis_name`` (level ``labels``), as the JAX
-    package builds them: sqrt(rate / 2) Z for dephasing (at
-    ``hyperfine_dephasing_rate`` in the digital basis), sqrt(rate)
-    |g><r| for relaxation, sqrt(rate / 4) X, Y, Z for depolarizing,
-    sqrt(rate_k) O_k for ``eff_noise``; each operator on every site in
-    turn.  Rates stay tensors, so a rate with ``requires_grad`` carries
-    its gradient into the operators."""
+    sites of the basis ``basis_name`` (level ``labels``, the dark level
+    'x' last under leakage), as the JAX package builds them: sqrt(rate /
+    2) Z for dephasing (at ``hyperfine_dephasing_rate`` in the digital
+    basis), sqrt(rate) |g><r| for relaxation, sqrt(rate / 4) X, Y, Z for
+    depolarizing, sqrt(rate_k) O_k for ``eff_noise`` (each O_k of the
+    basis' dimension, the dark level included); the Pauli matrices act on
+    the first two levels and leave the dark level untouched.  Each
+    operator on every site in turn.  Rates stay tensors, so a rate with
+    ``requires_grad`` carries its gradient into the operators."""
     dim = len(labels)
+    leak = "x" in labels
     noise = config.noise_types
 
     def rate(x) -> torch.Tensor:
@@ -105,6 +120,12 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
 
     def op(mat) -> Cplx:
         return as_cplx(mat, dtype=DTYPE, device=device).to(device=device)
+
+    def pauli(p: str) -> Cplx:
+        """A Pauli matrix on the first two levels of a site."""
+        m = np.zeros((dim, dim), dtype=complex)
+        m[:2, :2] = _PAULI[p]
+        return op(m)
 
     def basis_check(noise_type: str) -> None:
         if basis_name == "all":
@@ -114,7 +135,7 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
     if "dephasing" in noise:
         basis_check("dephasing")
         r = config.hyperfine_dephasing_rate if basis_name == "digital" else config.dephasing_rate
-        local.append(op(_PAULI["Z"]) * torch.sqrt(rate(r) / 2))
+        local.append(pauli("Z") * torch.sqrt(rate(r) / 2))
     if "relaxation" in noise:
         if not {"g", "r"} <= set(labels):
             raise ValueError(
@@ -124,7 +145,7 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
     if "depolarizing" in noise:
         basis_check("depolarizing")
         coeff = torch.sqrt(rate(config.depolarizing_rate) / 4)
-        local += [op(_PAULI[p]) * coeff for p in "XYZ"]
+        local += [pauli(p) * coeff for p in "XYZ"]
     if "eff_noise" in noise:
         basis_check("effective")
         for r, mat in zip(config.eff_noise_rates, config.eff_noise_opers):
@@ -132,7 +153,8 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
             if o.shape != (dim, dim):
                 raise ValueError(
                     f"Incompatible shape {o.shape} of effective noise operator: expected "
-                    f"({dim}, {dim}) for basis '{basis_name}'.")
+                    f"({dim}, {dim}) for basis '{basis_name}'"
+                    + (" with leakage" if leak else "") + ".")
             local.append(o * torch.sqrt(rate(r)))
     if not local:
         return CollapseOps((), None)
@@ -221,12 +243,6 @@ class Hamiltonian:
         self._dist_override: dict[str, torch.Tensor] = {}
         self._last_dist: tuple = ((), None)  # (qubit ids, (n, n) distances) of the last build
         self._interaction = "XY" if samples_obj._in_xy else "ising"
-        if self._interaction == "ising" and "digital" in samples_obj.used_bases:
-            raise NotImplementedError(
-                "A Raman (digital-basis) channel needs the digital and all bases (ROADMAP "
-                "queue 1 item 8), which are not ported yet.")
-        self.basis_name = "XY" if self._interaction == "XY" else "ground-rydberg"
-        self.dim, self._basis_labels = _BASIS_TABLE[self.basis_name]
         self._size = len(self._qdict)
         self._qid_index = {qid: i for i, qid in enumerate(self._qdict)}
         # the last draw's bad atoms and Doppler detunings, by qubit
@@ -276,10 +292,9 @@ class Hamiltonian:
                 f"Interaction mode '{self._interaction}' does not support "
                 f"simulation of noise types: {', '.join(not_supported)}."
             )
-        if "leakage" in cfg.noise_types:
-            raise NotImplementedError(
-                "Leakage needs the leakage-extended basis (ROADMAP queue 1 item 8), which "
-                "is not ported yet.")
+        want_leak = "leakage" in cfg.noise_types
+        if not hasattr(self, "basis_name") or want_leak != self._with_leakage:
+            self._build_basis_and_op_matrices(with_leakage=want_leak)
         self._collapse_ops = collapse_operators(cfg, self.basis_name, self._basis_labels,
                                                 self._size, self.torch_device)
         self._config = cfg
@@ -288,6 +303,83 @@ class Hamiltonian:
         self._bad_atoms = dict(zip(qids, (self.draws.bad_atoms > 0.5).tolist()))
         self._doppler_detune = dict(zip(qids, self.draws.doppler.tolist()))
         self._ham_data = self.build_data(self.draws)
+
+    def _build_basis_and_op_matrices(self, with_leakage: bool = False) -> None:
+        """The basis from the sampled channels' bases (XY in XY mode; else
+        ground-rydberg, digital, or all when both are used), extended by
+        the dark level 'x' under leakage; its one-site kets ``basis`` and
+        operators ``op_matrix`` ('I' and 'sigma_<b1><b2>', every pair of
+        levels under leakage).  Lifted parts kept from another dimension
+        are dropped."""
+        if self._interaction == "XY":
+            self.basis_name = "XY"
+        else:
+            used = self.samples_obj.used_bases
+            if "digital" not in used:
+                self.basis_name = "ground-rydberg"
+            elif "ground-rydberg" not in used:
+                self.basis_name = "digital"
+            else:
+                self.basis_name = "all"
+        dim, labels, projectors = _BASIS_TABLE[self.basis_name]
+        self._with_leakage = with_leakage
+        if with_leakage:
+            dim += 1
+            labels = labels + ["x"]
+            projectors = [b1 + b2 for b1 in labels for b2 in labels]
+        self.dim = dim
+        self._basis_labels = labels
+        dev = self.torch_device
+        self.basis = {b: basis_state(dim, i, device=dev) for i, b in enumerate(labels)}
+        self.op_matrix: dict[str, Cplx] = {"I": as_cplx(np.eye(dim), dtype=DTYPE, device=dev)}
+        for proj in projectors:
+            self.op_matrix["sigma_" + proj] = as_cplx(
+                _local_op_np(dim, labels, "sigma_" + proj), dtype=DTYPE, device=dev)
+        self._lifts.clear()
+        self._stacks.clear()
+        self._norms.clear()
+
+    def build_operator(self, operations) -> Cplx:
+        """The dense operator on the register of ``[(op, qubits), ...]``:
+        ``op`` an ``op_matrix`` name or a (dim, dim) matrix, on each qubit
+        of ``qubits``, the identity elsewhere; ``(op, "global")`` sums the
+        one-qubit operator over every qubit."""
+        if not isinstance(operations, list):
+            operations = [operations]
+        op_list = [self.op_matrix["I"] for _ in range(self._size)]
+        for operator, qubits in operations:
+            if qubits == "global":
+                total = None
+                for q_id in self._qdict:
+                    term = self.build_operator([(operator, [q_id])])
+                    total = term if total is None else total + term
+                return total
+            qubits_set = set(qubits)
+            if len(qubits_set) < len(qubits):
+                raise ValueError("Duplicate atom ids in argument list.")
+            if not qubits_set.issubset(self._qdict.keys()):
+                raise ValueError(f"Invalid qubit names: {qubits_set - self._qdict.keys()}")
+            if isinstance(operator, str):
+                if operator not in self.op_matrix:
+                    raise ValueError(f"{operator} is not a valid operator")
+                operator = self.op_matrix[operator]
+            else:
+                operator = as_cplx(operator, dtype=DTYPE, device=self.torch_device).to(
+                    device=self.torch_device)
+            for qubit in qubits:
+                op_list[self._qid_index[qubit]] = operator
+        return kron(*op_list)
+
+    @property
+    def _hamiltonian(self):
+        """H(t): the dense (dim, dim) Hamiltonian at time ``t`` (us) of the
+        current build."""
+
+        def H_t(t) -> Cplx:
+            return h_matrix(self._ham_data,
+                            torch.as_tensor(t, dtype=DTYPE, device=self.torch_device))
+
+        return H_t
 
     def _count_noise_slots(self) -> int:
         return sum(len(cs.slots) for cs in self.samples_obj.channel_samples.values())
@@ -534,7 +626,7 @@ class Hamiltonian:
 
         int_diag = torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
         kron_row = kron_col = kron_streams = None
-        if n > 1:
+        if n > 1 and self.basis_name != "digital":
             W = self._interaction_weights(good)
             if self._interaction == "ising":
                 int_diag = self._ising_diag(W)

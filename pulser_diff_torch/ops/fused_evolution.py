@@ -67,6 +67,7 @@ Pallas kernel was a TPU layout workaround.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -824,18 +825,30 @@ def _smem_floats(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
 
 
 def _cluster_size(da: int) -> int:
-    """min(da, 16): the most blocks a run can take (each owns da / C rows).
-    On the card 16 blocks (a non-portable size) were as fast as 8 at 12
-    atoms and faster with kron pairs (PERF.md), and they need the
-    least shared memory a block."""
-    return min(da, _C_MAX)
+    """The largest power of two, at most 16, that divides da: the most
+    blocks a run can take, each owning da / C rows (16 for 2^a and 4^a
+    from da = 16, 1 for 3^a).  On the card 16 blocks (a non-portable size)
+    were as fast as 8 at 12 atoms and faster with kron pairs (PERF.md),
+    and they need the least shared memory a block."""
+    return math.gcd(da, _C_MAX)
+
+
+def _plan_ok(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int, S: int,
+             C: int) -> bool:
+    """The launch's own rule (``plan_ok`` in csrc/fused_evolution.cu): C a
+    power of two that divides da, at most 16, and a block's shared memory
+    within the limit."""
+    if C < 1 or C > _C_MAX or C & (C - 1) or da % C:
+        return False
+    return 4 * _smem_floats(bwd, nb, da, db, pr, pc, K, S, C) <= _SMEM_LIMIT
 
 
 def cluster_fits(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,
                  S: int) -> bool:
-    """Whether K1 (``bwd=False``) or K2 takes this shape: its block's shared
-    memory holds the cluster plan (:func:`cluster_plan` raises otherwise)."""
-    return 4 * _smem_floats(bwd, nb, da, db, pr, pc, K, S, _cluster_size(da)) <= _SMEM_LIMIT
+    """Whether K1 (``bwd=False``) or K2 takes this shape: the launch
+    accepts its cluster plan (:func:`cluster_plan` raises otherwise), so
+    routing decides before any launch."""
+    return _plan_ok(bwd, nb, da, db, pr, pc, K, S, _cluster_size(da))
 
 
 def cluster_plan(bwd: bool, nb: int, da: int, db: int, pr: int, pc: int, K: int,

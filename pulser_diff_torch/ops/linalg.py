@@ -1,9 +1,9 @@
 """Tensor utilities (counterpart of pulser_diff_tpu/ops/linalg.py).
 
-``kron``, the Pauli constants, ``basis_state``, ``expect`` (kets,
-density matrices and batches of them, and 1-D diagonal observables),
-``trace``, ``vn_entropy``, ``total_magnetization`` and
-``interpolate_sine``.
+``kron``, the Pauli and Hadamard constants, ``basis_state``, ``expect``
+(kets, density matrices and batches of them, and 1-D diagonal
+observables), ``trace``, ``vn_entropy``, ``total_magnetization`` (and its
+diagonal), the sine easing ``s`` and ``interpolate_sine``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ IMAT = as_cplx(np.eye(2))
 XMAT = as_cplx(np.array([[0, 1], [1, 0]]))
 YMAT = as_cplx(np.array([[0, -1j], [1j, 0]]))
 ZMAT = as_cplx(np.array([[1, 0], [0, -1]]))
+HMAT = as_cplx(np.array([[1, 1], [1, -1]]) / np.sqrt(2.0))
 
 
 def kron(*args) -> Cplx:
@@ -38,16 +39,19 @@ def _total_magnetization_diag_np(n_qubits: int) -> np.ndarray:
     return (n_qubits - 2 * ones).astype(np.float64)
 
 
+def total_magnetization_diag(n_qubits: int, device: DeviceLike = None) -> torch.Tensor:
+    """The diagonal of sum_i Z_i, on ``device`` (CUDA unless given)."""
+    return torch.as_tensor(_total_magnetization_diag_np(n_qubits), dtype=DTYPE,
+                           device=resolve_device(device))
+
+
 def total_magnetization(
     n_qubits: int, dense: bool | None = None, device: DeviceLike = None
 ) -> Cplx:
     """sum_i Z_i: the dense diagonal matrix up to 12 qubits, else (or with
     ``dense=False``) its 1-D diagonal, which ``expect`` accepts; on
     ``device`` (CUDA unless given)."""
-    device = resolve_device(device)
-    d = torch.as_tensor(
-        _total_magnetization_diag_np(n_qubits), dtype=DTYPE, device=device
-    )
+    d = total_magnetization_diag(n_qubits, device)
     if dense is None:
         dense = n_qubits <= 12
     if not dense:
@@ -144,7 +148,7 @@ def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...],
     return as_cplx(ket, device=device)
 
 
-def _s(t: float) -> float:
+def s(t: float) -> float:
     """Sine easing in [0, 1]."""
     return (1 + sin((pi * t - (pi / 2)))) / 2
 
@@ -158,9 +162,9 @@ def _interpolate_sine_np(num_values: int, duration: int) -> np.ndarray:
         idx = int(idx)
         h = r / step_size
         if idx > 0:
-            mat[k, idx - 1] = 1 - _s(h)
+            mat[k, idx - 1] = 1 - s(h)
         if idx < num_values:
-            mat[k, idx] = _s(h)
+            mat[k, idx] = s(h)
     return mat
 
 

@@ -10,9 +10,9 @@ stochastic ones (``doppler``, ``amplitude``) and SPAM as a Monte-Carlo
 batch, and the Lindblad types (``dephasing``, ``relaxation``,
 ``depolarizing``, ``eff_noise``) on the master equation (``mesolve``) or
 as quantum-jump trajectories (``solver="MCWF"``); a rate given as a
-tensor carries its gradient.  ``leakage`` raises there until the
-leakage-extended basis is ported (ROADMAP queue 1 item 8).  ``to_pulser``
-(it needs ``pulser``) is not ported.
+tensor carries its gradient.  ``leakage`` (with ``eff_noise``) extends
+the basis by a dark level |x> a site.  ``to_pulser`` (it needs
+``pulser``) is not ported.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ measurement errors, its samples take the detection flips and its
 expectation values read the pseudo-density); ``NoisyResults`` holds the
 bitstring counts of a Monte-Carlo batch, one ``SampledResult`` a time,
 and its states are diagonal pseudo-densities built from them.  Bases:
-ground-rydberg and XY.  ``plot`` (matplotlib) is not ported.
+ground-rydberg, digital, all (three levels a site, measured in the
+ground-rydberg or the digital basis) and XY; a leakage-extended basis
+keeps its name.  ``plot`` (matplotlib) is not ported.
 """
 
 from __future__ import annotations
@@ -52,9 +54,9 @@ class SimulationResults:
     _use_pseudo_dens: bool = False
 
     def __init__(self, size: int, basis_name: str, sim_times: np.ndarray) -> None:
-        if basis_name not in ("ground-rydberg", "XY"):
-            raise ValueError("Only the 'ground-rydberg' and 'XY' bases are ported.")
-        self._dim = 2
+        if basis_name not in ("ground-rydberg", "digital", "all", "XY"):
+            raise ValueError("`basis_name` must be 'ground-rydberg', 'digital', 'all' or 'XY'.")
+        self._dim = 3 if basis_name == "all" else 2
         self._size = size
         self._basis_name = basis_name
         self._sim_times = sim_times
@@ -80,7 +82,8 @@ class SimulationResults:
         diagonal observables are legal."""
         if not isinstance(obs_list, (list, tuple)):
             raise TypeError("`obs_list` must be a list of operators.")
-        legal = (self._dim**self._size, self._dim**self._size)
+        dim = 2 if self._use_pseudo_dens else self._dim
+        legal = (dim**self._size, dim**self._size)
         out = []
         for obs in obs_list:
             obs = as_cplx(obs, dtype=DTYPE)
@@ -154,7 +157,7 @@ class NoisyResults(SimulationResults):
         sim_times: np.ndarray,
         n_measures: int,
     ) -> None:
-        super().__init__(size, basis_name, sim_times)
+        super().__init__(size, "digital" if basis_name == "all" else basis_name, sim_times)
         self.n_measures = n_measures
         self._results = tuple(run_output)
 
@@ -194,7 +197,10 @@ class CoherentResults(SimulationResults):
     ) -> None:
         super().__init__(size, basis_name, sim_times)
         meas_basis = basis_name if meas_basis is None else meas_basis
-        if meas_basis != self._basis_name:
+        if self._basis_name == "all":
+            if meas_basis not in ("ground-rydberg", "digital"):
+                raise ValueError("`meas_basis` must be 'ground-rydberg' or 'digital'.")
+        elif meas_basis != self._basis_name:
             raise ValueError("`meas_basis` and `basis_name` must have the same value.")
         self._meas_basis = meas_basis
         self._results = tuple(run_output)

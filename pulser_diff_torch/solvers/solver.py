@@ -70,11 +70,16 @@ ME_SOLVERS = (SolverType.DP5_ME, SolverType.RK4_ME, SolverType.DP5_ME_F32,
 @dataclass(frozen=True)
 class TimeGrid:
     """Merged integration grid: static structure (numpy slots) and the
-    time values as a tensor."""
+    time values as a tensor.  A grid from :meth:`make` keeps the sampling
+    times and the sort permutation, so that :meth:`with_values` can put
+    other evaluation-time values (a tensor that carries gradients) into
+    the same structure."""
 
     times: torch.Tensor  # (n_grid,) sorted
     write_slots: np.ndarray  # (n_grid,) int: eval slot per grid point, or n_eval
     n_eval: int
+    sampling_times: Optional[torch.Tensor] = None  # kept for with_values()
+    perm: Optional[np.ndarray] = None  # the merge's sort permutation
 
     @staticmethod
     def make(sampling_times, eval_times, device: DeviceLike = None) -> "TimeGrid":
@@ -94,7 +99,23 @@ class TimeGrid:
             times=torch.as_tensor(merged[perm], dtype=DTYPE, device=device),
             write_slots=src_slot[perm],
             n_eval=n_eval,
+            sampling_times=torch.as_tensor(s_np, dtype=DTYPE, device=device),
+            perm=perm,
         )
+
+    def with_values(self, eval_times: torch.Tensor) -> "TimeGrid":
+        """The same structure with the evaluation times ``eval_times``: the
+        gradient in them flows into the grid's step sizes.  The values must
+        stay close to those the grid was built with (the sort permutation
+        is kept)."""
+        if self.sampling_times is None or self.perm is None:
+            raise ValueError("TimeGrid was not built by TimeGrid.make().")
+        dev = self.sampling_times.device
+        times = torch.cat([self.sampling_times,
+                           torch.as_tensor(eval_times, dtype=DTYPE).to(dev)])
+        return TimeGrid(times=times[torch.as_tensor(self.perm, device=dev)],
+                        write_slots=self.write_slots, n_eval=self.n_eval,
+                        sampling_times=self.sampling_times, perm=self.perm)
 
     def refined(self, substeps: int) -> "TimeGrid":
         """Insert ``substeps - 1`` equally spaced non-writing points into

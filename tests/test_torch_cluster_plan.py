@@ -4,6 +4,8 @@ by the same formula as the kernel's ``smem_floats``, for the shapes the
 main paths and the tests run, and the refusal past the limit.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -58,10 +60,59 @@ def test_small_test_shapes_fit(n_atoms):
                         assert C == min(da, 16) and smem <= tfe._SMEM_LIMIT
 
 
+# the launch's own rule, as csrc/fused_evolution.cu writes it in plan_ok
+_PLAN_OK_LINE = "if (C < 1 || C > MAX_C || (C & (C - 1)) || da % C) return -6;"
+
+
+def _plan_ok(bwd, nb, da, db, pr, pc, K, S, C) -> bool:
+    """plan_ok of csrc/fused_evolution.cu, line for line."""
+    if C < 1 or C > 16 or (C & (C - 1)) or da % C:
+        return False
+    return 4 * tfe._smem_floats(bwd, nb, da, db, pr, pc, K, S, C) <= 232448
+
+
 def test_cluster_size_is_a_power_of_two_that_divides_da():
+    """C is the largest power of two, at most 16, that divides da: min(da,
+    16) for 2^a and 4^a, 1 for 3^a (the all basis); cluster_fits is the
+    launch's rule, plan_ok, at that C, for every shape of 2^a, 3^a and 4^a
+    rows and columns, so that routing never passes a shape the launch
+    refuses."""
+    src = (Path(__file__).resolve().parents[1] / "pulser_diff_torch" / "csrc"
+           / "fused_evolution.cu").read_text()
+    assert _PLAN_OK_LINE in src
     for da in (2, 4, 8, 16, 64, 128, 256):
         C = tfe._cluster_size(da)
         assert C & (C - 1) == 0 and da % C == 0 and C == min(da, 16)
+    for da in (3, 9, 27, 81, 243):
+        assert tfe._cluster_size(da) == 1
+    assert (tfe._cluster_size(3), tfe._cluster_size(81), tfe._cluster_size(64)) == (1, 1, 16)
+    shapes = [(d**a, d**b) for d in (2, 3, 4) for a in range(1, 9) for b in (a, a + 1)
+              if d**(a + b) <= 2**18]
+    for da, db in shapes:
+        for nb, K, pr in ((1, 0, 2), (2, 0, 4), (1, 3, 2)):
+            for bwd in (False, True):
+                args = (bwd, nb, da, db, pr, pr, K, 6)
+                ok = _plan_ok(*args, tfe._cluster_size(da))
+                assert tfe.cluster_fits(*args) == ok, (da, db, nb, K, bwd)
+                if ok:
+                    assert tfe.cluster_plan(*args)[0] == tfe._cluster_size(da)
+                else:
+                    with pytest.raises(ValueError, match="ckpt=True"):
+                        tfe.cluster_plan(*args)
+
+
+@pytest.mark.parametrize("n_atoms", [2, 3, 4, 5, 6, 7, 8, 10])
+def test_all_basis_shapes(n_atoms):
+    """The all basis (3 levels a site): one block a run (C = 1); K1 and K2
+    hold up to 6 atoms (27 x 27) and refuse from 7 (27 x 81), before any
+    launch."""
+    a = n_atoms // 2
+    da, db = 3**a, 3 ** (n_atoms - a)
+    for bwd in (False, True):
+        fits = tfe.cluster_fits(bwd, 1, da, db, 4, 4, 0, 6)
+        assert fits == (n_atoms <= 6)
+        if fits:
+            assert tfe.cluster_plan(bwd, 1, da, db, 4, 4, 0, 6)[0] == 1
 
 
 def test_state_batches_at_twelve_atoms():

@@ -94,11 +94,24 @@ def test_to_abstract_repr_round_trips_and_matches_jax(name):
 
 
 def test_digital_fixture_parses_and_its_hamiltonian_names_item_8():
+    """The digital fixture (a Raman channel beside a Rydberg one) builds in
+    the all basis, measured in the digital basis; its build_data equals
+    JAX's at 1e-12."""
+    from pulser_diff_tpu.backend import TpuEmulator
+
+    from tests.torch_port_cases import factored_fields
+
     seq = tinterop.from_abstract_repr(_text("abstract_seq_digital.json"))
     assert {ch.basis for ch in seq.declared_channels.values()} == {"digital", "ground-rydberg"}
     assert seq._measurement == "digital"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TorchEmulator.from_sequence(seq, evaluation_times="Minimal", device="cpu")
+    tsim = TorchEmulator.from_sequence(seq, evaluation_times="Minimal", device="cpu")
+    jsim = TpuEmulator.from_sequence(jinterop.from_abstract_repr(_text("abstract_seq_digital.json")),
+                                     evaluation_times="Minimal")
+    assert (tsim.basis_name, tsim.dim, tsim._meas_basis) == ("all", 3, "digital")
+    tf, jf = factored_fields(tsim._hamiltonian._ham_data), factored_fields(jsim._hamiltonian._ham_data)
+    for k, v in jf.items():
+        assert tf[k].shape == v.shape, k
+        np.testing.assert_allclose(tf[k], v, rtol=0, atol=1e-12, err_msg=k)
 
 
 def test_to_abstract_repr_refusals_and_int_ids():

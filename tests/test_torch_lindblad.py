@@ -197,8 +197,9 @@ def test_model_value_and_grad_match_jax(kind):
 def test_stochastic_only_model_and_leakage_raise(monkeypatch):
     """A doppler-only model differentiates one drawn realization on the
     Schrodinger stepper (kets, not density matrices), as JAX's does: from
-    the same draws, value and gradient to MODEL_TOL.  Leakage still
-    raises, naming item 8."""
+    the same draws, value and gradient to MODEL_TOL.  Leakage runs on the
+    extended basis (three levels a site), its density matrices equal to
+    JAX's."""
     dop = np.array([0.7, -0.4])
 
     def draws(lib, cls, key, cfg, n, n_slots):
@@ -221,9 +222,13 @@ def test_stochastic_only_model_and_leakage_raise(monkeypatch):
     assert abs(float(om.grad) - float(jg)) < MODEL_TOL
     _, states = tm._states_fn({"omega": om.detach()})
     assert tuple(states.shape[1:]) == (4, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _pair(noise=("eff_noise",), with_leakage=True, eff_noise_rates=(0.1,),
-              eff_noise_opers=(np.eye(3),))
+    leak = np.zeros((3, 3))
+    leak[2, 1] = 1.0  # |x><g|
+    jsim, tsim = _pair(noise=("eff_noise",), with_leakage=True, eff_noise_rates=(0.1,),
+                       eff_noise_opers=(leak,))
+    rho = tsim.run().states
+    assert tuple(rho.shape[1:]) == (9, 9)
+    np.testing.assert_allclose(_np(rho), jsim.run().states.to_numpy(), rtol=0, atol=F64_TOL)
 
 
 def test_results_over_rho_match_jax():

@@ -339,6 +339,8 @@ def test_lindblad_and_model_noise_raise():
     assert (ham._ham_data.row_parts.shape[0], ham._ham_data.col_parts.shape[0]) == (2, 2)
     assert bool((ham.draws.doppler != 0).all())
     assert torch.isfinite(model.expectation_fn()(dict(model.params))[1]).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.set_config(tsc.SimConfig(noise=("eff_noise",), with_leakage=True,
-                                      eff_noise_rates=(0.1,), eff_noise_opers=(np.eye(3),)))
+    # leakage extends the basis by the dark level: three levels a site
+    tsim.set_config(tsc.SimConfig(noise=("eff_noise",), with_leakage=True,
+                                  eff_noise_rates=(0.1,), eff_noise_opers=(np.eye(3),)))
+    assert (tsim.dim, tsim._hamiltonian._basis_labels) == (3, ["r", "g", "x"])
+    assert tuple(tsim._hamiltonian._ham_data.int_diag.shape) == (3, 3)

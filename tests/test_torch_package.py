@@ -148,3 +148,61 @@ def test_interpolate_sine_matches_jax():
     for n, T in ((8, 660), (5, 37)):
         np.testing.assert_array_equal(to_numpy(tla.interpolate_sine(n, T, device="cpu")),
                                       np.asarray(jla.interpolate_sine(n, T)))
+
+
+def test_public_surface_matches_jax():
+    """Every name the JAX package exports (its emulator under the port's
+    name) is exported by the port, at the top level and in ops; the ops
+    constants and helpers equal JAX's."""
+    import pulser_diff_torch
+    import pulser_diff_torch.ops as tops
+    import pulser_diff_tpu
+    import pulser_diff_tpu.ops as jops
+
+    for name in set(pulser_diff_tpu.__all__) - {"TpuEmulator"}:
+        assert name in pulser_diff_torch.__all__ and hasattr(pulser_diff_torch, name), name
+    assert set(jops.__all__) <= set(tops.__all__)
+    for name in jops.__all__:
+        assert hasattr(tops, name), name
+    for name in ("HMAT", "IMAT", "XMAT", "YMAT", "ZMAT"):
+        np.testing.assert_array_equal(getattr(tops, name).to_numpy(),
+                                      getattr(jops, name).to_numpy())
+    np.testing.assert_array_equal(to_numpy(tops.total_magnetization_diag(5, device="cpu")),
+                                  np.asarray(jops.total_magnetization_diag(5)))
+    assert [tops.s(x) for x in (0.0, 0.3, 1.0)] == [jops.s(x) for x in (0.0, 0.3, 1.0)]
+    rng = np.random.default_rng(9)
+    rho = _rand_cplx(rng, (4, 4))
+    rho = rho @ rho.conj().T
+    rho /= np.trace(rho)
+    np.testing.assert_allclose(to_numpy(tops.trace(as_cplx(rho)).re),
+                               np.asarray(jops.trace(JCplx(jnp.asarray(rho.real),
+                                                           jnp.asarray(rho.imag))).re), atol=1e-14)
+
+
+def test_cplx_helpers_match_jax():
+    """The split-complex methods and constructors of both packages on one
+    seeded input."""
+    from pulser_diff_tpu import cplx as jc
+    from pulser_diff_torch import cplx as tc
+
+    rng = np.random.default_rng(4)
+    a, b = _rand_cplx(rng, (3, 4)), _rand_cplx(rng, (4, 5))
+    c = _rand_cplx(rng, (3, 4))
+    ta, tb, tcc = as_cplx(a), as_cplx(b), as_cplx(c)
+    ja, jb, jcc = (JCplx(jnp.asarray(x.real), jnp.asarray(x.imag)) for x in (a, b, c))
+    theta = rng.normal(size=5)
+    pairs = [
+        (ta.T, ja.T), (ta.mH, ja.mH), (ta.flatten(), ja.flatten()),
+        (ta / tcc, ja / jcc), (ta / 2.5, ja / 2.5), (ta / (1 - 2j), ja / (1 - 2j)),
+        (tc.cmatmul(ta, tb), jc.cmatmul(ja, jb)), (tc.cdot(ta, tcc), jc.cdot(ja, jcc)),
+        (tc.ceye(3), jc.ceye(3, jnp.float64)), (tc.czeros((2, 3)), jc.czeros((2, 3), jnp.float64)),
+        (tc.cones(4), jc.cones(4, jnp.float64)),
+        (tc.cexp_i(torch.as_tensor(theta)), jc.cexp_i(jnp.asarray(theta))),
+        (tc.cconcat([ta, tcc], 1), jc.cconcat([ja, jcc], 1)),
+    ]
+    for got, want in pairs:
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(got.to_numpy(), want.to_numpy(), rtol=0, atol=1e-14)
+    np.testing.assert_allclose(to_numpy(ta.abs()), np.asarray(ja.abs()), rtol=0, atol=1e-14)
+    np.testing.assert_allclose(float(tc.cnorm(ta)), float(jc.cnorm(ja)), rtol=0, atol=1e-14)
+    assert ta.astype(torch.float32).dtype == torch.float32

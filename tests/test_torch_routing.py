@@ -86,3 +86,34 @@ def test_explicit_ckpt_false_raises_naming_ckpt(monkeypatch):
 @pytest.mark.parametrize("n_atoms", [12, 14])
 def test_explicit_ckpt_true_is_kept(monkeypatch, n_atoms):
     assert _route(monkeypatch, _emulator(n_atoms), ckpt=True) is True
+
+
+def _all_basis_emulator(n_atoms: int) -> TorchEmulator:
+    """bench.py's lattice with a rydberg_global and a raman_global pulse:
+    the all basis, three levels a site (da = 3^(n // 2))."""
+    reg = Register.from_coordinates(
+        [(10.0 * (i % 4), 10.0 * (i // 4)) for i in range(n_atoms)], prefix="q")
+    seq = Sequence(reg, MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.declare_channel("ram", "raman_global")
+    seq.add(Pulse(ConstantWaveform(20, 1.0), ConstantWaveform(20, -2.0), 0.0), "ryd")
+    seq.add(Pulse(ConstantWaveform(20, 0.7), ConstantWaveform(20, 0.5), 0.3), "ram",
+            protocol="no-delay")
+    return TorchEmulator.from_sequence(seq, sampling_rate=0.25, evaluation_times="Minimal",
+                                       device="cpu")
+
+
+@pytest.mark.parametrize("n_atoms, ckpt", [(2, False), (3, False), (4, False), (5, False),
+                                           (6, False), (7, True), (8, True), (10, True)])
+def test_all_basis_route(monkeypatch, n_atoms, ckpt):
+    """The all basis runs one block a run (C = 1 for da = 3^a): K1/K2 up
+    to 6 atoms (27 x 27); from 7 atoms (27 x 81) no block holds the plan
+    and the route takes K4/K5 (8 atoms: 81 x 81, 10 atoms: 243 x 243,
+    below dim 2^16), before any launch; ckpt=False there raises the
+    plan's ValueError."""
+    sim = _all_basis_emulator(n_atoms)
+    assert sim.dim == 3 and sim.basis_name == "all"
+    assert _route(monkeypatch, sim) is ckpt
+    if ckpt:
+        with pytest.raises(ValueError, match="ckpt=True"):
+            _route(monkeypatch, sim, ckpt=False)
