@@ -81,7 +81,7 @@ Phases (each raises on failure, so the script exits non-zero):
      with sample_state; the device sampler's bit marginals within 5
      standard errors of the exact mixture's, without and with detection
      flips (20000 samples a run, 8 runs);
- 12. the Lindblad path of bench_mesolve.py at half its duration (200 ns;
+ 12. the Lindblad path of bench_mesolve.py at a quarter of its duration (100 ns;
      no kernel on it, as in the JAX package; every count stays 0): the 10-atom value+grad step through
      QuantumModel with dephasing (DP5_ME, the dense form at dim 1024)
      against the factored form (1e-10 on the value, 1e-8 on the gradient)
@@ -92,7 +92,7 @@ Phases (each raises on failure, so the script exits non-zero):
      trace and Hermiticity within 1e-10, time and peak; dephasing +
      doppler run() at 8 atoms, R = 4 (one mesolve a run), counts summing
      to runs x samples_per_run;
- 13. quantum-jump trajectories (bench_mcwf.py at 200 ns, no kernel): the 3-atom
+ 13. quantum-jump trajectories (bench_mcwf.py at 100 ns, no kernel): the 3-atom
      run(solver="MCWF", n_traj=1024) populations against DP5_ME within
      4/sqrt(R); 12 atoms MCWF_F32 at R = 64, timed, its final counts
      summing to 1; at 10 atoms expectation_mcwf_fn's value and gradient
@@ -140,15 +140,33 @@ Phases (each raises on failure, so the script exits non-zero):
      bench.py's model on raman_global alone (the digital basis, 64 x 64, no
      interaction, K1/K2 at C = 16); each step against the f64 stepper at
      1e-6 / 1e-5 with its time and peak device memory, its kernels against
-     their plain versions (on every step; at 8 and 10 atoms on the first
-     PLAIN_STEPS), timed with their bounds; (d) a 4-atom Lindblad run() on
+     their plain versions on the first PLAIN_STEPS steps, timed with
+     their bounds; (d) a 4-atom Lindblad run() on
      the leakage-extended basis (dim 81, no kernel): the dense and
      factored forms within 1e-10, trace and Hermiticity 1e-10, the weights
      reading |x> as 0; (e) at 12 atoms (f64 stepper, no kernel)
      expectation_fn_of_times and deriv_time with the pulse boundaries
      repaired, against a central difference at three interior times, and
      deriv_param at the final time against a central difference along the
-     gradient, 1e-5 relative, timed.
+     gradient, 1e-5 relative, timed;
+ 17. the Krylov and adaptive steppers and the final-state form: (a)
+     bench.py's 12-atom model cut to 132 ns, value and gradient on the card
+     under KRYLOV_SE, DP5_SE_ADAPTIVE and KRYLOV_SE_F32 (no kernel under
+     them: every count stays 0), each f64 solver against the same call on
+     the card machine's CPU (KRYLOV_SE 1e-10 relative on the value, 1e-8
+     x max|g| on the gradient; DP5_SE_ADAPTIVE 1e-8 / 1e-6, both runs'
+     attempted and accepted steps printed), KRYLOV_SE_F32 against
+     KRYLOV_SE on the card (the value within 3x the JAX package's own
+     f32-to-f64 distance on this model, floor 1e-5; the gradient 1e-4 x
+     max|g| + 1e-8); their times, peak device memory, busy shares (on the
+     model cut to 20 ns), the adaptive loop's host reads, and each one's distance to the f64
+     DP5_SE step at 1 and 8 substeps, printed; (b) pallas_evolve (the
+     final state only) at 12 atoms (one K1 and one K2 launch), 16 atoms
+     with ckpt=True (one K4 and one K5) and on the 12-atom XY model (K1/K2
+     with kron pairs): the final state equal to evolve_states' last slot
+     bit for bit, the gradient within 1e-4 relative of evolve_states',
+     the kernels at the final-state inputs against their plain versions,
+     timed, with their bounds.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -213,7 +231,16 @@ POP_16 = 2
 POP_CKPT_GRAD_REL = 1e-6
 
 
+_START = [None]
+
+
 def _log(msg: str) -> None:
+    """Print ``msg``; a phase's first line gets the seconds since the first
+    line."""
+    if _START[0] is None:
+        _START[0] = time.perf_counter()
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - _START[0]:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -812,8 +839,11 @@ def _device_busy_ms(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev else None), len(dev)
+    # the trace's raw events: prof.events() builds a Python object for each
+    # of a step's up to ~10^5 launches, minutes on the card's host
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return (sum(e.duration_ns() for e in dev) / 1e6 if dev else None), len(dev)
 
 
 def _busy_line(busy, count, step_ms) -> str:
@@ -1435,7 +1465,7 @@ def _mc_phase(torch, fe, device, gen):
 
 
 # the Lindblad workload of bench_mesolve.py: a 4-wide lattice at 8 um,
-# 400 ns (200 ns here: ME_DURATION), a 4-parameter sine-interpolated
+# 400 ns (100 ns here: ME_DURATION), a 4-parameter sine-interpolated
 # amplitude, detuning -1 rad/us,
 # dephasing 0.05 rad/us, sampling_rate 0.5; the final total magnetization
 # and its gradient in the 4 parameters
@@ -1766,9 +1796,9 @@ def _training_phase(torch, fe, device, p0, gen):
     return {"K2": k2, "K5": k5, "chunks": chunks, **fit}
 
 
-# bench_mesolve.py's pulse runs 400 ns; phases 12 and 13 run it for 200 ns
-# (101 steps), the depth cut that keeps the script inside its time limit
-ME_DURATION = 200
+# bench_mesolve.py's pulse runs 400 ns; phases 12 and 13 run it for 100 ns
+# (51 steps), the depth cut that keeps the script inside its time limit
+ME_DURATION = 100
 ME_PARAMS = 4
 ME_SPACING = 8.0
 ME_DET0 = -1.0
@@ -2704,11 +2734,12 @@ def _bases_phase(torch, fe, device, gen):
     the times of (d) and (e)."""
     label = "(a/b) {n} atoms, all basis{extra}"
     small = _all_step(torch, fe, device, gen, ALL_SMALL_N, label.format(n=ALL_SMALL_N, extra=""),
-                      K1K2)
+                      K1K2, plain_n=PLAIN_STEPS)
     mid = _all_step(torch, fe, device, gen, ALL_K1K2_N, label.format(n=ALL_K1K2_N, extra=""),
-                    K1K2)
+                    K1K2, plain_n=PLAIN_STEPS)
     mid_ck = _all_step(torch, fe, device, gen, ALL_K1K2_N,
-                       label.format(n=ALL_K1K2_N, extra=", ckpt=True"), K4K5, ckpt=True)
+                       label.format(n=ALL_K1K2_N, extra=", ckpt=True"), K4K5, plain_n=PLAIN_STEPS,
+                       ckpt=True)
     _all_refused(torch, fe, device, ALL_REFUSED_N)
     refused = _all_step(torch, fe, device, gen, ALL_REFUSED_N,
                         label.format(n=ALL_REFUSED_N, extra=""), K4K5, plain_n=PLAIN_STEPS)
@@ -2716,7 +2747,7 @@ def _bases_phase(torch, fe, device, gen):
                     K4K5, plain_n=PLAIN_STEPS)
     digital = _all_step(torch, fe, device, gen, N_QUBITS,
                         f"(c) {N_QUBITS} atoms, digital basis (raman_global)", K1K2,
-                        raman_only=True)
+                        raman_only=True, plain_n=PLAIN_STEPS)
     times = {**_leakage_phase(torch, fe, device), **_derivative_phase(torch, fe, device)}
     entries = []
     for what, ks in ((f"all basis {ALL_SMALL_N} atoms", small),
@@ -2734,6 +2765,213 @@ def _bases_phase(torch, fe, device, gen):
             entries.append(_entry(kname, src, line, e["launches"], e,
                                   f"{what}, {e['da']} x {e['db']}"))
     return entries, times
+
+
+# phase 17: the Krylov and adaptive steppers (plain torch, no kernel under
+# them, as no Pallas kernel lies under them in the JAX package) on
+# bench.py's 12-atom model at full width, cut to 132 ns (33 grid
+# intervals), and the final-state form of the fused kernels
+P17_DURATION = 132
+# the window on which phase 17 (a) takes each solver's busy share
+P17_PROFILE_NS = 20
+# |value of KRYLOV_SE_F32 - value of KRYLOV_SE| of the JAX package on this
+# model (12 atoms, 132 ns), on the CPU; recomputed by
+# tests/test_torch_krylov.py::test_twelve_atom_f32_distance
+JAX_F32_KRYLOV_DIST = 8.820745065918345e-06
+# KRYLOV_SE_F32's value against KRYLOV_SE on the card: 3x the JAX
+# package's own f32 distance, floor 1e-5; its gradient at the JAX
+# package's bar (tests/test_solvers.py::test_krylov_f32_matches_f64)
+F32_KRYLOV_VALUE_TOL = max(3 * JAX_F32_KRYLOV_DIST, 1e-5)
+F32_KRYLOV_GRAD_REL = 1e-4
+# each f64 solver on the card against the same call on the card machine's
+# CPU (same algorithm, same grid): (value relative, gradient x max|g|).
+# Device roundoff may flip an adaptive accept near its threshold, so the
+# adaptive bars sit at rtol's level
+P17_BARS = {"KRYLOV_SE": (1e-10, 1e-8), "DP5_SE_ADAPTIVE": (1e-8, 1e-6)}
+
+
+def _p17_step(torch, fe, device, solver: str, label: str, profile: bool = True, **options):
+    """One value+grad step of the 132 ns model under ``solver``, counted
+    (no fused launch) with the adaptive loop's counts read just after;
+    its time, peak device memory and (``profile``) busy share on a second
+    run.  Returns a dict."""
+    from pulser_diff_torch.solvers import solver as sv
+
+    fused = options.pop("fused", None)
+    model, p0 = _bench_model(torch, device, fused, duration=P17_DURATION, solver=solver,
+                             **options)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sv.reset_adaptive_counts()
+    (v, g, vals), _, ms = _counted(torch, fe, label, lambda: _value_and_grad(torch, model, p0,
+                                                                             device), NO_LAUNCH)
+    counts = dict(sv.ADAPTIVE_COUNTS)
+    peak = _peak_gib(torch)
+    if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()):
+        raise RuntimeError(f"{label}: bad output: values {vals}, grad {g}")
+    line = f"  {label}: value+grad {ms:.1f} ms, peak device memory {peak:.3f} GiB"
+    busy = None
+    if profile:
+        # the profiler's trace of a whole step holds ~10^5-10^6 launches and
+        # takes minutes to read back: the busy share is taken on the same
+        # model cut to P17_PROFILE_NS, timed alone and then profiled
+        short, _ = _bench_model(torch, device, fused, duration=P17_PROFILE_NS, solver=solver,
+                                **options)
+        step = lambda: _value_and_grad(torch, short, p0, device)  # noqa: E731
+        short_ms, _ = _host_time_ms(torch, step, 1)
+        busy, n_dev = _device_busy_ms(torch, step)
+        line += f"; cut to {P17_PROFILE_NS} ns ({short_ms:.1f} ms) " + _busy_line(
+            busy, n_dev, short_ms)
+        busy = None if busy is None else busy / short_ms
+    if counts["attempts"]:
+        line += (f"; {counts['attempts']} attempted / {counts['accepted']} accepted steps, "
+                 f"{counts['reads']} host reads")
+    _log(line)
+    del model
+    return dict(v=v, g=g, ms=ms, peak=peak, busy_share=busy, counts=counts)
+
+
+def _p17_hold(v, g, v_ref, g_ref, value_tol: float, grad_tol: float, label: str,
+              relative: bool = True) -> tuple:
+    """|dv| (relative to |v_ref| when ``relative``) and max |dg| / max |g_ref|,
+    held to the bars."""
+    dv = abs(float(v) - float(v_ref)) / (abs(float(v_ref)) if relative else 1.0)
+    dg = float((g.double().cpu() - g_ref.double().cpu()).abs().max()) / float(
+        g_ref.abs().max())
+    _log(f"  {label}: value {float(v)!r} against {float(v_ref)!r}: {'relative ' if relative else ''}"
+         f"|dv| {dv:.3e} (tol {value_tol:.3e}); max|dg| / max|g| {dg:.3e} (tol {grad_tol:.0e})")
+    if dv > value_tol or dg > grad_tol:
+        raise RuntimeError(f"{label}: |dv| {dv:.3e}, |dg| {dg:.3e}")
+    return dv, dg
+
+
+def _solvers_phase(torch, fe, device):
+    """(a): value+grad under KRYLOV_SE, DP5_SE_ADAPTIVE and KRYLOV_SE_F32 on
+    the card, each f64 solver held against the same call on the card
+    machine's CPU, KRYLOV_SE_F32 against KRYLOV_SE on the card; each
+    solver's distance to the f64 DP5_SE step at 1 and 8 substeps printed.
+    Returns the steps' times."""
+    cpu = torch.device("cpu")
+    steps, out = {}, {}
+    for solver in ("KRYLOV_SE", "DP5_SE_ADAPTIVE", "KRYLOV_SE_F32"):
+        steps[solver] = _p17_step(torch, fe, device, solver, f"(a) {solver} on the card")
+    for solver, (vtol, gtol) in P17_BARS.items():
+        from pulser_diff_torch.solvers import solver as sv
+
+        model, p0 = _bench_model(torch, cpu, None, duration=P17_DURATION, solver=solver)
+        sv.reset_adaptive_counts()
+        t0 = time.perf_counter()
+        v, g, _ = _value_and_grad(torch, model, p0, cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        c = sv.ADAPTIVE_COUNTS
+        s = steps[solver]
+        extra = (f"; attempted / accepted steps {s['counts']['attempts']} / "
+                 f"{s['counts']['accepted']} on the card, {c['attempts']} / {c['accepted']} on "
+                 f"the CPU" if c["attempts"] else "")
+        _log(f"  (a) {solver} on the card machine's CPU: {cpu_ms:.1f} ms{extra}")
+        _p17_hold(s["v"], s["g"], v, g, vtol, gtol, f"(a) {solver}: card vs CPU")
+    k64, k32 = steps["KRYLOV_SE"], steps["KRYLOV_SE_F32"]
+    dv, dg = _p17_hold(k32["v"], k32["g"], k64["v"], k64["g"], F32_KRYLOV_VALUE_TOL,
+                       F32_KRYLOV_GRAD_REL, "(a) KRYLOV_SE_F32 vs KRYLOV_SE on the card",
+                       relative=False)
+    _log(f"  (a) KRYLOV_SE_F32's distance to f64 on the card {dv:.3e}; the JAX package's f32 "
+         f"mode on the CPU {JAX_F32_KRYLOV_DIST:.3e} (bar 3x that, floor 1e-5)")
+    for sub in (1, 8):
+        ref = _p17_step(torch, fe, device, "DP5_SE", f"(a) DP5_SE f64, {sub} substep(s)",
+                        profile=False, fused=False, substeps=sub)
+        for solver, s in steps.items():
+            d_v = abs(float(s["v"]) - float(ref["v"]))
+            d_g = float((s["g"].double() - ref["g"]).abs().max())
+            _log(f"  (a) {solver} vs DP5_SE f64 at {sub} substep(s): |dv| {d_v:.3e}, "
+                 f"max|dg| {d_g:.3e} (printed, not held)")
+        out[f"dp5_f64_{sub}_ms"] = ref["ms"]
+    for solver, s in steps.items():
+        out[f"{solver}_ms"] = s["ms"]
+    return out
+
+
+def _final_state_case(torch, fe, device, gen, label: str, sim, substeps: int, ckpt: bool,
+                      want: dict, plain_n=None) -> dict:
+    """(b): pallas_evolve on ``sim``'s Hamiltonian, value and gradient in
+    the streams and the interaction diagonal, counted (``want``); the final
+    state equal to the last slot of evolve_states bit for bit and the
+    gradient within K2's relative tolerance of evolve_states'; the kernels
+    at the final-state form's inputs against their plain versions, timed."""
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.solvers import TimeGrid
+
+    h = sim._hamiltonian
+    da, db = h.dim**h._a, h.dim**h._b
+    grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, device).refined(substeps)
+    psi0 = sim.initial_state
+    p = Cplx(psi0.re.T.reshape(1, da, db), psi0.im.T.reshape(1, da, db))
+
+    def run(final: bool):
+        hd = h._ham_data
+        s = hd.row_streams.re.detach().clone().requires_grad_(True)
+        d = hd.int_diag.detach().clone().requires_grad_(True)
+        ham = hd._replace(row_streams=Cplx(s, hd.row_streams.im.detach()), int_diag=d)
+        if final:
+            st = fe.pallas_evolve(ham, p, grid.times, "DP5", ckpt=ckpt)
+        else:
+            st = fe.evolve_states(ham, p, grid, "DP5", ckpt=ckpt)[-1]
+        (st.re.double() ** 2 - st.im.double()).sum().backward()
+        return st.re.detach(), st.im.detach(), s.grad, d.grad
+
+    (f_re, f_im, gs, gd), launches, ms = _counted(torch, fe, label, lambda: run(True), want)
+    e_re, e_im, es, ed = run(False)
+    if not (torch.equal(f_re, e_re) and torch.equal(f_im, e_im)):
+        raise RuntimeError(f"{label}: the final state differs from evolve_states' last slot")
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in ((gs, es), (gd, ed)))
+    _log(f"  {label}: final state {tuple(f_re.shape)} {f_re.dtype} equal to evolve_states' last "
+         f"slot bit for bit; gradient within {rel:.3e} relative (tol {K2_TOL_REL:.0e}); "
+         f"launches {launches}; value+grad {ms:.1f} ms")
+    if rel > K2_TOL_REL:
+        raise RuntimeError(f"{label}: gradient {rel:.3e} from evolve_states'")
+    with torch.no_grad():
+        data = fe.prepare_fused_inputs(h._ham_data, p, grid.times, "DP5")
+    data = {k: v.detach().contiguous() for k, v in data.items()}
+    n_steps = int(data["hs"].shape[0])
+    slots = torch.ones(n_steps + 1, dtype=torch.int32, device=device)
+    slots[-1] = 0
+    ks, _ = _held_kernels(torch, fe, data, slots, 1, 0, gen, label, ckpt, n=plain_n)
+    keys = {"K1": "fused_fwd", "K2": "fused_bwd", "K4": "fused_fwd_ckpt", "K5": "fused_bwd_ckpt"}
+    for name, e in ks.items():
+        e.update(launches=launches[keys[name]], pr=int(data["rp"].shape[0]),
+                 pc=int(data["cp"].shape[0]), K=fe._n_kron(data), da=da, db=db)
+        _log(f"  {label}: {name} {e['ms']:.3f} ms (bound {e['bound']:.4f} ms by {e['by']}), "
+             f"against plain {e['err']:.3e} (plain {e['plain_ms']:.1f} ms on "
+             f"{e['plain_steps']} steps)")
+    return ks
+
+
+def _final_state_phase(torch, fe, device, gen):
+    """(b): pallas_evolve at 12 atoms on K1/K2, 16 atoms with ckpt=True on
+    K4/K5, and on the 12-atom XY model on K1/K2 with kron pairs (K3).
+    Returns the kernels' entries."""
+    cases = []
+    m12, _ = _bench_model(torch, device, True)
+    m16, _ = _bench_model(torch, device, None, n_qubits=16)
+    mxy, _ = _xy_model(torch, device, True)
+    for label, model, ckpt, want, n in (
+            ("(b) 12 atoms, pallas_evolve", m12, False, K1K2, PLAIN_STEPS),
+            ("(b) 16 atoms, pallas_evolve(ckpt=True)", m16, True, K4K5, PLAIN_STEPS),
+            ("(b) 12-atom XY, pallas_evolve", mxy, False, K1K2, PLAIN_STEPS)):
+        with torch.no_grad():
+            sim = model._make_emulator(dict(model.params))
+        ks = _final_state_case(torch, fe, device, gen, label, sim, model._default_substeps(),
+                               ckpt, want, plain_n=n)
+        names = {"K1": ("fused_fwd_kernel (K1)", "fused_evolution.cu", 1330),
+                 "K2": ("fused_bwd_kernel (K2)", "fused_evolution.cu", 1330),
+                 "K4": ("fused_fwd_ckpt_kernel (K4)", "fused_ckpt.cu", 1679),
+                 "K5": ("fused_bwd_ckpt_kernel (K5)", "fused_ckpt.cu", 1679)}
+        for name, e in ks.items():
+            kname, src, line = names[name]
+            what = f"final-state form, {label[4:]}, {e['da']} x {e['db']}"
+            cases.append(_entry(kname, src, line, e["launches"], e, what))
+        del sim
+        torch.cuda.empty_cache()
+    return cases
 
 
 def main() -> int:
@@ -3053,6 +3291,16 @@ def main() -> int:
     bases, bases_ms = _bases_phase(torch, fe, device, gen)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in bases_ms.items()))
 
+    # 17. the Krylov and adaptive steppers (no kernel), and the final-state
+    # form of the fused kernels
+    _log(f"phase 17 solvers: (a) {N_QUBITS}-atom value+grad at {P17_DURATION} ns under "
+         "KRYLOV_SE, DP5_SE_ADAPTIVE, KRYLOV_SE_F32 (no kernel) against the same call on the "
+         "CPU and against KRYLOV_SE; (b) pallas_evolve at 12 atoms (K1/K2), 16 atoms ckpt=True "
+         "(K4/K5), 12-atom XY (K1/K2 with kron pairs)")
+    solvers_ms = _solvers_phase(torch, fe, device)
+    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in solvers_ms.items()))
+    final = _final_state_phase(torch, fe, device, gen)
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -3110,7 +3358,7 @@ def main() -> int:
         kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
                              e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
                              e["by"]))
-    for kname, src, replaces, count, e in front + bases:
+    for kname, src, replaces, count, e in front + bases + final:
         kernels.append(entry(kname, src, replaces, count, e["err"], e["ms"], e["plain_ms"],
                              e["bound"], e["by"]))
     print(smi)

@@ -69,11 +69,18 @@ _LINDBLAD_NOISES = {"dephasing", "relaxation", "depolarizing", "eff_noise"}
 _DETERMINISTIC_NOISES = _LINDBLAD_NOISES | {"SPAM", "amplitude", "leakage"}
 _MCWF_SOLVERS = (SolverType.MCWF, SolverType.MCWF_F32)
 
-# solver options accepted by run(**options) (and QuantumModel) so far
-_RUN_OPTIONS = {"substeps", "max_step", "fused", "ckpt", "remat", "n_segments", "superop",
-                "me_form", "n_traj"}
-# the options that go on to sesolve
-_SESOLVE_OPTIONS = ("remat", "n_segments")
+# solver options accepted by run(**options) and QuantumModel: the JAX
+# package's set
+_RUN_OPTIONS = {
+    "substeps", "max_step", "krylov_dim", "krylov_tol", "rtol", "atol", "max_iters", "fused",
+    "superop", "me_form", "remat", "n_segments", "n_traj", "ckpt",
+}
+# the options that go on to sesolve (mesolve takes the last two)
+_SESOLVE_OPTIONS = ("rtol", "atol", "max_iters", "krylov_tol", "remat", "n_segments")
+_MESOLVE_OPTIONS = ("remat", "n_segments")
+_SE_SOLVERS = (SolverType.DP5_SE, SolverType.RK4_SE, SolverType.KRYLOV_SE,
+               SolverType.KRYLOV_SE_F32, SolverType.DP5_SE_ADAPTIVE, SolverType.DP5_SE_F32,
+               SolverType.RK4_SE_F32)
 
 
 def check_options(options: Mapping[str, Any], where: str) -> None:
@@ -434,12 +441,12 @@ class TorchEmulator:
             return mesolve(ham_data, rho0, h._collapse_ops, h._size, h.dim, grid, solver=solver,
                            substeps=substeps, superop=opts.get("superop"),
                            me_form=opts.get("me_form"),
-                           **{k: opts[k] for k in _SESOLVE_OPTIONS if k in opts})
+                           **{k: opts[k] for k in _MESOLVE_OPTIONS if k in opts})
         nb = psi0.shape[1]
         p = Cplx(psi0.re.T.reshape(nb, da, db), psi0.im.T.reshape(nb, da, db))
-        if solver in (SolverType.DP5_SE, SolverType.RK4_SE, SolverType.DP5_SE_F32,
-                      SolverType.RK4_SE_F32):
+        if solver in _SE_SOLVERS:
             states = sesolve(ham_data, p, grid, solver=solver, substeps=substeps,
+                             krylov_dim=int(opts.get("krylov_dim", 12)),
                              **{k: opts[k] for k in _SESOLVE_OPTIONS if k in opts})
         elif solver in self._PALLAS_METHODS:
             method = self._PALLAS_METHODS[solver]
@@ -546,7 +553,10 @@ class TorchEmulator:
         stepper), ``ckpt`` (True / False to force the checkpointed fused
         kernels K4/K5 or K1/K2; by default they run from dim 2^16 and
         wherever K1/K2 cannot hold the shape), ``remat`` / ``n_segments``
-        (the steppers' checkpointed integration)."""
+        (the steppers' checkpointed integration), ``krylov_dim`` /
+        ``krylov_tol`` (``KRYLOV_SE`` / ``KRYLOV_SE_F32``), ``rtol`` /
+        ``atol`` / ``max_iters`` (``DP5_SE_ADAPTIVE``), ``superop`` /
+        ``me_form`` (the Lindblad form), ``n_traj`` (MCWF)."""
         check_options(options, "run()")
         h = self._hamiltonian
         cfg = h.config

@@ -22,6 +22,7 @@ The density-matrix forms (``h_apply_rho_left``, ``apply_local_left`` /
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -87,12 +88,24 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
     return _take(h.row_streams), _take(h.col_streams), zk
 
 
+# this thread's nesting depth of _f32_full_precision: inside, a product
+# that needs no gradient runs directly, and an inner block changes nothing
+_PINNED = threading.local()
+
+
+def _depth() -> int:
+    return getattr(_PINNED, "depth", 0)
+
+
 @contextlib.contextmanager
 def _f32_full_precision():
     """cuBLAS f32 products at full f32 precision (no TF32) inside the block,
     through whichever of PyTorch's two switches the caller set (the legacy
     ``allow_tf32``, whose getter raises once the per-backend
     ``fp32_precision`` was set alone); both are restored after it."""
+    if _depth():
+        yield
+        return
     m = torch.backends.cuda.matmul
     new = getattr(m, "fp32_precision", None)
     try:
@@ -103,9 +116,11 @@ def _f32_full_precision():
         m.fp32_precision = "ieee"
     else:
         m.allow_tf32 = False
+    _PINNED.depth = 1
     try:
         yield
     finally:
+        _PINNED.depth = 0
         if prev is not None:
             m.allow_tf32 = prev
         if new is not None:
@@ -136,9 +151,15 @@ class _F32Matmul(torch.autograd.Function):
         return ga, gb
 
 
+def _needs_graph(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a product must pin its own backward pass: outside a pinned
+    block, or where autograd will differentiate it."""
+    return not _depth() or (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b; in f32 pinned to full precision, forward and backward."""
-    if a.dtype == torch.float32:
+    if a.dtype == torch.float32 and _needs_graph(a, b):
         return _F32Matmul.apply(a, b)
     return a @ b
 
@@ -175,7 +196,7 @@ class _F32Einsum(torch.autograd.Function):
 def _einsum(sub: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.einsum(sub, a, b); in f32 pinned to full precision, forward
     and backward (subscripts as :class:`_F32Einsum` takes them)."""
-    if a.dtype == torch.float32:
+    if a.dtype == torch.float32 and _needs_graph(a, b):
         return _F32Einsum.apply(sub, a, b)
     return torch.einsum(sub, a, b)
 
@@ -242,20 +263,31 @@ def _kron_terms_batched(h: FactoredHamiltonian, zk: Cplx, x: torch.Tensor, y: to
 def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx],
                     psi: Cplx) -> Cplx:
     """H(t) @ psi for a batched state (nb, da, db)."""
+    return h_applier(h, zr, zc, zk)(psi)
+
+
+def h_applier(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx]):
+    """psi -> H(t) @ psi (as ``h_apply_batched``) with the side matrices
+    assembled once, for repeated products at one time (a Krylov
+    subspace)."""
     hr = assemble_side(h.row_parts, zr)
     gc = assemble_side(h.col_parts, zc, transpose=True)
-    x, y = psi.re, psi.im
-    rx = _mm(hr.re, x) - _mm(hr.im, y)
-    ry = _mm(hr.re, y) + _mm(hr.im, x)
-    cx = _mm(x, gc.re) - _mm(y, gc.im)
-    cy = _mm(x, gc.im) + _mm(y, gc.re)
-    out_re = rx + cx + h.int_diag * x
-    out_im = ry + cy + h.int_diag * y
-    if h.kron_row is not None and zk is not None:
-        add_re, add_im = _kron_terms_batched(h, zk, x, y)
-        out_re = out_re + add_re
-        out_im = out_im + add_im
-    return Cplx(out_re, out_im)
+
+    def apply(psi: Cplx) -> Cplx:
+        x, y = psi.re, psi.im
+        rx = _mm(hr.re, x) - _mm(hr.im, y)
+        ry = _mm(hr.re, y) + _mm(hr.im, x)
+        cx = _mm(x, gc.re) - _mm(y, gc.im)
+        cy = _mm(x, gc.im) + _mm(y, gc.re)
+        out_re = rx + cx + h.int_diag * x
+        out_im = ry + cy + h.int_diag * y
+        if h.kron_row is not None and zk is not None:
+            add_re, add_im = _kron_terms_batched(h, zk, x, y)
+            out_re = out_re + add_re
+            out_im = out_im + add_im
+        return Cplx(out_re, out_im)
+
+    return apply
 
 
 def h_matrix(h: FactoredHamiltonian, t: torch.Tensor) -> Cplx:

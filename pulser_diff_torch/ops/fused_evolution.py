@@ -59,7 +59,9 @@ Host side (``_precompute_stage_z``, ``_split_hi_lo``, ``_stage_all``,
 the JAX package key by key.  Every kernel takes R runs (one cluster per
 run for K1/K2, R times the jobs for K4/K5): ``prepare_mc_inputs`` and
 ``evolve_mc`` stage R Hamiltonians on that axis (population evaluation),
-``evolve_states`` is one run of it.  ``zbar`` is written directly as
+``evolve_states`` is one run of it.  ``fused_evolve`` / ``pallas_evolve``
+return the final state only (K1/K2 with a slot on the last grid point
+alone, or K4/K5's last step).  ``zbar`` is written directly as
 ``(R, n_steps, S, 2pr + 2pc + 2K)``: the ``(1, 128)`` row packing of the
 Pallas kernel was a TPU layout workaround.
 """
@@ -1346,3 +1348,36 @@ def evolve_states(ham: FactoredHamiltonian, psi0: Cplx, grid, method: str = "DP5
     differentiable (counterpart of ``pallas_evolve_states``): one run of
     :func:`evolve_mc`."""
     return evolve_mc([ham], psi0, grid, method, ckpt)[0]
+
+
+def fused_evolve(method: str, data: dict):
+    """Fused f32 ERK evolution returning the final state only, (R, nb, da,
+    db) re/im, differentiable (counterpart of the JAX package's
+    ``fused_evolve``): K1 with a slot table in which only the last grid
+    point carries a slot, so K2 takes that slot's cotangent alone and
+    rebuilds every earlier step, as the JAX kernels do without their
+    states table.  With kron pairs the state is the two-word hi + lo in
+    f64 (``_states_out``)."""
+    n_steps = int(data["hs"].shape[0])
+    slots = torch.ones(n_steps + 1, dtype=torch.int32, device=data["psi_re"].device)
+    slots[-1] = 0
+    st_re, st_im = fused_evolve_states(method, slots, 1, 0, data)
+    return st_re[:, 0], st_im[:, 0]
+
+
+def pallas_evolve(ham: FactoredHamiltonian, psi0: Cplx, grid_times: torch.Tensor,
+                  method: str = "DP5", ckpt: bool = False) -> Cplx:
+    """Evolve psi0 (nb, da, db) over ``grid_times`` on the fused kernels and
+    return the final state only, differentiable in the Hamiltonian's
+    streams, its interaction diagonal, its kron part matrices and psi0
+    (counterpart of the JAX package's ``pallas_evolve``).  K1/K2 by
+    default (``fused_evolve``); ``ckpt=True`` takes K4/K5, the last step of
+    ``fused_evolve_ckpt``.  f32, or with kron pairs the two-word state in
+    f64, as ``evolve_states`` returns it."""
+    data = prepare_fused_inputs(ham, psi0, grid_times, method)
+    check_parts(int(data["rp"].shape[0]), int(data["cp"].shape[0]))
+    if ckpt:
+        st_re, st_im = fused_evolve_ckpt(method, data)
+        return Cplx(st_re[0, -1], st_im[0, -1])
+    out_re, out_im = fused_evolve(method, data)
+    return Cplx(out_re[0], out_im[0])

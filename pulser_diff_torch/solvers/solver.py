@@ -23,14 +23,29 @@ the lifted collapse operators as (dim, dim) products, up to
 ``_DENSE_ME_DIM_CAP``) and the factored per-site form above.  None of
 them is a kernel of its own, in the JAX package or here: they are plain
 matrix products.  ``DP5_ME_F32`` / ``RK4_ME_F32`` run them in f32 with
-pinned products.  Krylov and adaptive forms are later slices.
+pinned products.
+
+``KRYLOV_SE`` steps by the fourth-order commutator-free Magnus scheme
+(CF4): two exponentials a substep, each exp(-i h H) psi taken in an
+m-dimensional Lanczos subspace with full reorthogonalisation
+(``_krylov_expm``), every column of the state batch in its own subspace
+on one shared grid.  In f64 autograd runs through the recursion (the
+exact discrete adjoint), with the small exponential's derivative taken
+by divided differences (``_expm_sym_e1``), which stays finite where a
+breakdown makes the spectrum degenerate; ``KRYLOV_SE_F32`` runs it in f32
+and differentiates the exact map instead, a continuous adjoint on a
+3-node Gauss rule (``_krylov_expm_cadj``).  ``DP5_SE_ADAPTIVE`` takes
+adaptive DP5(4) steps inside each grid interval, differentiated by a
+continuous-adjoint sweep of its own (``_AdaptiveEvolve``), its bounded
+loop a host loop with one read an attempted step (``ADAPTIVE_COUNTS``).
+No kernel lies under them, in the JAX package or here.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,16 +55,22 @@ from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx, cstack
 from pulser_diff_torch.hamiltonian import CollapseOps
 from pulser_diff_torch.ops.apply import (
-    FactoredHamiltonian, _einsum, _mm, _weighted_sum, apply_local_left, apply_local_right,
-    ceinsum, h_apply_batched, h_apply_rho_left, interp_streams,
+    FactoredHamiltonian, _einsum, _f32_full_precision, _mm, _weighted_sum, apply_local_left,
+    apply_local_right, ceinsum, h_apply_batched, h_apply_rho_left, h_applier,
+    interp_streams,
 )
 
 
 class SolverType:
-    """Solver identifiers (the subset ported so far)."""
+    """Solver identifiers."""
 
     DP5_SE = "DP5_SE"
     RK4_SE = "RK4_SE"
+    # CF4-Magnus steps through Lanczos exponentials (f64 / f32)
+    KRYLOV_SE = "KRYLOV_SE"
+    KRYLOV_SE_F32 = "KRYLOV_SE_F32"
+    # adaptive DP5(4) inside each grid interval, continuous adjoint
+    DP5_SE_ADAPTIVE = "DP5_SE_ADAPTIVE"
     DP5_SE_F32 = "DP5_SE_F32"
     RK4_SE_F32 = "RK4_SE_F32"
     RK4_PALLAS = "RK4_PALLAS"
@@ -192,10 +213,482 @@ def _rk_step_fn(rhs, c, A, B, substeps: int):
     return step
 
 
-def _make_se_step(ham: FactoredHamiltonian, solver: str, substeps: int):
-    if solver not in (SolverType.DP5_SE, SolverType.RK4_SE):
-        raise ValueError(f"Unknown statevector solver '{solver}'.")
-    return _rk_step_fn(lambda t, p: _se_rhs(ham, t, p), *_tableau_of(solver), substeps)
+def _make_se_step(ham: FactoredHamiltonian, solver: str, substeps: int, krylov_dim: int = 12,
+                  krylov_tol: float = 1e-12, rtol: float = 1e-8, atol: float = 1e-10,
+                  max_iters: int = 256):
+    if solver in (SolverType.DP5_SE, SolverType.RK4_SE):
+        return _rk_step_fn(lambda t, p: _se_rhs(ham, t, p), *_tableau_of(solver), substeps)
+    if solver == SolverType.DP5_SE_ADAPTIVE:
+        return _make_se_step_adaptive(ham, substeps, rtol, atol, max_iters)
+    if solver == SolverType.KRYLOV_SE:
+        return _make_se_step_krylov(ham, substeps, krylov_dim, krylov_tol)
+    raise ValueError(f"Unknown statevector solver '{solver}'.")
+
+
+# ----------------------------------------------------------------------
+# Krylov CF4-Magnus stepper
+# ----------------------------------------------------------------------
+# Gauss nodes and weights of the fourth-order commutator-free Magnus
+# scheme (Blanes-Moan), as Python floats, so that an f32 solve stays f32
+# (as in the JAX package, where a numpy scalar would promote it).
+_SQ3 = float(np.sqrt(3.0))
+_CF4_C = (0.5 - _SQ3 / 6, 0.5 + _SQ3 / 6)
+_CF4_A = ((3 - 2 * _SQ3) / 12, (3 + 2 * _SQ3) / 12)
+
+
+def _mix(za: Optional[Cplx], zb: Optional[Cplx], wa: float, wb: float) -> Optional[Cplx]:
+    if za is None or zb is None:
+        return None
+    return Cplx(wa * za.re + wb * zb.re, wa * za.im + wb * zb.im)
+
+
+class _ApplyParts(NamedTuple):
+    """The FactoredHamiltonian fields ``h_applier`` reads."""
+
+    row_parts: torch.Tensor
+    col_parts: torch.Tensor
+    int_diag: torch.Tensor
+    kron_row: Optional[torch.Tensor]
+    kron_col: Optional[torch.Tensor]
+
+
+def _make_se_step_krylov(ham: FactoredHamiltonian, substeps: int, m: int, tol: float):
+    """CF4: per substep the two Gauss-point Hamiltonians mixed into two
+    exponentials of h/2, the right factor (earlier times) first.  Each
+    column of the (nb, da, db) state gets its own Lanczos subspace.  In
+    f32 the exponential carries the continuous adjoint."""
+    c1, c2 = _CF4_C
+    a1, a2 = _CF4_A
+    parts = _ApplyParts(ham.row_parts, ham.col_parts, ham.int_diag, ham.kron_row, ham.kron_col)
+
+    def step(psi: Cplx, t0, t1) -> Cplx:
+        h = (t1 - t0) / substeps
+        cadj = psi.re.dtype == torch.float32
+        for i in range(substeps):
+            ts = t0 + i * h
+            z1 = interp_streams(ham, ts + c1 * h)
+            z2 = interp_streams(ham, ts + c2 * h)
+            for wa, wb in ((2 * a2, 2 * a1), (2 * a1, 2 * a2)):
+                zr, zc, zk = (_mix(x, y, wa, wb) for x, y in zip(z1, z2))
+                if cadj:
+                    psi = _krylov_expm_cadj(m, tol, parts, zr, zc, zk, h / 2, psi)
+                else:
+                    psi = _krylov_expm(h_applier(parts, zr, zc, zk), psi, h / 2, m, tol)
+        return psi
+
+    return step
+
+
+# f32 breakdown floor, relative to the running spectral scale (~5 sqrt(f32
+# eps)): below it a Lanczos residual is rounding noise
+_KRYLOV_F32_REL_TOL = 3e-4
+
+
+def _krylov_expm(apply, psi: Cplx, h, m: int, tol: float = 1e-12) -> Cplx:
+    """exp(-i h H) psi for each column of psi (nb, da, db), in an
+    m-dimensional Lanczos subspace of its own."""
+    return _krylov_exp_of(_lanczos(apply, psi, m, tol), h)
+
+
+def _lanczos(apply, psi: Cplx, m: int, tol: float = 1e-12) -> tuple:
+    """The Lanczos subspace of each column of psi (nb, da, db): the basis
+    (Q.re, Q.im), each (m, nb, da, db), the tridiagonal T (nb, m, m) and
+    the columns' norms.  It does not depend on the step h.
+
+    The recursion runs on the whole batch at once, with per-column alpha,
+    beta and T (``_krylov_exp_of`` takes one batched ``eigh``).  Each new
+    vector is
+    reorthogonalised against the whole basis buffer in one masked
+    contraction.  ``tol`` is the happy-breakdown threshold: once a
+    column's residual norm falls to it, that column's later vectors and
+    couplings are masked to zero (with ``torch.where`` before the square
+    root, so reverse mode stays finite).  In f32 the threshold is also
+    ``_KRYLOV_F32_REL_TOL`` times the column's running spectral scale (max
+    |alpha|, beta), where the residual is rounding noise.  No value is
+    read on the host."""
+    dt, dev = psi.re.dtype, psi.re.device
+    rel_tol = _KRYLOV_F32_REL_TOL if dt == torch.float32 else 0.0
+    nb = psi.re.shape[0]
+    axes = tuple(range(1, psi.re.ndim))
+    q_axes = tuple(a + 1 for a in axes)
+
+    def col(x: torch.Tensor) -> torch.Tensor:
+        return x.reshape((nb,) + (1,) * len(axes))
+
+    def contract(c: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+        # sum_k c[k, b] Q[k, b, ...]
+        return _einsum("kb,kbx->bx", c, Q.reshape(Q.shape[0], nb, -1)).reshape(psi.re.shape)
+
+    nrm = torch.sqrt(psi.abs2().sum(axes))
+    q = psi * col(1.0 / torch.where(nrm > 0, nrm, torch.ones_like(nrm)))
+    pad = [torch.zeros_like(q.re)] * m
+    mask_all = torch.arange(m, device=dev)[:, None]
+    q_re, q_im = [q.re], [q.im]
+    beta_prev = torch.zeros(nb, dtype=dt, device=dev)
+    alive = torch.ones(nb, dtype=dt, device=dev)
+    scale = torch.zeros(nb, dtype=dt, device=dev)
+    tol2 = torch.full((nb,), tol * tol, dtype=dt, device=dev)
+    alphas, betas = [], []
+    for j in range(m):
+        qj = Cplx(q_re[j], q_im[j])
+        w = apply(qj)
+        alpha = (w.re * qj.re + w.im * qj.im).sum(axes)
+        scale = torch.maximum(scale, torch.maximum(alpha.abs(), beta_prev))
+        w = w - qj * col(alpha)
+        if j > 0:
+            w = w - Cplx(q_re[j - 1], q_im[j - 1]) * col(beta_prev)
+        # full reorthogonalisation against every built vector (k <= j), one
+        # masked contraction against the whole (m, nb, da, db) buffer
+        Q_re = torch.stack(q_re + pad[len(q_re):])
+        Q_im = torch.stack(q_im + pad[len(q_im):])
+        mask = (mask_all <= j).to(dt)
+        ov_re = ((Q_re * w.re).sum(q_axes) + (Q_im * w.im).sum(q_axes)) * mask
+        ov_im = ((Q_re * w.im).sum(q_axes) - (Q_im * w.re).sum(q_axes)) * mask
+        w = Cplx(w.re - contract(ov_re, Q_re) + contract(ov_im, Q_im),
+                 w.im - contract(ov_re, Q_im) - contract(ov_im, Q_re))
+        # mask before the square root: its derivative is unbounded at 0
+        s2 = w.abs2().sum(axes)
+        thr2 = torch.maximum(tol2, (rel_tol * scale) ** 2)
+        ok = s2 > thr2
+        beta = torch.sqrt(torch.where(ok, s2, torch.ones_like(s2))) * ok.to(dt)
+        alive = alive * ok.to(dt)
+        if j + 1 < m:
+            q_next = w * col(alive / torch.where(beta > 0, beta, torch.ones_like(beta)))
+            q_re.append(q_next.re)
+            q_im.append(q_next.im)
+        alphas.append(alpha)
+        betas.append(beta * alive)
+        beta_prev = beta
+    a = torch.stack(alphas, -1)
+    b = torch.stack(betas[:-1], -1)
+    T = torch.diag_embed(a) + torch.diag_embed(b, 1) + torch.diag_embed(b, -1)
+    return torch.stack(q_re), torch.stack(q_im), T, nrm
+
+
+def _krylov_exp_of(basis: tuple, h) -> Cplx:
+    """nrm sum_k u_k q_k with u = expm(-i h T) e1: exp(-i h H) psi from
+    psi's Lanczos subspace."""
+    Q_re, Q_im, T, nrm = basis
+    m, nb, shape = Q_re.shape[0], Q_re.shape[1], Q_re.shape[1:]
+
+    def contract(c: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+        # sum_k c[k, b] Q[k, b, ...]
+        return _einsum("kb,kbx->bx", c, Q.reshape(m, nb, -1)).reshape(shape)
+
+    u_re, u_im = (u.transpose(0, 1) for u in _expm_sym_e1(T, h))
+    out = Cplx(contract(u_re, Q_re) - contract(u_im, Q_im),
+               contract(u_re, Q_im) + contract(u_im, Q_re))
+    return out * nrm.reshape((nb,) + (1,) * (len(shape) - 1))
+
+
+def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A @ x over leading batch axes (x one axis shorter than A)."""
+    return (A @ x[..., None])[..., 0]
+
+
+class _ExpmSymE1(torch.autograd.Function):
+    """(re, im) of expm(-i h T) e1 for small symmetric T (..., m, m), by
+    an eigendecomposition on T's device.  The backward pass is the
+    transpose of the JAX package's Daleckii-Krein JVP: divided
+    differences F_ij = (f(l_i) - f(l_j)) / (l_i - l_j), and on
+    (near-)degenerate pairs the derivative f'(mu) = -i h e^{-i h mu} at
+    the midpoint, so the gradient stays finite where plain autograd
+    through ``eigh`` divides by a zero gap (as after a Lanczos breakdown).
+    Products in f32 run at full f32 precision.
+
+    An f32 T is decomposed in f64 and the eigenpairs rounded to f32: the
+    f32 ``eigh`` of PyTorch's LAPACK build loses orthogonality at ~1e-7 a
+    call, biased, and over a solve's few hundred calls that drift in the
+    state's norm put KRYLOV_SE_F32 ~3x further from f64 than the JAX
+    package's f32 mode (tests/test_torch_krylov.py)."""
+
+    @staticmethod
+    def forward(ctx, T, h):
+        with _f32_full_precision():
+            if T.dtype == torch.float32:
+                lam, V = (x.to(T.dtype) for x in torch.linalg.eigh(T.to(torch.float64)))
+            else:
+                lam, V = torch.linalg.eigh(T)
+            phase = lam * (-h)
+            v0 = V[..., 0, :]
+            u_re = _bmv(V, torch.cos(phase) * v0)
+            u_im = _bmv(V, torch.sin(phase) * v0)
+        ctx.save_for_backward(lam, V, torch.as_tensor(h, dtype=T.dtype, device=T.device))
+        ctx.h_is_tensor = isinstance(h, torch.Tensor)
+        return u_re, u_im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        lam, V, h = ctx.saved_tensors
+        with _f32_full_precision():
+            phase = lam * (-h)
+            f_re, f_im = torch.cos(phase), torch.sin(phase)
+            v0 = V[..., 0, :]
+            dl = lam[..., :, None] - lam[..., None, :]
+            scale = torch.clamp(lam.abs().amax(-1), min=1.0)[..., None, None]
+            near = dl.abs() < 1e-10 * scale
+            safe_dl = torch.where(near, torch.ones_like(dl), dl)
+            mid = 0.5 * (lam[..., :, None] + lam[..., None, :]) * (-h)
+            F_re = torch.where(near, h * torch.sin(mid),
+                               (f_re[..., :, None] - f_re[..., None, :]) / safe_dl)
+            F_im = torch.where(near, -h * torch.cos(mid),
+                               (f_im[..., :, None] - f_im[..., None, :]) / safe_dl)
+            Vt = V.transpose(-1, -2)
+            a, b = _bmv(Vt, g_re), _bmv(Vt, g_im)
+            G = (F_re * a[..., :, None] + F_im * b[..., :, None]) * v0[..., None, :]
+            T_bar = V @ G @ Vt
+            # d/dh e^{-i h l} = -i l e^{-i h l}
+            h_bar = (a * (lam * f_im) * v0 - b * (lam * f_re) * v0).sum()
+        return T_bar, (h_bar.reshape(h.shape) if ctx.h_is_tensor else None)
+
+
+def _expm_sym_e1(T: torch.Tensor, h) -> tuple[torch.Tensor, torch.Tensor]:
+    return _ExpmSymE1.apply(T, h)
+
+
+# The f32 path differentiates the exact map, not the recursion (reverse
+# mode through an f32 Lanczos recursion overflows near an eigenstate,
+# where the small betas' sensitivities cancel only in f64):
+#   cot_psi = exp(+i h H) ct
+#   <ct, d exp(-i h H) psi> = h Int_0^1 Im(u(s)^H dH v(s)) ds,
+#       v(s) = exp(-i h s H) psi,  u(s) = exp(-i h s H) cot_psi,
+# the integral by 3-node Gauss-Legendre quadrature.
+_KRYLOV_ADJ_NODES = (0.5 - float(np.sqrt(15)) / 10, 0.5, 0.5 + float(np.sqrt(15)) / 10)
+_KRYLOV_ADJ_WEIGHTS = (5 / 18, 4 / 9, 5 / 18)
+
+
+class _KrylovExpmCadj(torch.autograd.Function):
+    """``_krylov_expm`` with the continuous adjoint above as its backward
+    pass.  Differentiable in the part stacks, the interaction diagonal,
+    the kron part matrices, the mixed stream values, h and psi."""
+
+    @staticmethod
+    def forward(ctx, m, tol, *args):
+        ops, h, psi_re, psi_im = args[:11], args[11], args[12], args[13]
+        with _f32_full_precision():
+            out = _krylov_expm(_cadj_apply(ops), Cplx(psi_re, psi_im), h, m, tol)
+        ctx.m, ctx.tol = m, tol
+        ctx.save_for_backward(*ops, h, psi_re, psi_im, out.re, out.im)
+        return out.re, out.im
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        with _f32_full_precision():
+            return _KrylovExpmCadj._backward(ctx, g_re, g_im)
+
+    @staticmethod
+    def _backward(ctx, g_re, g_im):
+        saved = ctx.saved_tensors
+        ops, h, psi, out = saved[:11], saved[11], Cplx(*saved[12:14]), Cplx(*saved[14:16])
+        m, tol = ctx.m, ctx.tol
+        apply = _cadj_apply(ops)
+        ct = Cplx(g_re, g_im)
+        lam = _krylov_expm(apply, ct, -h, m, tol)
+        need = ctx.needs_input_grad[2:13]
+        grads = [None] * 11
+        want = [i for i in range(11) if need[i] and ops[i] is not None]
+        if want:
+            # one subspace each for psi and lam serves every node
+            nb = psi.re.shape[0]
+            basis = _lanczos(apply, Cplx(torch.cat([psi.re, lam.re]), torch.cat([psi.im, lam.im])),
+                             m, tol)
+            for s, wq in zip(_KRYLOV_ADJ_NODES, _KRYLOV_ADJ_WEIGHTS):
+                vu = _krylov_exp_of(basis, h * s)
+                v_s, u_s = vu[:nb], vu[nb:]
+                with torch.enable_grad():
+                    leaves = [o.detach().requires_grad_() if i in want else o
+                              for i, o in enumerate(ops)]
+                    y = _cadj_apply(leaves)(v_s)
+                    # <ct_F, X> = wq h Im(u_s^H X)
+                    gs = torch.autograd.grad(
+                        (y.re, y.im), [leaves[i] for i in want],
+                        grad_outputs=(-(wq * h) * u_s.im, (wq * h) * u_s.re), allow_unused=True)
+                for i, g in zip(want, gs):
+                    if g is not None:
+                        grads[i] = g if grads[i] is None else grads[i] + g
+        g_h = None
+        if ctx.needs_input_grad[13]:
+            # d/dh exp(-i h H) psi = -i H out
+            z = apply(out)
+            g_h = (ct.re * z.im - ct.im * z.re).sum().reshape(h.shape)
+        return (None, None, *grads, g_h, lam.re, lam.im)
+
+
+def _cadj_apply(ops):
+    """v -> H v for the flat operands of ``_KrylovExpmCadj``: the five
+    ``_ApplyParts`` fields, then zr, zc and zk as (re, im) pairs."""
+    zk = None if ops[9] is None else Cplx(ops[9], ops[10])
+    return h_applier(_ApplyParts(*ops[:5]), Cplx(ops[5], ops[6]), Cplx(ops[7], ops[8]), zk)
+
+
+def _krylov_expm_cadj(m: int, tol: float, parts: _ApplyParts, zr: Cplx, zc: Cplx,
+                      zk: Optional[Cplx], h, psi: Cplx) -> Cplx:
+    zk_ = (None, None) if zk is None else tuple(zk)
+    re, im = _KrylovExpmCadj.apply(m, tol, *parts, *zr, *zc, *zk_, h, psi.re, psi.im)
+    return Cplx(re, im)
+
+
+# ----------------------------------------------------------------------
+# adaptive DP5(4) with a continuous adjoint
+# ----------------------------------------------------------------------
+# embedded 4th-order weights of the error estimate (with the FSAL 7th
+# stage k7 = f(t + h, y5))
+_DP5_B4 = np.array(
+    [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40]
+)
+
+# the adaptive loops' host traffic: attempted and accepted steps, and the
+# host reads of the loop condition (one an attempted step, one before
+# the first); ``reset_adaptive_counts`` sets them to 0
+ADAPTIVE_COUNTS = {"attempts": 0, "accepted": 0, "reads": 0}
+
+
+def reset_adaptive_counts() -> None:
+    for k in ADAPTIVE_COUNTS:
+        ADAPTIVE_COUNTS[k] = 0
+
+
+def _axpy(y: list, k: list, c) -> list:
+    return [a + c * b for a, b in zip(y, k)]
+
+
+def _adaptive_dp5(rhs, y0: list, span, h0, rtol: float, atol: float, max_iters: int) -> list:
+    """Integrate dy/ds = rhs(s, y) over a list of tensors from s = 0 to
+    ``span`` by adaptive DP5(4) steps (the JAX package's
+    ``_adaptive_dp5_pytree``): componentwise error scale atol + rtol |y|,
+    RMS-normed over every element of every tensor; a step is accepted at
+    norm <= 1; the next step is clip(0.9 norm^-0.2, 0.2, 5) times this
+    one; the loop ends at s >= span - 1e-15 or after ``max_iters``
+    attempts, accepted or not.  JAX's bounded while loop becomes a host
+    loop: one host read an attempted step (its accept flag and the
+    condition together) and one before the first."""
+    n_elems = sum(int(x.numel()) for x in y0) or 1
+    s, h, y = span * 0.0, h0, list(y0)
+    ADAPTIVE_COUNTS["reads"] += 1
+    go = bool(s < span - 1e-15)
+    i = 0
+    while go and i < max_iters:
+        h_eff = torch.minimum(h, span - s)
+        ks = []
+        for st, cs in enumerate(_DP5_C):
+            yi = y
+            for j, a in enumerate(_DP5_A[st]):
+                if a != 0.0:
+                    yi = _axpy(yi, ks[j], float(a) * h_eff)
+            ks.append(rhs(s + float(cs) * h_eff, yi))
+        y5 = y
+        for bi, ki in zip(_DP5_B, ks):
+            if bi != 0.0:
+                y5 = _axpy(y5, ki, float(bi) * h_eff)
+        ks.append(rhs(s + h_eff, y5))  # FSAL 7th stage
+        err = None
+        for b5i, b4i, ki in zip(list(_DP5_B) + [0.0], _DP5_B4, ks):
+            d = float(b5i - b4i)
+            if d != 0.0:
+                err = [(d * h_eff) * k for k in ki] if err is None else _axpy(err, ki, d * h_eff)
+        sq_sum = sum(((e / (atol + rtol * yv.abs())) ** 2).sum() for e, yv in zip(err, y))
+        err_norm = torch.sqrt(sq_sum / n_elems)
+        accept = err_norm <= 1.0
+        y = [torch.where(accept, a, b) for a, b in zip(y5, y)]
+        s = torch.where(accept, s + h_eff, s)
+        factor = torch.clamp(0.9 * torch.where(err_norm > 0, err_norm, 1e-10) ** -0.2, 0.2, 5.0)
+        h = h_eff * factor
+        i += 1
+        accepted, go = torch.stack([accept, s < span - 1e-15]).tolist()
+        ADAPTIVE_COUNTS["attempts"] += 1
+        ADAPTIVE_COUNTS["accepted"] += int(accepted)
+        ADAPTIVE_COUNTS["reads"] += 1
+    return y
+
+
+def _rebuild_ham(parts: tuple, streams, n_samples: int) -> FactoredHamiltonian:
+    """A FactoredHamiltonian from its constant parts (row_parts,
+    col_parts, sample_dt) and its differentiable streams (row_streams re,
+    im, col_streams re, im, int_diag, kron_row, kron_col, kron_streams re,
+    im; the kron entries None without kron pairs)."""
+    row_parts, col_parts, sample_dt = parts
+    rs_re, rs_im, cs_re, cs_im, diag, kr, kc, ks_re, ks_im = streams
+    return FactoredHamiltonian(
+        row_parts=row_parts, col_parts=col_parts, row_streams=Cplx(rs_re, rs_im),
+        col_streams=Cplx(cs_re, cs_im), int_diag=diag, sample_dt=sample_dt,
+        n_samples=n_samples, kron_row=kr, kron_col=kc,
+        kron_streams=None if ks_re is None else Cplx(ks_re, ks_im),
+    )
+
+
+class _AdaptiveEvolve(torch.autograd.Function):
+    """Adaptive DP5(4) evolution of psi over [t0, t1] (the JAX package's
+    ``_adaptive_evolve``).  Its backward pass is a second adaptive sweep,
+    from t1 back to t0, of the augmented system (psi, costate, stream
+    cotangents), with the error norm over all of it; the interval ends'
+    cotangents come back too (the evaluation-time gradients).  The part
+    stacks and sample spacing are constant."""
+
+    @staticmethod
+    def forward(ctx, cfg, parts, t0, t1, psi_re, psi_im, *streams):
+        n_samples, rtol, atol, max_iters = cfg
+        ham = _rebuild_ham(parts, streams, n_samples)
+        span = t1 - t0
+        y = _adaptive_dp5(lambda s, p: list(_se_rhs(ham, t0 + s, Cplx(*p))),
+                          [psi_re, psi_im], span, span, rtol, atol, max_iters)
+        ctx.cfg, ctx.parts = cfg, parts
+        ctx.save_for_backward(t0, t1, y[0], y[1], *streams)
+        return y[0], y[1]
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        t0, t1, p1_re, p1_im, *streams = ctx.saved_tensors
+        n_samples, rtol, atol, max_iters = ctx.cfg
+        live = [i for i, x in enumerate(streams) if x is not None]
+        span = t1 - t0
+
+        def f(st, t, psi: Cplx) -> Cplx:
+            return _se_rhs(_rebuild_ham(ctx.parts, st, n_samples), t, psi)
+
+        def aug_rhs(s, y):
+            # dpsi/ds = -f;  dlam/ds = (df/dpsi)^T lam;  dtheta/ds = (df/dtheta)^T lam
+            with torch.enable_grad():
+                st = [x.detach().requires_grad_() if x is not None else None for x in streams]
+                p = Cplx(y[0].detach().requires_grad_(), y[1].detach().requires_grad_())
+                fv = f(st, t1 - s, p)
+                gs = torch.autograd.grad((fv.re, fv.im), [st[i] for i in live] + list(p),
+                                         grad_outputs=(y[2], y[3]), allow_unused=True)
+            st_bar = [torch.zeros_like(streams[i]) if g is None else g
+                      for i, g in zip(live, gs[:-2])]
+            return [-fv.re.detach(), -fv.im.detach(), gs[-2], gs[-1], *st_bar]
+
+        y0 = [p1_re, p1_im, g_re, g_im] + [torch.zeros_like(streams[i]) for i in live]
+        y = _adaptive_dp5(aug_rhs, y0, span, span, rtol, atol, max_iters)
+        lam0 = Cplx(y[2], y[3])
+        grads = [None] * len(streams)
+        for i, g in zip(live, y[4:]):
+            grads[i] = g
+        t0_bar = t1_bar = None
+        if ctx.needs_input_grad[3]:
+            f1 = f(streams, t1, Cplx(p1_re, p1_im))
+            t1_bar = (g_re * f1.re).sum() + (g_im * f1.im).sum()
+        if ctx.needs_input_grad[2]:
+            f0 = f(streams, t0, Cplx(y[0], y[1]))
+            t0_bar = -((lam0.re * f0.re).sum() + (lam0.im * f0.im).sum())
+        return (None, None, t0_bar, t1_bar, lam0.re, lam0.im, *grads)
+
+
+def _make_se_step_adaptive(ham: FactoredHamiltonian, substeps: int, rtol: float = 1e-8,
+                           atol: float = 1e-10, max_iters: int = 256):
+    """Adaptive DP5(4) per grid interval (``substeps`` is not read, as in
+    the JAX package), differentiable through ``_AdaptiveEvolve``."""
+    cfg = (int(ham.n_samples), float(rtol), float(atol), int(max_iters))
+    parts = (ham.row_parts, ham.col_parts, ham.sample_dt)
+    ks = ham.kron_streams
+    streams = (ham.row_streams.re, ham.row_streams.im, ham.col_streams.re, ham.col_streams.im,
+               ham.int_diag, ham.kron_row, ham.kron_col,
+               None if ks is None else ks.re, None if ks is None else ks.im)
+
+    def step(psi: Cplx, t0, t1) -> Cplx:
+        re, im = _AdaptiveEvolve.apply(cfg, parts, t0, t1, psi.re, psi.im, *streams)
+        return Cplx(re, im)
+
+    return step
 
 
 # Residual-storage budget of reverse mode, the JAX package's rule and
@@ -575,6 +1068,7 @@ def me_form_for(dim: int, superop: Optional[bool] = None, me_form: Optional[str]
 _F32_SOLVERS = {
     SolverType.DP5_SE_F32: SolverType.DP5_SE,
     SolverType.RK4_SE_F32: SolverType.RK4_SE,
+    SolverType.KRYLOV_SE_F32: SolverType.KRYLOV_SE,
 }
 _F32_ME_SOLVERS = {
     SolverType.DP5_ME_F32: SolverType.DP5_ME,
@@ -615,31 +1109,43 @@ def sesolve(
     grid: TimeGrid,
     solver: str = SolverType.DP5_SE,
     substeps: int = 1,
+    krylov_dim: int = 12,
+    krylov_tol: float = 1e-12,
+    rtol: float = 1e-8,
+    atol: float = 1e-10,
+    max_iters: int = 256,
     remat: Optional[bool] = None,
     n_segments: Optional[int] = None,
 ) -> Cplx:
     """Integrate i dpsi/dt = H(t) psi.
 
     psi0: Cplx (nb, da, db).  Returns (n_eval, nb, da, db), in f64, or in
-    f32 for ``DP5_SE_F32`` / ``RK4_SE_F32``: the Hamiltonian, psi0 and the
-    grid times cast to f32 (so the stream sample index is taken in f32, as
-    the JAX package takes it) and the f64 modes' stepper run on them.
-    ``remat`` / ``n_segments``: checkpointed integration (``_integrate``);
-    None decides from the state's bytes (``_auto_remat``,
-    ``_auto_segments``).
+    f32 for ``DP5_SE_F32`` / ``RK4_SE_F32`` / ``KRYLOV_SE_F32``: the
+    Hamiltonian, psi0 and the grid times cast to f32 (so the stream sample
+    index is taken in f32, as the JAX package takes it) and the f64 modes'
+    stepper run on them, every product at full f32 precision; the Krylov
+    breakdown threshold is then raised to at least 1e-7 (below it the f32
+    threshold would never fire).  ``krylov_dim`` / ``krylov_tol``: the
+    Lanczos subspace and breakdown threshold of ``KRYLOV_SE``; ``rtol`` /
+    ``atol`` / ``max_iters``: the error control and attempt cap of
+    ``DP5_SE_ADAPTIVE``.  ``remat`` / ``n_segments``: checkpointed
+    integration (``_integrate``); None decides from the state's bytes
+    (``_auto_remat``, ``_auto_segments``).
     """
     if solver in _F32_SOLVERS:
         f32 = torch.float32
         grid32 = TimeGrid(times=grid.times.to(f32), write_slots=grid.write_slots,
                           n_eval=grid.n_eval)
         return sesolve(_cast_ham(ham, f32), psi0.to(f32), grid32, _F32_SOLVERS[solver],
-                       substeps, remat, n_segments)
+                       substeps, krylov_dim, max(krylov_tol, 1e-7), rtol, atol, max_iters,
+                       remat, n_segments)
     n_steps = grid.times.shape[0] * substeps
     if remat is None:
         remat = _auto_remat(psi0, n_steps)
     if n_segments is None:
         n_segments = _auto_segments(psi0, n_steps)
-    return _integrate(_make_se_step(ham, solver, substeps), psi0, grid, remat, n_segments)
+    step = _make_se_step(ham, solver, substeps, krylov_dim, krylov_tol, rtol, atol, max_iters)
+    return _integrate(step, psi0, grid, remat, n_segments)
 
 
 def mesolve(

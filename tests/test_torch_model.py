@@ -172,7 +172,7 @@ def test_fused_run_and_routing(monkeypatch):
     assert (len(fwd), len(fwd_ckpt)) == (2, 2)
     assert out.shape[1:] == (2**16, 1) and bool(torch.isfinite(out.re).all())
     with pytest.raises(TypeError, match="Unknown run"):
-        tsim.run(krylov_dim=12)
+        tsim.run(nsteps=100)
     with pytest.raises(TypeError, match="Sequence instance"):
         TorchEmulator.from_sequence(sequence(jcore, 2), device="cpu")
 

@@ -79,10 +79,10 @@ def test_noise_and_constraints_raise_naming_the_queue():
 
 def test_unknown_options_raise():
     """The options run() takes are accepted (remat and n_segments among
-    them); the JAX package's options the port does not run yet, and
-    misspellings, raise instead of being ignored."""
+    them); the reference-era ``nsteps``, which the JAX package rejects,
+    and misspellings raise instead of being ignored."""
     _port_model(fused=False, ckpt=None, remat=True, n_segments=2, substeps=1)
-    for bad in ({"krylov_dim": 12}, {"n_segment": 2}):
+    for bad in ({"nsteps": 100}, {"n_segment": 2}):
         with pytest.raises(TypeError, match="Unknown QuantumModel option"):
             _port_model(**bad)
 

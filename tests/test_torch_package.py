@@ -179,6 +179,24 @@ def test_public_surface_matches_jax():
                                                            jnp.asarray(rho.imag))).re), atol=1e-14)
 
 
+def test_solver_names_and_run_options_match_jax():
+    """SolverType names every solver of the JAX package (and MCWF /
+    MCWF_F32), and run() / QuantumModel take exactly the JAX package's
+    options."""
+    from pulser_diff_torch import SolverType
+    from pulser_diff_torch.backend import _RUN_OPTIONS
+    from pulser_diff_tpu import SolverType as JSolverType
+    from pulser_diff_tpu.backend import _RUN_OPTIONS as J_RUN_OPTIONS
+
+    def names(cls):
+        return {k: v for k, v in vars(cls).items() if k.isupper()}
+
+    assert names(SolverType) == names(JSolverType)
+    assert {"KRYLOV_SE", "KRYLOV_SE_F32", "DP5_SE_ADAPTIVE", "MCWF", "MCWF_F32"} <= set(
+        names(SolverType))
+    assert _RUN_OPTIONS == J_RUN_OPTIONS
+
+
 def test_cplx_helpers_match_jax():
     """The split-complex methods and constructors of both packages on one
     seeded input."""

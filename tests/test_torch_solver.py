@@ -29,8 +29,9 @@ torch.set_num_threads(1)
 F64_TOL = 1e-10
 
 
-def _setup(n_atoms, nb, eval_times):
-    jsim, _ = emulators(n_atoms, duration=60, seed=20 + n_atoms, evaluation_times=eval_times)
+def _setup(n_atoms, nb, eval_times, duration=60):
+    jsim, _ = emulators(n_atoms, duration=duration, seed=20 + n_atoms,
+                        evaluation_times=eval_times)
     h = jsim._hamiltonian
     da, db = h.dim ** h._a, h.dim ** h._b
     f = factored_fields(h._ham_data)
