@@ -166,7 +166,34 @@ Phases (each raises on failure, so the script exits non-zero):
      with kron pairs): the final state equal to evolve_states' last slot
      bit for bit, the gradient within 1e-4 relative of evolve_states',
      the kernels at the final-state inputs against their plain versions,
-     timed, with their bounds.
+     timed, with their bounds;
+ 18. the example flows of pulser_diff_torch/examples (the docs/*.py user
+     flows), each through its own functions on its default route: (a) the
+     2-qubit gate (the identity as a batch of nb = 4 states, one cluster
+     of C = 2 blocks): the first value+grad step against the f64 stepper
+     (1e-6 / 1e-5), then Adam at lr 0.15 from 3.0 until the fidelity
+     reaches 99 % within 200 steps, one K1 and one K2 launch every step;
+     (b) the 4-qubit gate (nb = 16, C = 4), its first step; (c) the 6-atom
+     state preparation (C = 8) and (d) the 9-atom AFM preparation (dim
+     512, C = 16), their first steps (the same bars) and 3 Adam steps
+     timed; K1/K2 against their plain versions on every
+     step of one epoch in (a) and (b), on the sweep's first 24 steps in
+     (c) and (d), timed with their bounds and cluster sizes,
+     and each epoch split into the host's rebuild of Sequence -> sampler
+     -> Hamiltonian, K1 + K2 and the rest; (e) multi_start at its CI sizes
+     (P = 4 candidates on the runs axis, 40 epochs: 41 K1 and 40 K2
+     launches), every candidate's first loss equal to its own evaluation,
+     the loaded candidate's loss the least seen; (f) noisy_simulation's
+     Monte-Carlo run() (one K1 launch, counts summing to runs x
+     samples_per_run, reproducible from its seed); (g) basic_usage's
+     deriv_param on K1/K2 against a central difference of the f64
+     stepper (value 1e-6, derivative 1e-5 relative), deriv_time (f64
+     stepper) on the first 151 evaluation times against central
+     differences at three times in the constant pulse (1e-5 relative),
+     the central differences on the card machine's CPU; (h) large_scale
+     at 18 atoms: its model built bit for bit as bench.py's, whose step
+     phase 8 takes (DP5_SE_F32, no fused launch), and the f32 run()'s
+     final norm; each sub-phase's wall seconds printed.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -2261,30 +2288,33 @@ def _slm_step(fe, data) -> int:
 
 def _fe_kernels(torch, fe, sim, substeps: int, device, gen, label: str, ckpt: bool, n=None,
                 reps: int = 3):
-    """The kernels of one phase-15 or phase-16 run at its shapes: K1 and
-    K2, or K4 and K5 with ``ckpt``, against their plain versions on every step, or on
-    ``n`` steps around the SLM window's end, then timed on every step
-    with their bounds (``_held_kernels``).  Returns {kernel: entry} with
-    pr, pc, K."""
+    """The kernels of one phase-15, 16 or 18 run at its shapes: K1 and K2,
+    or K4 and K5 with ``ckpt``, against their plain versions on every
+    step, or on ``n`` steps around the SLM window's end (the first ``n``
+    without an SLM mask), then timed on every step with their bounds
+    (``_held_kernels``).  Returns {kernel: entry} with pr, pc, K, nb, da,
+    db, n_steps and (K1/K2) the cluster size C."""
     data, slots, n_eval, last_slot = _kernel_inputs(torch, sim, substeps, device)
-    R_, n_steps, pr, pc = fe._dims(data)[:4]
+    R_, n_steps, pr, pc, nb, da, db = fe._dims(data)
     K = fe._n_kron(data)
     if ckpt:
         plans = _ckpt_plans(torch, fe, data, label)
         where = f"on {plans['K4']['blocks']} / {plans['K5']['blocks']} blocks"
     else:
-        plan = _log_plan(fe, fe._library(), data, "DP5", label)
-        where = f"clusters {plan['K1']['C']} / {plan['K2']['C']} blocks"
+        plans = _log_plan(fe, fe._library(), data, "DP5", label)
+        where = f"clusters {plans['K1']['C']} / {plans['K2']['C']} blocks"
     start = 0 if n is None else _slm_step(fe, data) - n // 2
     out, _ = _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt, n=n,
                            start=start, reps=reps)
     (a, ea), (b, eb) = out.items()
-    _log(f"  {label}: pr = {pr}, pc = {pc}, K = {K}, {n_steps} steps; {a} {ea['ms']:.3f} ms "
-         f"(bound {ea['bound']:.4f} ms by {ea['by']}), {b} {eb['ms']:.3f} ms (bound "
-         f"{eb['bound']:.4f} ms by {eb['by']}) (CUDA events, warm median of {reps}) {where}; "
-         f"plain {ea['plain_ms']:.1f} / {eb['plain_ms']:.1f} ms on {ea['plain_steps']} steps")
-    for e in out.values():
-        e.update(pr=pr, pc=pc, K=K)
+    _log(f"  {label}: nb = {nb}, {da} x {db}, pr = {pr}, pc = {pc}, K = {K}, {n_steps} steps; "
+         f"{a} {ea['ms']:.3f} ms (bound {ea['bound']:.4f} ms by {ea['by']}), {b} "
+         f"{eb['ms']:.3f} ms (bound {eb['bound']:.4f} ms by {eb['by']}) (CUDA events, warm "
+         f"median of {reps}) {where}; plain {ea['plain_ms']:.1f} / {eb['plain_ms']:.1f} ms on "
+         f"{ea['plain_steps']} steps")
+    for name, e in out.items():
+        e.update(pr=pr, pc=pc, K=K, nb=nb, da=da, db=db, n_steps=n_steps,
+                 C=None if ckpt else plans[name]["C"])
     del data
     torch.cuda.empty_cache()
     return out
@@ -2974,6 +3004,330 @@ def _final_state_phase(torch, fe, device, gen):
     return cases
 
 
+# phase 18: the example flows of pulser_diff_torch/examples (docs/*.py) on
+# the card, each on its default route, at the shapes the flows give K1/K2
+# (identity batches nb = 4 / 16 at 2 / 4 atoms; 6 and 9 atoms, C = 8 / 16)
+P18_ADAM_STEPS = 3
+# three times inside basic_usage's constant first pulse (H constant there,
+# so <M>(t) is smooth at the evaluation times): indices of its 1 ns grid;
+# deriv_time on the card and its central differences solve the first
+# P18_DERIV_TIMES evaluation times only (0-150 ns of the 600)
+P18_DERIV_INDICES = (50, 100, 150)
+P18_DERIV_TIMES = 151
+
+
+def _ex_value_and_grad(torch, loss_fn, params):
+    """(value, the gradient in every parameter, flattened) of
+    ``loss_fn(list of parameters)``."""
+    ps = [p.detach().clone().requires_grad_(True) for p in params]
+    value = loss_fn(ps)
+    grads = torch.autograd.grad(value, ps)
+    return value.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+
+def _ex_shares(torch, label: str, epoch_ms: float, build, ks: dict) -> dict:
+    """An epoch's time split (at the start values, where the kernels were
+    timed): the host's rebuild of Sequence -> sampler ->
+    Hamiltonian (``build()``, host clock, warm median of 3), K1 + K2 (CUDA
+    events), and the rest (autograd, the small ops' launches, Adam)."""
+    build_ms, _ = _host_time_ms(torch, build, 3)
+    k_ms = ks["K1"]["ms"] + ks["K2"]["ms"]
+    rest = epoch_ms - build_ms - k_ms
+    _log(f"  {label}: epoch {epoch_ms:.2f} ms = build {build_ms:.2f} ms "
+         f"({100 * build_ms / epoch_ms:.1f} %) + K1 + K2 {k_ms:.3f} ms "
+         f"({100 * k_ms / epoch_ms:.1f} %) + the rest {rest:.2f} ms "
+         f"({100 * rest / epoch_ms:.1f} %: autograd, the small ops' launches, Adam)")
+    return {"epoch_ms": epoch_ms, "build_ms": build_ms, "kernel_ms": k_ms}
+
+
+def _ex_first_step(torch, fe, label: str, loss, loss64, params):
+    """The flow's first value+grad step on the default route, counted (one
+    K1 and one K2 launch), against the f64 stepper's (``loss64``) at
+    VALUE_TOL / GRAD_TOL.  Returns (value, grad, launches, first ms)."""
+    (v, g), launches, first_ms = _counted(
+        torch, fe, label, lambda: _ex_value_and_grad(torch, loss, params), K1K2)
+    if not (torch.isfinite(v) and torch.isfinite(g).all()):
+        raise RuntimeError(f"{label}: value {v}, grad {g}")
+    f64_ms, (v64, g64) = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss64, params),
+                                       1)
+    _log(f"  {label}: launches {launches}; first value+grad {first_ms:.1f} ms; f64 stepper "
+         f"{f64_ms:.1f} ms (once)")
+    _hold_against_f64(torch, v, g, v64, g64, label)
+    return v, g, launches, first_ms
+
+
+def _ex_gate(torch, fe, device, gen) -> dict:
+    """(a) the 2-qubit gate (nb = 4, C = 2): the first step against f64;
+    Adam at lr 0.15 from 3.0 until the fidelity reaches 99 % (within 200
+    steps, tests/test_docs.py's floor), one K1 and one K2 launch every
+    step; K1/K2 against plain on every step of one epoch; the epoch's
+    shares.  (b) the 4-qubit gate (nb = 16, C = 4): the same first step,
+    kernels and shares."""
+    from pulser_diff_torch.examples import gate_optimization as g
+
+    out = {}
+    label = "(a) 2-qubit gate"
+    p0 = g.initial_params(g.N_PARAMS, g.P0, device)
+    _, _, la, _ = _ex_first_step(torch, fe, label, lambda ps: 1.0 - g.gate_fidelity(ps, device),
+                                 lambda ps: 1.0 - g.gate_fidelity(ps, device, fused=False), p0)
+    steps = []
+
+    def fidelity(ps):
+        # the counts of the step before (its forward and its adjoint)
+        if steps and dict(fe.LAUNCHES) != K1K2:
+            raise RuntimeError(f"{label}: step {len(steps) - 1} launched {dict(fe.LAUNCHES)}")
+        _reset(fe)
+        steps.append(time.perf_counter())
+        return g.gate_fidelity(ps, device)
+
+    called = []
+
+    def loop():
+        called.append(time.perf_counter())
+        return g.optimize(fidelity, p0, g.FLOOR_STEPS, lr=g.FLOOR_LR,
+                          stop_at=1.0 - g.FLOOR_FIDELITY, log_every=0)
+
+    loop_ms, run = _host_time_ms(torch, loop, 1)
+    if dict(fe.LAUNCHES) != K1K2:
+        raise RuntimeError(f"{label}: the last step launched {dict(fe.LAUNCHES)}")
+    n, fid = len(run.losses), 1.0 - run.best
+    gaps = np.diff(steps) * 1e3
+    _log(f"  {label}: Adam at lr {g.FLOOR_LR} reached fidelity {fid!r} at step {n - 1} "
+         f"({n} steps, one K1 and one K2 launch each; floor {g.FLOOR_FIDELITY} within "
+         f"{g.FLOOR_STEPS}); {loop_ms:.1f} ms, of which {1e3 * (steps[0] - called[0]):.1f} "
+         f"ms before the first step (the process's first torch.optim.Adam imports torch's "
+         f"compiler stack); from one step's start to the next: first {gaps[0]:.1f}, median "
+         f"{np.median(gaps):.1f}, max {gaps.max():.1f} ms")
+    if fid < g.FLOOR_FIDELITY:
+        raise RuntimeError(f"{label}: fidelity {fid} < {g.FLOOR_FIDELITY} in {n} steps")
+    sub = [g.gate_emulator(p, g.COORDS, g.DURATION, device)._auto_substeps({})
+           for p in (p0, run.params)]
+    _log(f"  {label}: substeps {sub[0]} at the start, {sub[1]} at the last parameters")
+    loss = lambda ps: 1.0 - g.gate_fidelity(ps, device)  # noqa: E731
+    step_ms, _ = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss, p0), 3)
+    sim = g.gate_emulator(p0, g.COORDS, g.DURATION, device)
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False, reps=5)
+    out["gate"] = dict(ks=ks, launches=la, steps=n, fidelity=fid, loop_ms=loop_ms, **_ex_shares(
+        torch, label, step_ms, lambda: g.gate_emulator(p0, g.COORDS, g.DURATION, device), ks))
+
+    label = "(b) 4-qubit gate"
+    p4 = g.initial_params(g.N_PARAMS4, g.P0_4, device)
+    loss4 = lambda ps: 1.0 - g.gate_fidelity_4q(ps, device)  # noqa: E731
+    _, _, la, _ = _ex_first_step(torch, fe, label, loss4,
+                                 lambda ps: 1.0 - g.gate_fidelity_4q(ps, device, fused=False), p4)
+    step_ms, _ = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss4, p4), 3)
+    sim = g.gate_emulator(p4, g.COORDS4, g.DURATION4, device)
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False, reps=5)
+    out["gate4"] = dict(ks=ks, launches=la, **_ex_shares(
+        torch, label, step_ms, lambda: g.gate_emulator(p4, g.COORDS4, g.DURATION4, device), ks))
+    return out
+
+
+def _ex_preparation(torch, fe, device, gen, mod, label: str) -> dict:
+    """(c) / (d) state preparation at 6 atoms (C = 8), the AFM preparation
+    at 9 (C = 16): the first step against f64, P18_ADAM_STEPS Adam steps at the first stage's rate
+    (counted, timed), K1/K2 against plain on the sweep's first
+    PLAIN_STEPS steps, the epoch's shares."""
+    from pulser_diff_torch.examples._common import adam
+
+    p0 = mod.initial_params(device)
+    loss = lambda ps: 1.0 - mod.fidelity(*ps, device)  # noqa: E731
+    v, _, la, _ = _ex_first_step(torch, fe, label, loss,
+                                 lambda ps: 1.0 - mod.fidelity(*ps, device, fused=False), p0)
+    want = _times(K1K2, P18_ADAM_STEPS)
+    (run, launches, ms) = _counted(torch, fe, f"{label}, Adam",
+                                   lambda: adam(loss, p0, P18_ADAM_STEPS, mod.STAGES[0][0]), want)
+    _log(f"  {label}: {P18_ADAM_STEPS} Adam steps at lr {mod.STAGES[0][0]} {ms:.1f} ms "
+         f"({ms / P18_ADAM_STEPS:.2f} ms a step), launches {launches}; infidelity "
+         f"{run.losses[0]!r} -> {run.losses[-1]!r}")
+    sim = mod.emulator(*p0, device)
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False,
+                     n=PLAIN_STEPS, reps=5)
+    return dict(ks=ks, launches=la, fidelity=1.0 - float(v), **_ex_shares(
+        torch, label, ms / P18_ADAM_STEPS, lambda: mod.emulator(*p0, device), ks))
+
+
+def _ex_multi_start(torch, fe, device) -> dict:
+    """(e) multi_start at its CI sizes: fit_population's epochs + 1
+    evaluations on the runs axis (one K1 launch each, one K2 launch each
+    but the last); every candidate's first loss equal to its own
+    evaluation; the loaded candidate's loss the least seen."""
+    from pulser_diff_torch.examples import multi_start as m
+
+    n_pop, epochs = m.CI_SIZES
+    label = f"(e) multi_start, P = {n_pop}, {epochs} epochs"
+    model = m.make_model(device)
+    target = m.target_value(model)
+    stack = m.initial_stack(n_pop)
+    want = {"fused_fwd": epochs + 1, "fused_bwd": epochs, "fused_fwd_ckpt": 0,
+            "fused_bwd_ckpt": 0}
+    (losses, _), launches, ms = _counted(
+        torch, fe, label, lambda: m.train(model, target, stack, epochs, epochs // 2), want)
+    own = [(m.final_value(model, {k: torch.as_tensor(v[i], device=device)
+                                  for k, v in stack.items()}) - target) ** 2
+           for i in range(n_pop)]
+    d_own = float(np.abs(np.asarray(own) - losses[0]).max())
+    loaded = (m.final_value(model, dict(model.params)) - target) ** 2
+    least = float(min(x.min() for x in losses))
+    _log(f"  {label}: launches {launches}; {ms:.1f} ms, {ms / (epochs + 1):.2f} ms an "
+         f"evaluation of {n_pop} candidates; first losses {losses[0].tolist()!r}, each against "
+         f"its own evaluation max|d| {d_own:.3e}; final losses {losses[-1].tolist()!r}; loaded "
+         f"{loaded!r} (least seen in the returned epochs {least!r})")
+    if d_own > 1e-12 or loaded > least + 1e-12:
+        raise RuntimeError(f"{label}: own evaluations {d_own:.3e}, loaded {loaded} > {least}")
+    return {"epoch_ms": ms / (epochs + 1)}
+
+
+def _ex_noisy(torch, fe, device) -> dict:
+    """(f) noisy_simulation's Monte-Carlo run() at its CI sizes: one K1
+    launch for all runs, the counts summing to runs x samples_per_run, the
+    same seed the same counts."""
+    from pulser_diff_torch.examples import noisy_simulation as ns
+
+    s = ns.sizes(ci=True)
+    label = f"(f) noisy_simulation Monte-Carlo, {s['mc_runs']} runs"
+    counts, launches, ms = _counted(
+        torch, fe, label, lambda: ns.monte_carlo(s["dur"], s["mc_runs"], device), FWD_ONLY)
+    again = ns.monte_carlo(s["dur"], s["mc_runs"], device)
+    _log(f"  {label}: launches {launches}; run() {ms:.1f} ms (first); counts {counts}; the same "
+         f"seed again: {again == counts}")
+    if sum(counts.values()) != s["mc_runs"] * 30 or again != counts:
+        raise RuntimeError(f"{label}: counts {counts}, again {again}")
+    return {"run_ms": ms}
+
+
+def _ex_basic(torch, fe, device) -> dict:
+    """(g) basic_usage: deriv_param on the default route (K1/K2, 601
+    evaluation slots), the value within VALUE_TOL and the derivative
+    within DERIV_REL_TOL relative of a central difference of the f64
+    stepper; deriv_time (f64 stepper, no kernel) on the first
+    P18_DERIV_TIMES evaluation times against central differences at three
+    times inside the constant pulse (DERIV_REL_TOL).  The central
+    differences run the same functions on the card machine's CPU: at dim
+    4 the f64 stepper is bound by the host's dispatch of its small ops,
+    which the CPU issues faster than the card."""
+    from pulser_diff_torch.examples import basic_usage as b
+
+    label = "(g) basic_usage"
+    cpu = torch.device("cpu")
+    (final, grad), launches, ms = _counted(torch, fe, label,
+                                           lambda: b.magnetization_and_grad(device), K1K2)
+    with torch.no_grad():
+        lo, hi = (float(b.magnetization_trace(b.OMEGA + s * PARAM_EPS, cpu)[-1])
+                  for s in (-1, 1))
+    fd, mid = (hi - lo) / (2 * PARAM_EPS), (hi + lo) / 2
+    dv, rel_p = abs(final - mid), abs(grad - fd) / abs(fd)
+    _log(f"  {label}: launches {launches}; deriv_param {ms:.1f} ms (K1/K2); <M>(T) {final!r}, "
+         f"the f64 stepper's {mid!r} (CPU, the mean of the central difference's two solves): "
+         f"|dv| {dv:.3e} (tol {VALUE_TOL:.0e}); d<M>/d omega {grad!r}, the central difference "
+         f"{fd!r}: rel {rel_p:.3e} (tol {DERIV_REL_TOL:.0e})")
+    _reset(fe)
+    dt_ms, dmdt = _host_time_ms(torch, lambda: b.time_derivative(device, P18_DERIV_TIMES), 1)
+    _no_launch(fe, label)
+    fn, t, _ = b.trace_of_times(cpu, P18_DERIV_TIMES)
+    worst = 0.0
+    with torch.no_grad():
+        for i in P18_DERIV_INDICES:
+            e = torch.zeros_like(t)
+            e[i] = DERIV_EPS
+            fd_t = float(fn(t + e).sum() - fn(t - e).sum()) / (2 * DERIV_EPS)
+            rel = abs(float(dmdt[i]) - fd_t) / abs(fd_t)
+            worst = max(worst, rel)
+            _log(f"  {label}: t = {float(t[i]):.3f} us  deriv_time {float(dmdt[i])!r}  central "
+                 f"difference {fd_t!r}  rel {rel:.3e}")
+    _log(f"  {label}: deriv_time over {int(t.shape[0])} times {dt_ms:.1f} ms (f64 stepper on "
+         f"the card); max|d<M>/dt| {float(dmdt.abs().max())!r}; worst rel {worst:.3e} (tol "
+         f"{DERIV_REL_TOL:.0e})")
+    if dv > VALUE_TOL or rel_p > DERIV_REL_TOL or worst > DERIV_REL_TOL:
+        raise RuntimeError(f"{label}: |dv| {dv:.3e}, deriv_param rel {rel_p:.3e}, deriv_time "
+                           f"rel {worst:.3e}")
+    return {"deriv_param_ms": ms, "deriv_time_ms": dt_ms}
+
+
+def _same_build(torch, a, b) -> list:
+    """The names of the fields in which two emulators' built Hamiltonians,
+    initial states or evaluation times differ (bit for bit)."""
+    ha, hb = a._hamiltonian._ham_data, b._hamiltonian._ham_data
+    pairs = {f: (getattr(ha, f), getattr(hb, f)) for f in ha._fields}
+    pairs["initial_state"] = (a.initial_state, b.initial_state)
+    pairs["eval_times"] = (a._eval_times_array, b._eval_times_array)
+    leaves = lambda x: ([x.re, x.im] if hasattr(x, "re") else [x])  # noqa: E731
+    differ = []
+    for name, (x, y) in pairs.items():
+        for u, w in zip(leaves(x), leaves(y)):
+            same = (torch.equal(u, w) if isinstance(u, torch.Tensor)
+                    else np.array_equal(np.asarray(u), np.asarray(w)))
+            if not same:
+                differ.append(name)
+    return differ
+
+
+def _ex_large(torch, fe, device) -> dict:
+    """(h) large_scale at 18 atoms: its model built at the start knots
+    equal bit for bit (Hamiltonian data, initial state, evaluation times)
+    to bench.py's, whose value+grad phase 8 takes on the same default
+    route (DP5_SE_F32, no fused launch), so its step is phase 8's; the
+    f32 run()'s final norm within F32_VALUE_TOL of 1, no fused launch."""
+    from pulser_diff_torch.examples import large_scale as ls
+
+    n, dur, k = ls.sizes(ci=False)
+    label = f"(h) large_scale, {n} atoms"
+    model = ls.make_model(n, dur, k, device)
+    amp = torch.as_tensor(ls.start_knots(k), dtype=torch.float64, device=device)
+    bench, p_bench = _bench_model(torch, device, None, n_qubits=n)
+    with torch.no_grad():
+        differ = _same_build(torch, model._make_emulator({"amp_0": amp}),
+                             bench._make_emulator({"amp_samples_0": torch.as_tensor(
+                                 p_bench, dtype=torch.float64, device=device)}))
+    del bench
+    norm, launches, norm_ms = _counted(torch, fe, label, lambda: ls.f32_final_norm(model, amp),
+                                       NO_LAUNCH)
+    _log(f"  {label}: built as bench.py's model (phase 8's step): "
+         f"{'yes' if not differ else 'no, ' + ', '.join(differ)}; f32 run() {norm_ms:.1f} ms, "
+         f"launches {launches}, final norm {norm!r}")
+    if differ or abs(norm - 1) > F32_VALUE_TOL:
+        raise RuntimeError(f"{label}: built data differ in {differ}, norm {norm}")
+    del model
+    torch.cuda.empty_cache()
+    return {"f32_run_ms": norm_ms}
+
+
+def _examples_phase(torch, fe, device, gen):
+    """Phase 18: (a)-(h), the example flows on the card.  Returns the
+    kernels' entries of (a)-(d), their runs and the other sub-phases'
+    times; each sub-phase's wall seconds are logged."""
+    from pulser_diff_torch.examples import afm_preparation, state_preparation
+
+    def wall(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _log(f"  {key}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    runs = {**wall("(a) + (b)", lambda: _ex_gate(torch, fe, device, gen)),
+            "state": wall("(c)", lambda: _ex_preparation(torch, fe, device, gen, state_preparation,
+                                                        "(c) 6-atom state preparation")),
+            "afm": wall("(d)", lambda: _ex_preparation(torch, fe, device, gen, afm_preparation,
+                                                      "(d) 9-atom AFM preparation"))}
+    times = {"multi_start": wall("(e)", lambda: _ex_multi_start(torch, fe, device)),
+             "noisy": wall("(f)", lambda: _ex_noisy(torch, fe, device)),
+             "basic": wall("(g)", lambda: _ex_basic(torch, fe, device)),
+             "large": wall("(h)", lambda: _ex_large(torch, fe, device))}
+    entries = []
+    for key, what in (("gate", "2-qubit gate"), ("gate4", "4-qubit gate"),
+                      ("state", "6-atom state preparation"), ("afm", "9-atom AFM")):
+        r = runs[key]
+        for name, e in r["ks"].items():
+            src, line, kname = (("fused_evolution.cu", 594, "fused_fwd_kernel (K1)")
+                                if name == "K1" else
+                                ("fused_evolution.cu", 1026, "fused_bwd_kernel (K2)"))
+            count = r["launches"]["fused_fwd" if name == "K1" else "fused_bwd"]
+            entries.append(_entry(kname, src, line, count, e,
+                                  f"example {what}, nb = {e['nb']}, {e['da']} x {e['db']}, "
+                                  f"C = {e['C']}, {e['n_steps']} steps"))
+    return entries, runs, times
+
+
 def main() -> int:
     import torch
 
@@ -3301,6 +3655,16 @@ def main() -> int:
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in solvers_ms.items()))
     final = _final_state_phase(torch, fe, device, gen)
 
+    # 18. the example flows (pulser_diff_torch/examples), each on its
+    # default route
+    _log("phase 18 examples: (a) 2-qubit gate to 99 % (K1/K2, nb = 4), (b) 4-qubit gate (nb = "
+         "16), (c) 6-atom state preparation, (d) 9-atom AFM preparation, (e) multi_start, (f) "
+         "noisy_simulation's Monte-Carlo run(), (g) basic_usage's derivatives, (h) large_scale "
+         "at 18 atoms")
+    examples, _, examples_ms = _examples_phase(torch, fe, device, gen)
+    _log("  ms: " + ", ".join(f"{k}.{n}: {v:.1f}" for k, d in examples_ms.items()
+                              for n, v in d.items()))
+
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
                 "replaces": f"pulser_diff_tpu/ops/pallas_evolution.py:{replaces}",
@@ -3358,7 +3722,7 @@ def main() -> int:
         kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
                              e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
                              e["by"]))
-    for kname, src, replaces, count, e in front + bases + final:
+    for kname, src, replaces, count, e in front + bases + final + examples:
         kernels.append(entry(kname, src, replaces, count, e["err"], e["ms"], e["plain_ms"],
                              e["bound"], e["by"]))
     print(smi)

@@ -34,8 +34,16 @@ import importlib, pkgutil, sys
 import torch
 before = torch.get_default_dtype()
 import pulser_diff_torch
-for m in pkgutil.walk_packages(pulser_diff_torch.__path__, "pulser_diff_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pulser_diff_torch.__path__, "pulser_diff_torch.")]
+for name in names:
+    importlib.import_module(name)
+# the example flows and the utilities among them
+for sub, mods in (("examples", ("afm_preparation", "basic_usage", "gate_optimization",
+                                "large_scale", "multi_start", "noisy_simulation",
+                                "state_preparation")),
+                  ("utils", ("checkpoint", "profiling"))):
+    missing = {f"pulser_diff_torch.{sub}.{m}" for m in mods} - set(names)
+    assert not missing, missing
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "pulser_diff_tpu"))
@@ -46,8 +54,9 @@ print("clean")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of pulser_diff_torch, and chip_smoke.py, import in a
-    fresh interpreter without pulling in JAX or pulser_diff_tpu, and
+    """Every module of pulser_diff_torch (the example flows of examples/
+    and the utilities of utils/ among them), and chip_smoke.py, import in
+    a fresh interpreter without pulling in JAX or pulser_diff_tpu, and
     without touching torch's default dtype."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
