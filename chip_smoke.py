@@ -7,7 +7,13 @@ Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the hand-written kernels, from csrc/, into the ignored build
      directory, one nvcc per source, all started together, with ptxas's
-     registers and spill bytes for each kernel instantiation;
+     registers and spill bytes for each kernel instantiation; phases 12
+     and 13, which reach no kernel, run while nvcc works, and the f64
+     references that phases 15 (c), 17 (a), 18 (b)-(d) and 19 (e) take
+     on the card machine's CPU are computed from the start by one
+     process of this script (--cpu-references NAME ..., no GPU visible),
+     which ends before phase 3 (so only phases 12 and 13 share the CPU
+     with it and with nvcc);
   3. kernels against their plain PyTorch versions on the card: K1
      (fused_fwd_kernel) on every evaluation-slot state and K2
      (fused_bwd_kernel) on lam0, every stream cotangent and dbar, each
@@ -126,9 +132,9 @@ Phases (each raises on failure, so the script exits non-zero):
      kron pairs, one K1 and one K2 launch) and (d) the 16-atom one (K = 20,
      one K4 and one K5 launch), value, gradient and q1's coordinate
      gradient against the f64 stepper at 1e-6 / 1e-5 / 1e-5; every kernel
-     at these shapes against its plain version (on every step in (a) and
-     (b), on a window around the SLM window's end in (c) and (d)), timed,
-     with its bound;
+     at these shapes against its plain version (on the first PLAIN_STEPS
+     steps in (a), on every step in (b), on a window around the SLM
+     window's end in (c) and (d)), timed, with its bound;
  16. the other bases: bench.py's model with a raman_global pulse of
      trainable amplitude beside its rydberg_global one (the all basis,
      three levels a site, da = 3^a; the total Rydberg occupation) through
@@ -176,9 +182,8 @@ Phases (each raises on failure, so the script exits non-zero):
      (b) the 4-qubit gate (nb = 16, C = 4), its first step; (c) the 6-atom
      state preparation (C = 8) and (d) the 9-atom AFM preparation (dim
      512, C = 16), their first steps (the same bars) and 3 Adam steps
-     timed; K1/K2 against their plain versions on every
-     step of one epoch in (a) and (b), on the sweep's first 24 steps in
-     (c) and (d), timed with their bounds and cluster sizes,
+     timed; K1/K2 against their plain versions on the first PLAIN_STEPS
+     steps of an epoch, timed with their bounds and cluster sizes,
      and each epoch split into the host's rebuild of Sequence -> sampler
      -> Hamiltonian, K1 + K2 and the rest; (e) multi_start at its CI sizes
      (P = 4 candidates on the runs axis, 40 epochs: 41 K1 and 40 K2
@@ -193,7 +198,28 @@ Phases (each raises on failure, so the script exits non-zero):
      the central differences on the card machine's CPU; (h) large_scale
      at 18 atoms: its model built bit for bit as bench.py's, whose step
      phase 8 takes (DP5_SE_F32, no fused launch), and the f32 run()'s
-     final norm; each sub-phase's wall seconds printed.
+     final norm; each sub-phase's wall seconds printed;
+ 19. parallel/ (torch.distributed and DTensor; no kernel under it, as the
+     JAX package's mesh paths take fused=False): (a) in an NCCL group of
+     one rank, sharded_noise_states on a {"runs": 1} mesh with bench_mc.py's
+     noise at 12 atoms, R = 4, equal bit for bit to mesh=None, run 0 equal
+     to a lone solve from its seed's draws, unit norms (1e-8), no launch;
+     (b) sharded_expectation_step on bench.py's 12-atom model with that
+     noise, 2 runs, one Adam step: the loss within 1e-12 of the mean of the
+     runs' losses computed alone, the parameters moved; (c) large_scale's
+     state-sharded DP5_SE_F32 solve at 18 atoms on {"state": 1} against
+     sesolve on the same inputs (1e-6, bit for bit printed), DTensor's
+     dispatch against the plain call, sharded_mcwf_states on phase 13's
+     3-atom model (R = 64) and sharded_mesolve on phase 12's 8-atom
+     dephasing model against their unsharded calls; (d), two gloo ranks
+     sharing the card, is left out (gloo's functional all_gather on CUDA
+     tensors killed both ranks); (e) entry()'s 9-atom flagship on K1/K2
+     (one launch each) against the f64 stepper on the card machine's CPU
+     (1e-6 / 1e-5), K1/K2 at the flagship's inputs (16 x 32, C = 16)
+     against their plain versions on the first PLAIN_STEPS steps, timed
+     with their bounds, and pulser_diff_torch.native against numpy, scipy
+     and the port's torch waveform samples; each sub-phase's wall seconds
+     printed.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -202,8 +228,10 @@ prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -269,6 +297,120 @@ def _log(msg: str) -> None:
     if msg.startswith("phase "):
         msg = f"[{time.perf_counter() - _START[0]:.1f} s] {msg}"
     print(msg, flush=True)
+
+
+# f64 references taken on the card machine's CPU: one process of this script
+# (--cpu-references NAME ..., no GPU visible) computes them in turn from the
+# start, beside the phases on the card (the f64 stepper at these sizes is
+# bound by the launches of its small products, which cost twice as much on
+# the card): phase 15 (c)'s 12-atom SLM XY step, phase 17 (a)'s same calls
+# on the CPU, phase 18 (b)-(d)'s first steps and phase 19 (e)'s flagship, in
+# the order the phases ask for them
+CPU_REFERENCES = ("slm12", "KRYLOV_SE", "DP5_SE_ADAPTIVE", "gate4", "state6", "afm9",
+                  "flagship9")
+CPU_REFERENCE_THREADS = 4
+
+
+def _cpu_reference(torch, name: str) -> dict:
+    """One CPU reference's f64 value+grad: ``slm12`` phase 15 (c)'s model
+    (with q1's coordinate gradient ``cg``), ``gate4`` / ``state6`` /
+    ``afm9`` the example flows' first steps of phase 18 (b)-(d),
+    ``flagship<n>`` entry()'s flagship at n atoms, a solver name bench.py's
+    model cut to P17_DURATION under that solver (with the adaptive loop's
+    counts)."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    out = {"counts": {}}
+    if name.startswith("flagship"):
+        from pulser_diff_torch.entry import flagship
+
+        fn, args = flagship(n_qubits=int(name[len("flagship"):]), device=cpu, fused=False)
+        v, g = _ex_value_and_grad(torch, lambda ps: fn(*ps), args)
+    elif name == "slm12":
+        model, c1 = _xy_slm_model(torch, cpu, fused=False, n_qubits=N_QUBITS)
+        v, g, cg, _ = _xy_value_and_grad(torch, model, c1, cpu)
+        out["cg"] = cg.tolist()
+    elif name == "gate4":
+        from pulser_diff_torch.examples import gate_optimization as gm
+
+        v, g = _ex_value_and_grad(
+            torch, lambda ps: 1.0 - gm.gate_fidelity_4q(ps, cpu, fused=False),
+            gm.initial_params(gm.N_PARAMS4, gm.P0_4, cpu))
+    elif name in ("state6", "afm9"):
+        from pulser_diff_torch.examples import afm_preparation, state_preparation
+
+        mod = state_preparation if name == "state6" else afm_preparation
+        v, g = _ex_value_and_grad(torch, lambda ps: 1.0 - mod.fidelity(*ps, cpu, fused=False),
+                                  mod.initial_params(cpu))
+    else:
+        from pulser_diff_torch.solvers import solver as sv
+
+        model, p0 = _bench_model(torch, cpu, None, duration=P17_DURATION, solver=name)
+        sv.reset_adaptive_counts()
+        v, g, _ = _value_and_grad(torch, model, p0, cpu)
+        out["counts"] = dict(sv.ADAPTIVE_COUNTS)
+    out.update(v=float(v), g=g.tolist(), ms=(time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _cpu_references_main(names) -> int:
+    """--cpu-references NAME ...: one line ``CPU_REFERENCE NAME {json}``
+    for each, in turn."""
+    import torch
+
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    for name in names:
+        print(f"CPU_REFERENCE {name} " + json.dumps(_cpu_reference(torch, name)), flush=True)
+    return 0
+
+
+class _CpuReferences:
+    """The CPU references ``names``, computed in turn by one process of this
+    script with no GPU visible, started at once; ``get`` waits for one,
+    ``close`` stops the process if it still runs."""
+
+    def __init__(self, names):
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-references", *names],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        self.done, self.other = {}, []
+
+    def get(self, torch, name: str) -> dict:
+        """Reference ``name``: v and g (and cg) as f64 tensors equal bit for
+        bit to the process's, ms, the adaptive counts."""
+        while name not in self.done:
+            line = self.proc.stdout.readline()
+            if not line:
+                self.proc.wait()
+                raise RuntimeError(f"the CPU references exited {self.proc.returncode} before "
+                                   f"{name}:\n{''.join(self.other[-40:])}")
+            self._take(line)
+        r = dict(self.done[name])
+        for k in ("v", "g", "cg"):
+            if k in r:
+                r[k] = torch.tensor(r[k], dtype=torch.float64)
+        return r
+
+    def _take(self, line: str) -> None:
+        if line.startswith("CPU_REFERENCE "):
+            key, payload = line[len("CPU_REFERENCE "):].split(" ", 1)
+            self.done[key] = json.loads(payload)
+        else:
+            self.other.append(line)
+
+    def wait(self) -> None:
+        """Read every reference to the process's end; raise if it failed."""
+        for line in self.proc.stdout:
+            self._take(line)
+        if self.proc.wait():
+            raise RuntimeError(f"the CPU references exited {self.proc.returncode}:\n"
+                               f"{''.join(self.other[-40:])}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def _bench_model(torch, device, fused, n_qubits: int = N_QUBITS,
@@ -903,10 +1045,11 @@ def _phase_18(torch, fe, device, p0, gen, n: int = 18):
                            f"{route}, launches {launches}")
     if vals.shape != (2,) or not (torch.isfinite(vals).all() and torch.isfinite(g).all()):
         raise RuntimeError(f"18 atoms: bad output: values {vals}, grad {g}")
-    step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model, p0, device), 3)
+    # one warm step (a step is seconds; the profiled one below is another)
+    step_ms, _ = _host_time_ms(torch, lambda: _value_and_grad(torch, model, p0, device), 1)
     busy = _device_busy_ms(torch, lambda: _value_and_grad(torch, model, p0, device))
     _log(f"  18 atoms default route: solvers {route}, launches {launches}; value+grad "
-         f"{step_ms:.2f} ms warm median of 3 (first {first_ms:.1f} ms), peak device memory "
+         f"{step_ms:.2f} ms warm (first {first_ms:.1f} ms), peak device memory "
          f"{peak:.2f} GiB ({before:.2f} GiB allocated before); {_busy_line(*busy, step_ms)}")
     # TF32 allowed by the caller: the f32 route pins its products, forward
     # and backward, so the value and gradient are the same bits
@@ -1561,10 +1704,19 @@ def _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt: b
         names, kinds, bslots = ("K4", "K5"), ("fwd_ckpt", "bwd_ckpt"), None
         args = (data, "DP5")
     else:
-        # the window's own slots: its first grid point's and the last one's
-        cslots = slots if n == n_steps else torch.cat([slots[:n], slots[-1:]])
-        errs = _check_kernels(torch, fe, win, cslots, n_eval, last_slot, "DP5", gen, tag,
-                              times)[:2]
+        cslots, cn, clast = slots, n_eval, last_slot
+        if n < n_steps:
+            # the window's own slots: its first n grid points' and the last
+            # one's, renumbered in order so that the window writes every
+            # output slot (K1 leaves the others as they were allocated)
+            cs = torch.cat([slots[:n], slots[-1:]]).long()
+            written = torch.unique(cs[cs < n_eval])
+            cn = int(written.numel())
+            renum = torch.full((n_eval + 1,), cn, dtype=torch.long, device=cs.device)
+            renum[written] = torch.arange(cn, device=cs.device)
+            cslots = renum[cs].to(slots.dtype)
+            clast = int(cslots[-1])
+        errs = _check_kernels(torch, fe, win, cslots, cn, clast, "DP5", gen, tag, times)[:2]
         fwd, bwd = (lambda: fe.fused_fwd(data, "DP5", slots, n_eval, lo=lo)), fe.fused_bwd
         names, kinds, bslots = ("K1", "K2"), ("fwd", "bwd"), slots
         args = (data, "DP5", slots, n_eval, last_slot)
@@ -2163,8 +2315,9 @@ def _mcwf_phase(torch, fe, device, n_anchor: int = 3, n_big: int = MCWF_BIG_N,
 # ramped detunings; (b) the same register on AnalogDevice, modulated,
 # with an EOM block; (c) / (d) bench_xy.py's sequence under an SLM mask
 # on two qubits whose first pulse ends at SLM_FIRST_NS.  The kernels are
-# held against their plain versions on every step in (a) and (b), across
-# the retarget, the phase shift and the EOM block; in (c) / (d) on
+# held against their plain versions on every step in (b), across the EOM
+# block, and on the first PLAIN_STEPS steps in (a) (its whole step through
+# K1/K2's plain versions covers the retarget and the phase shift); in (c) / (d) on
 # FE_PLAIN_STEPS steps (K1/K2) or FE_CKPT_PLAIN_STEPS (K4/K5) around the
 # SLM window's end.  (a)'s default-route gradient is held against the
 # same step through K1/K2's plain versions (the kernels' share of its
@@ -2333,7 +2486,7 @@ def _plain_versions(fe):
 
 
 def _entry(kname, src, replaces, launches, e, what):
-    """A phase-15 or phase-16 kernel entry: its shape in the name."""
+    """A kernel entry of phases 15-19: its shape in the name."""
     return (f"{kname}, {what} (pr = {e['pr']}, pc = {e['pc']}, K = {e['K']}; plain_ms: "
             f"{e['plain_steps']} steps)", src, replaces, launches, e)
 
@@ -2343,8 +2496,8 @@ def _fe_local(torch, fe, device, gen):
     (K1/K2): the value against the f64 stepper, the gradient against the
     same step's through K1/K2's plain versions, and its distance to the
     f64 stepper's printed beside theirs; with ckpt=True (K4/K5) value and
-    gradient against the f64 stepper; the four kernels on every step
-    against their plain versions."""
+    gradient against the f64 stepper; the four kernels against their
+    plain versions on the first PLAIN_STEPS steps."""
     label = "(a) 12 atoms, global + local channels"
     model, p0 = _local_model(torch, device, fused=None)
     (v, g, vals), la, first_ms = _counted(
@@ -2383,9 +2536,9 @@ def _fe_local(torch, fe, device, gen):
     substeps = model._default_substeps()
     with torch.no_grad():
         sim = model._make_emulator(dict(model.params))
-    ks = _fe_kernels(torch, fe, sim, substeps, device, gen, label, ckpt=False)
+    ks = _fe_kernels(torch, fe, sim, substeps, device, gen, label, ckpt=False, n=PLAIN_STEPS)
     ks.update(_fe_kernels(torch, fe, sim, substeps, device, gen, f"{label}, ckpt=True",
-                          ckpt=True))
+                          ckpt=True, n=PLAIN_STEPS))
     what = "12 atoms global + local"
     return [
         _entry("fused_fwd_kernel (K1)", "fused_evolution.cu", 594, la["fused_fwd"], ks["K1"], what),
@@ -2426,11 +2579,12 @@ def _fe_modulated(torch, fe, device, gen):
                    "12 atoms modulated run()")]
 
 
-def _fe_xy_slm(torch, fe, device, gen, n: int):
+def _fe_xy_slm(torch, fe, device, gen, n: int, refs):
     """(c) / (d): the XY value+grad under an SLM mask at ``n`` atoms on the
     default route (K1/K2 at 12 atoms, K4/K5 at 16), value, gradient and
-    q1's coordinate gradient against the f64 stepper; the kernels at its
-    doubled kron pairs against their plain versions."""
+    q1's coordinate gradient against the f64 stepper (at 12 atoms from
+    ``refs``, the card machine's CPU; at 16 on the card); the kernels at
+    its doubled kron pairs against their plain versions."""
     ckpt = n > N_QUBITS
     want = K4K5 if ckpt else K1K2
     label = f"({'d' if ckpt else 'c'}) {n} atoms XY, SLM mask on {SLM_QUBITS}"
@@ -2443,16 +2597,21 @@ def _fe_xy_slm(torch, fe, device, gen, n: int):
     reps = 1 if ckpt else 3  # a 16-atom step takes seconds
     step_ms, _ = _host_time_ms(torch, lambda: _xy_value_and_grad(torch, model, c1, device),
                                reps)
-    f64, _ = _xy_slm_model(torch, device, fused=False, n_qubits=n)
-    t0 = time.perf_counter()
-    v64, g64, c64, _ = _xy_value_and_grad(torch, f64, c1, device)
-    torch.cuda.synchronize()
-    f64_ms = (time.perf_counter() - t0) * 1e3
-    del f64
+    if n == N_QUBITS:
+        r = refs.get(torch, "slm12")
+        v64, g64, c64, f64_ms, where = r["v"], r["g"], r["cg"], r["ms"], "on the CPU"
+        g, cg = g.cpu(), cg.cpu()
+    else:
+        f64, _ = _xy_slm_model(torch, device, fused=False, n_qubits=n)
+        t0 = time.perf_counter()
+        v64, g64, c64, _ = _xy_value_and_grad(torch, f64, c1, device)
+        torch.cuda.synchronize()
+        f64_ms, where = (time.perf_counter() - t0) * 1e3, "on the card"
+        del f64
     dv, dg, dc = (abs(float(v) - float(v64)), float((g - g64).abs().max()),
                   float((cg - c64).abs().max()))
     _log(f"  {label}: launches {lx}; value+grad {step_ms:.2f} ms warm median of {reps} (first "
-         f"{first_ms:.1f} ms); f64 stepper {f64_ms:.1f} ms (once)")
+         f"{first_ms:.1f} ms); f64 stepper {where} {f64_ms:.1f} ms (once)")
     _log(f"  {label}: value {float(v)!r}  f64 {float(v64)!r}  |dv| {dv:.3e} (tol "
          f"{VALUE_TOL:.0e}); max|dg| {dg:.3e}, max|dc| {dc:.3e} (tol {GRAD_TOL:.0e}), "
          f"coordinate grad {cg.cpu().numpy().tolist()!r}")
@@ -2477,13 +2636,13 @@ def _fe_xy_slm(torch, fe, device, gen, n: int):
                    1026, lx["fused_bwd"], ks["K2"], what)]
 
 
-def _front_end_phase(torch, fe, device, gen, xy16: int = 16):
+def _front_end_phase(torch, fe, device, gen, refs, xy16: int = 16):
     """Phase 15: (a) the local-addressing model, (b) the modulated run(),
     (c) the 12-atom XY SLM step (K1/K2, K = 16), (d) the 16-atom one
     (K4/K5, K = 20).  Returns the kernels' entries."""
     return (_fe_local(torch, fe, device, gen) + _fe_modulated(torch, fe, device, gen)
-            + _fe_xy_slm(torch, fe, device, gen, N_QUBITS)
-            + _fe_xy_slm(torch, fe, device, gen, xy16))
+            + _fe_xy_slm(torch, fe, device, gen, N_QUBITS, refs)
+            + _fe_xy_slm(torch, fe, device, gen, xy16, refs))
 
 
 # phase 16, the other bases: bench.py's model with a raman_global pulse of
@@ -2875,25 +3034,18 @@ def _p17_hold(v, g, v_ref, g_ref, value_tol: float, grad_tol: float, label: str,
     return dv, dg
 
 
-def _solvers_phase(torch, fe, device):
+def _solvers_phase(torch, fe, device, refs):
     """(a): value+grad under KRYLOV_SE, DP5_SE_ADAPTIVE and KRYLOV_SE_F32 on
     the card, each f64 solver held against the same call on the card
-    machine's CPU, KRYLOV_SE_F32 against KRYLOV_SE on the card; each
-    solver's distance to the f64 DP5_SE step at 1 and 8 substeps printed.
-    Returns the steps' times."""
-    cpu = torch.device("cpu")
+    machine's CPU (``refs``, a _CpuReferences), KRYLOV_SE_F32 against
+    KRYLOV_SE on the card; each solver's distance to the f64 DP5_SE step
+    at 1 and 8 substeps printed.  Returns the steps' times."""
     steps, out = {}, {}
     for solver in ("KRYLOV_SE", "DP5_SE_ADAPTIVE", "KRYLOV_SE_F32"):
         steps[solver] = _p17_step(torch, fe, device, solver, f"(a) {solver} on the card")
     for solver, (vtol, gtol) in P17_BARS.items():
-        from pulser_diff_torch.solvers import solver as sv
-
-        model, p0 = _bench_model(torch, cpu, None, duration=P17_DURATION, solver=solver)
-        sv.reset_adaptive_counts()
-        t0 = time.perf_counter()
-        v, g, _ = _value_and_grad(torch, model, p0, cpu)
-        cpu_ms = (time.perf_counter() - t0) * 1e3
-        c = sv.ADAPTIVE_COUNTS
+        r = refs.get(torch, solver)
+        v, g, cpu_ms, c = r["v"], r["g"], r["ms"], r["counts"]
         s = steps[solver]
         extra = (f"; attempted / accepted steps {s['counts']['attempts']} / "
                  f"{s['counts']['accepted']} on the card, {c['attempts']} / {c['accepted']} on "
@@ -3040,27 +3192,40 @@ def _ex_shares(torch, label: str, epoch_ms: float, build, ks: dict) -> dict:
     return {"epoch_ms": epoch_ms, "build_ms": build_ms, "kernel_ms": k_ms}
 
 
-def _ex_first_step(torch, fe, label: str, loss, loss64, params):
+def _ex_first_step(torch, fe, label: str, loss, params, ref):
     """The flow's first value+grad step on the default route, counted (one
-    K1 and one K2 launch), against the f64 stepper's (``loss64``) at
-    VALUE_TOL / GRAD_TOL.  Returns (value, grad, launches, first ms)."""
+    K1 and one K2 launch), against the f64 stepper's (``ref()`` -> {"v",
+    "g", "ms", "where"}, asked for after the step) at VALUE_TOL / GRAD_TOL.
+    Returns (value, grad, launches, first ms)."""
     (v, g), launches, first_ms = _counted(
         torch, fe, label, lambda: _ex_value_and_grad(torch, loss, params), K1K2)
     if not (torch.isfinite(v) and torch.isfinite(g).all()):
         raise RuntimeError(f"{label}: value {v}, grad {g}")
-    f64_ms, (v64, g64) = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss64, params),
-                                       1)
+    r = ref()
     _log(f"  {label}: launches {launches}; first value+grad {first_ms:.1f} ms; f64 stepper "
-         f"{f64_ms:.1f} ms (once)")
-    _hold_against_f64(torch, v, g, v64, g64, label)
+         f"{r['where']} {r['ms']:.1f} ms (once)")
+    _hold_against_f64(torch, v, g, r["v"], r["g"].to(g.device), label)
     return v, g, launches, first_ms
 
 
-def _ex_gate(torch, fe, device, gen) -> dict:
+def _cpu_ref(torch, refs, name: str):
+    """``_ex_first_step``'s ``ref``: the CPU reference ``name``."""
+    return lambda: {**refs.get(torch, name), "where": "on the CPU"}
+
+
+def _card_ref(torch, loss64, params):
+    """``_ex_first_step``'s ``ref``: the f64 stepper's step on the card."""
+    def ref():
+        ms, (v, g) = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss64, params), 1)
+        return {"v": v, "g": g, "ms": ms, "where": "on the card"}
+    return ref
+
+
+def _ex_gate(torch, fe, device, gen, refs) -> dict:
     """(a) the 2-qubit gate (nb = 4, C = 2): the first step against f64;
     Adam at lr 0.15 from 3.0 until the fidelity reaches 99 % (within 200
     steps, tests/test_docs.py's floor), one K1 and one K2 launch every
-    step; K1/K2 against plain on every step of one epoch; the epoch's
+    step; K1/K2 against plain on the first PLAIN_STEPS steps; the epoch's
     shares.  (b) the 4-qubit gate (nb = 16, C = 4): the same first step,
     kernels and shares."""
     from pulser_diff_torch.examples import gate_optimization as g
@@ -3068,8 +3233,9 @@ def _ex_gate(torch, fe, device, gen) -> dict:
     out = {}
     label = "(a) 2-qubit gate"
     p0 = g.initial_params(g.N_PARAMS, g.P0, device)
-    _, _, la, _ = _ex_first_step(torch, fe, label, lambda ps: 1.0 - g.gate_fidelity(ps, device),
-                                 lambda ps: 1.0 - g.gate_fidelity(ps, device, fused=False), p0)
+    _, _, la, _ = _ex_first_step(
+        torch, fe, label, lambda ps: 1.0 - g.gate_fidelity(ps, device), p0,
+        _card_ref(torch, lambda ps: 1.0 - g.gate_fidelity(ps, device, fused=False), p0))
     steps = []
 
     def fidelity(ps):
@@ -3106,24 +3272,25 @@ def _ex_gate(torch, fe, device, gen) -> dict:
     loss = lambda ps: 1.0 - g.gate_fidelity(ps, device)  # noqa: E731
     step_ms, _ = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss, p0), 3)
     sim = g.gate_emulator(p0, g.COORDS, g.DURATION, device)
-    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False, reps=5)
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False,
+                     n=PLAIN_STEPS, reps=5)
     out["gate"] = dict(ks=ks, launches=la, steps=n, fidelity=fid, loop_ms=loop_ms, **_ex_shares(
         torch, label, step_ms, lambda: g.gate_emulator(p0, g.COORDS, g.DURATION, device), ks))
 
     label = "(b) 4-qubit gate"
     p4 = g.initial_params(g.N_PARAMS4, g.P0_4, device)
     loss4 = lambda ps: 1.0 - g.gate_fidelity_4q(ps, device)  # noqa: E731
-    _, _, la, _ = _ex_first_step(torch, fe, label, loss4,
-                                 lambda ps: 1.0 - g.gate_fidelity_4q(ps, device, fused=False), p4)
+    _, _, la, _ = _ex_first_step(torch, fe, label, loss4, p4, _cpu_ref(torch, refs, "gate4"))
     step_ms, _ = _host_time_ms(torch, lambda: _ex_value_and_grad(torch, loss4, p4), 3)
     sim = g.gate_emulator(p4, g.COORDS4, g.DURATION4, device)
-    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False, reps=5)
+    ks = _fe_kernels(torch, fe, sim, sim._auto_substeps({}), device, gen, label, False,
+                     n=PLAIN_STEPS, reps=5)
     out["gate4"] = dict(ks=ks, launches=la, **_ex_shares(
         torch, label, step_ms, lambda: g.gate_emulator(p4, g.COORDS4, g.DURATION4, device), ks))
     return out
 
 
-def _ex_preparation(torch, fe, device, gen, mod, label: str) -> dict:
+def _ex_preparation(torch, fe, device, gen, mod, label: str, refs, ref: str) -> dict:
     """(c) / (d) state preparation at 6 atoms (C = 8), the AFM preparation
     at 9 (C = 16): the first step against f64, P18_ADAM_STEPS Adam steps at the first stage's rate
     (counted, timed), K1/K2 against plain on the sweep's first
@@ -3132,8 +3299,7 @@ def _ex_preparation(torch, fe, device, gen, mod, label: str) -> dict:
 
     p0 = mod.initial_params(device)
     loss = lambda ps: 1.0 - mod.fidelity(*ps, device)  # noqa: E731
-    v, _, la, _ = _ex_first_step(torch, fe, label, loss,
-                                 lambda ps: 1.0 - mod.fidelity(*ps, device, fused=False), p0)
+    v, _, la, _ = _ex_first_step(torch, fe, label, loss, p0, _cpu_ref(torch, refs, ref))
     want = _times(K1K2, P18_ADAM_STEPS)
     (run, launches, ms) = _counted(torch, fe, f"{label}, Adam",
                                    lambda: adam(loss, p0, P18_ADAM_STEPS, mod.STAGES[0][0]), want)
@@ -3292,7 +3458,7 @@ def _ex_large(torch, fe, device) -> dict:
     return {"f32_run_ms": norm_ms}
 
 
-def _examples_phase(torch, fe, device, gen):
+def _examples_phase(torch, fe, device, gen, refs):
     """Phase 18: (a)-(h), the example flows on the card.  Returns the
     kernels' entries of (a)-(d), their runs and the other sub-phases'
     times; each sub-phase's wall seconds are logged."""
@@ -3304,11 +3470,13 @@ def _examples_phase(torch, fe, device, gen):
         _log(f"  {key}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    runs = {**wall("(a) + (b)", lambda: _ex_gate(torch, fe, device, gen)),
+    runs = {**wall("(a) + (b)", lambda: _ex_gate(torch, fe, device, gen, refs)),
             "state": wall("(c)", lambda: _ex_preparation(torch, fe, device, gen, state_preparation,
-                                                        "(c) 6-atom state preparation")),
+                                                        "(c) 6-atom state preparation", refs,
+                                                        "state6")),
             "afm": wall("(d)", lambda: _ex_preparation(torch, fe, device, gen, afm_preparation,
-                                                      "(d) 9-atom AFM preparation"))}
+                                                      "(d) 9-atom AFM preparation", refs,
+                                                      "afm9"))}
     times = {"multi_start": wall("(e)", lambda: _ex_multi_start(torch, fe, device)),
              "noisy": wall("(f)", lambda: _ex_noisy(torch, fe, device)),
              "basic": wall("(g)", lambda: _ex_basic(torch, fe, device)),
@@ -3326,6 +3494,292 @@ def _examples_phase(torch, fe, device, gen):
                                   f"example {what}, nb = {e['nb']}, {e['da']} x {e['db']}, "
                                   f"C = {e['C']}, {e['n_steps']} steps"))
     return entries, runs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 19: parallel/ (device meshes, sharded solves), the entry module and
+# the native sampler's binding, on one card
+# ---------------------------------------------------------------------------
+P19_RUNS = 4  # (a) seeds on the runs axis (bench_mc.py's noise)
+P19_TRAIN_RUNS = 2  # (b) runs of the training step
+P19_TARGET = -1.0
+P19_LR = 1e-2
+P19_MCWF_N, P19_MCWF_R = 3, 64  # (c) phase 13's 3-atom model
+P19_ME_N = 8  # (c) phase 12's 8-atom dephasing model (ME_DURATION)
+ENTRY_N = 9  # (e) the flagship of entry()
+# DTensor's matmul rule may gather the sharded rows and sum in another
+# order than the plain product: the f32 solve is held at 1e-6 unless equal
+P19_STATE_TOL = 1e-6
+P19_F64_TOL = 1e-12
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _full(torch, x):
+    """A DTensor Cplx gathered into plain tensors."""
+    from pulser_diff_torch.cplx import Cplx
+
+    return Cplx(x.re.full_tensor(), x.im.full_tensor())
+
+
+def _cplx_diff(a, b) -> tuple[float, bool]:
+    """(max |a - b| over both parts, equal bit for bit)."""
+    d = max(float((a.re - b.re).abs().max()), float((a.im - b.im).abs().max()))
+    return d, bool((a.re == b.re).all() and (a.im == b.im).all())
+
+
+def _p19_runs(torch, fe, device, mesh, n: int = N_QUBITS) -> dict:
+    """(a) bench_mc.py's noise on the runs axis: sharded_noise_states on
+    the mesh equal bit for bit to mesh=None, run 0 equal to a lone solve
+    from its seed's draws, unit norms, no kernel launch."""
+    from pulser_diff_torch.hamiltonian import draw_noise
+    from pulser_diff_torch.parallel import sharded_noise_states
+    from pulser_diff_torch.parallel.mesh import _solve_states_from_draws
+    from pulser_diff_torch.solvers import TimeGrid
+
+    label = f"(a) {n} atoms, R = {P19_RUNS} on the runs axis"
+    sim = _mc_sim(torch, device, n, runs=P19_RUNS)
+    seeds = [SEED + 1000 + i for i in range(P19_RUNS)]
+    with torch.no_grad():
+        st, _, mesh_ms = _counted(torch, fe, label, lambda: sharded_noise_states(sim, seeds, mesh),
+                                  NO_LAUNCH)
+        plain, _, plain_ms = _counted(torch, fe, label, lambda: sharded_noise_states(sim, seeds),
+                                      NO_LAUNCH)
+        h = sim._hamiltonian
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seeds[0])
+        lone = _solve_states_from_draws(
+            sim, draw_noise(gen, h.config, h._size, h._count_noise_slots()), "DP5_SE", 1, 12,
+            TimeGrid.make(h.sampling_times, sim._eval_times_array, device))
+    got = _full(torch, st)
+    _, same = _cplx_diff(got, plain)
+    _, same0 = _cplx_diff(plain[0], lone)
+    dnorm = float((got.abs2().sum(dim=(2, 3)) - 1).abs().max())
+    apart = float((plain.re[0, -1] - plain.re[1, -1]).abs().max())
+    _log(f"  {label}: placements {st.re.placements} on {st.re.device_mesh.size()} rank(s); "
+         f"mesh = mesh=None bit for bit: {same}; run 0 = lone solve: {same0}; max|norm - 1| "
+         f"{dnorm:.3e}; runs 0 / 1 apart {apart:.3e}; {mesh_ms:.1f} ms on the mesh, "
+         f"{plain_ms:.1f} ms without")
+    if not (same and same0) or dnorm > 1e-8 or apart < 1e-6:
+        raise RuntimeError(f"{label}: equal {same} / {same0}, norm {dnorm:.3e}, apart {apart}")
+    return {"runs_mesh_ms": mesh_ms, "runs_plain_ms": plain_ms}
+
+
+def _p19_train(torch, fe, device, mesh, n: int = N_QUBITS) -> dict:
+    """(b) sharded_expectation_step on bench.py's model with bench_mc.py's
+    noise, one Adam step: the loss equal (1e-12) to the mean of the runs'
+    losses computed alone from the same seeds; the parameters moved."""
+    from pulser_diff_torch import SimConfig
+    from pulser_diff_torch.ops import total_magnetization
+    from pulser_diff_torch.parallel import sharded_expectation_step
+    from pulser_diff_torch.parallel.mesh import run_loss, run_seeds
+
+    label = f"(b) {n} atoms training step, {P19_TRAIN_RUNS} runs"
+    model, _ = _bench_model(torch, device, None, n_qubits=n, noise_config=SimConfig(**TRAIN_NOISE))
+    obs = total_magnetization(n, dense=False, device=device)
+    seed = SEED + 2000
+    before = {k: v.detach().clone() for k, v in model.params.items()}
+    with torch.no_grad():
+        lone, _, lone_ms = _counted(torch, fe, label, lambda: [
+            float(run_loss(model, dict(model.params), obs, P19_TARGET, s))
+            for s in run_seeds(seed, P19_TRAIN_RUNS)], NO_LAUNCH)
+    step = sharded_expectation_step(model, obs, P19_TARGET,
+                                    lambda ps: torch.optim.Adam(ps, lr=P19_LR), mesh,
+                                    P19_TRAIN_RUNS)
+    loss, _, step_ms = _counted(torch, fe, label, lambda: float(step(seed)), NO_LAUNCH)
+    want = float(np.mean(lone))
+    moved = max(float((model.params[k].detach() - v).abs().max()) for k, v in before.items())
+    _log(f"  {label}: loss {loss!r}, mean of the lone runs {want!r} (|d| "
+         f"{abs(loss - want):.3e}, tol {P19_F64_TOL:.0e}); parameters moved {moved:.3e}; step "
+         f"{step_ms:.1f} ms (value+grad of {P19_TRAIN_RUNS} runs on the f64 stepper and Adam), "
+         f"lone forward runs {lone_ms:.1f} ms")
+    if abs(loss - want) > P19_F64_TOL or not moved > 0:
+        raise RuntimeError(f"{label}: loss {loss} vs {want}, moved {moved}")
+    return {"train_step_ms": step_ms, "train_lone_ms": lone_ms}
+
+
+def _p19_state(torch, fe, device, meshes: dict, n: int = 18, n_mcwf: int = P19_MCWF_N,
+               n_me: int = P19_ME_N) -> dict:
+    """(c) large_scale's mesh section at ``n`` atoms: sharded_sesolve
+    (DP5_SE_F32) on {"state": 1} against sesolve on the same inputs;
+    sharded_mcwf_states on phase 13's 3-atom model (R = 64) and
+    sharded_mesolve on phase 12's 8-atom dephasing model, each against its
+    unsharded call."""
+    from pulser_diff_torch.examples import large_scale as ls
+    from pulser_diff_torch.parallel import sharded_mcwf_states, sharded_mesolve, sharded_sesolve
+    from pulser_diff_torch.solvers import SolverType, TimeGrid, mesolve, sesolve
+
+    out = {}
+    _, dur, k = ls.sizes(ci=False)
+    label = f"(c) large_scale, {n} atoms, DP5_SE_F32"
+    model = ls.make_model(n, dur, k, device)
+    amp = torch.as_tensor(ls.start_knots(k), dtype=torch.float64, device=device)
+    inputs = ls.state_inputs(model, amp)
+    f32 = SolverType.DP5_SE_F32
+    with torch.no_grad():
+        sh, _, sh_ms = _counted(torch, fe, label, lambda: sharded_sesolve(
+            *inputs, meshes["state"], solver=f32), NO_LAUNCH)
+        ref, _, ref_ms = _counted(torch, fe, label, lambda: sesolve(*inputs, solver=f32),
+                                  NO_LAUNCH)
+    got = _full(torch, sh)
+    diff, same = _cplx_diff(got, ref)
+    norm = float((got.re[-1].double() ** 2 + got.im[-1].double() ** 2).sum())
+    _log(f"  {label}: placements {sh.re.placements}; max|sharded - sesolve| {diff:.3e} (bit for "
+         f"bit: {same}; tol {P19_STATE_TOL:.0e}); final norm {norm!r}; sharded {sh_ms:.1f} ms, "
+         f"sesolve {ref_ms:.1f} ms (DTensor's dispatch x{sh_ms / ref_ms:.2f})")
+    if diff > P19_STATE_TOL or abs(norm - 1) > F32_VALUE_TOL:
+        raise RuntimeError(f"{label}: |diff| {diff:.3e}, norm {norm}")
+    out.update(state_sharded_ms=sh_ms, state_plain_ms=ref_ms)
+    del model, inputs, sh, ref, got
+    torch.cuda.empty_cache()
+
+    label = f"(c) {n_mcwf} atoms MCWF R = {P19_MCWF_R}"
+    sim = _me_sim(torch, device, n_mcwf, spacing=MCWF_SPACING, evaluation_times=0.25)
+    with torch.no_grad():
+        mc, _, mc_ms = _counted(torch, fe, label, lambda: sharded_mcwf_states(
+            sim, SEED + 3000, P19_MCWF_R, mesh=meshes["runs"]), NO_LAUNCH)
+        lone, _, lone_ms = _counted(torch, fe, label, lambda: sharded_mcwf_states(
+            sim, SEED + 3000, P19_MCWF_R), NO_LAUNCH)
+    diff, same = _cplx_diff(_full(torch, mc.states), lone.states)
+    jumps = bool((mc.n_jumps.full_tensor() == lone.n_jumps).all())
+    _log(f"  {label}: sharded = unsharded bit for bit: {same} (max|d| {diff:.3e}), jump counts "
+         f"equal: {jumps}; {mc_ms:.1f} / {lone_ms:.1f} ms")
+    if not (same and jumps):
+        raise RuntimeError(f"{label}: sharded trajectories differ by {diff:.3e}")
+    out.update(mcwf_sharded_ms=mc_ms, mcwf_plain_ms=lone_ms)
+
+    label = f"(c) {n_me} atoms dephasing, mesolve"
+    sim = _me_sim(torch, device, n_me)
+    h = sim._hamiltonian
+    p = sim.initial_state
+    rho0 = type(p)(p.re @ p.re.T + p.im @ p.im.T, p.im @ p.re.T - p.re @ p.im.T)
+    grid = TimeGrid.make(h.sampling_times, sim._eval_times_array, device)
+    args = (h._ham_data, rho0, h._collapse_ops, h._size, h.dim, grid)
+    with torch.no_grad():
+        rho, _, rho_ms = _counted(torch, fe, label, lambda: sharded_mesolve(
+            *args, meshes["rho"]), NO_LAUNCH)
+        rho_ref, _, rho_ref_ms = _counted(torch, fe, label, lambda: mesolve(*args), NO_LAUNCH)
+    diff, same = _cplx_diff(_full(torch, rho), rho_ref)
+    _log(f"  {label}: placements {rho.re.placements}; max|sharded - mesolve| {diff:.3e} (bit for "
+         f"bit: {same}; tol {P19_F64_TOL:.0e}); {rho_ms:.1f} / {rho_ref_ms:.1f} ms")
+    if diff > P19_F64_TOL:
+        raise RuntimeError(f"{label}: sharded mesolve differs by {diff:.3e}")
+    out.update(rho_sharded_ms=rho_ms, rho_plain_ms=rho_ref_ms)
+    return out
+
+
+def _p19_entry(torch, fe, device, gen, refs, n: int = ENTRY_N):
+    """(e) entry()'s flagship: value and gradient through one K1 and one K2
+    launch against the f64 stepper (1e-6 / 1e-5), which ran on the card
+    machine's CPU (``refs``; its launches of small products take twice as
+    long on the card); K1/K2 at the flagship's inputs against their plain
+    versions on the first PLAIN_STEPS steps, timed with their bounds; then
+    the native sampler's binding against numpy, scipy and the port's torch
+    waveform samples.  Returns (times, the kernels' entries)."""
+    from scipy.interpolate import PchipInterpolator
+
+    import pulser_diff_torch.core as tcore
+    from pulser_diff_torch import native
+    from pulser_diff_torch.core.waveforms import pchip_interpolate
+    from pulser_diff_torch.entry import entry, flagship, flagship_model
+
+    def value_and_grad(fn, args):
+        a = [x.detach().clone().requires_grad_(True) for x in args]
+        v = fn(*a)
+        return v.detach(), torch.cat(torch.autograd.grad(v, a))
+
+    label = f"(e) entry(), the {n}-atom flagship"
+    fn, args = entry() if n == ENTRY_N else flagship(n_qubits=n, device=device)
+    (v, g), launches, ms = _counted(torch, fe, label, lambda: value_and_grad(fn, args), K1K2)
+    r = refs.get(torch, f"flagship{n}")
+    v64, g64, ms64 = r["v"], r["g"], r["ms"]
+    _log(f"  {label}: launches {launches}; value+grad {ms:.1f} ms (first call), f64 stepper "
+         f"on the CPU {ms64:.1f} ms")
+    _hold_against_f64(torch, v, g.cpu(), v64, g64, label)
+    model, _ = flagship_model(n_qubits=n, device=device)
+    with torch.no_grad():
+        sim = model._make_emulator(dict(model.params))
+    ks = _fe_kernels(torch, fe, sim, model._default_substeps(), device, gen, label, False,
+                     n=PLAIN_STEPS, reps=5)
+    del model, sim
+    entries = []
+    for name, e in ks.items():
+        src, line, kname = (("fused_evolution.cu", 594, "fused_fwd_kernel (K1)") if name == "K1"
+                            else ("fused_evolution.cu", 1026, "fused_bwd_kernel (K2)"))
+        count = launches["fused_fwd" if name == "K1" else "fused_bwd"]
+        entries.append(_entry(kname, src, line, count, e,
+                              f"entry() flagship, {e['da']} x {e['db']}, C = {e['C']}, "
+                              f"{e['n_steps']} steps"))
+
+    t0 = time.perf_counter()
+    x = np.array([0.0, 10.0, 30.0, 55.0, 99.0])
+    y = np.array([0.0, 3.0, -1.0, 2.0, 0.0])
+    t = np.linspace(0, 99, 500)
+    w = np.clip(np.blackman(237), 0, None)
+    kw = np.kaiser(200, 14.6)
+    errs = {
+        "blackman": np.abs(native.blackman(237, np.pi) - w * np.pi / (w.sum() * 1e-3)).max(),
+        "kaiser": np.abs(native.kaiser(200, 1.3) - kw * 1.3 / (kw.sum() * 1e-3)).max(),
+        "ramp": np.abs(native.ramp(101, -1.0, 1.0) - np.linspace(-1, 1, 101)).max(),
+        "pchip": np.abs(native.pchip(x, y, t) - PchipInterpolator(x, y)(t)).max(),
+        "pchip_torch": np.abs(native.pchip(x, y, t) - pchip_interpolate(
+            torch.as_tensor(x, device=device), torch.as_tensor(y, device=device),
+            torch.as_tensor(t, device=device)).cpu().numpy()).max(),
+    }
+    for name, wf, ref in (("blackman_torch", tcore.BlackmanWaveform(237, np.pi),
+                           native.blackman(237, np.pi)),
+                          ("kaiser_torch", tcore.KaiserWaveform(200, 1.3), native.kaiser(200, 1.3)),
+                          ("ramp_torch", tcore.RampWaveform(101, -1.0, 1.0),
+                           native.ramp(101, -1.0, 1.0))):
+        errs[name] = np.abs(wf.samples.detach().cpu().numpy() - ref).max()
+    bars = {"blackman": 1e-10, "kaiser": 1e-9}
+    native_ms = (time.perf_counter() - t0) * 1e3
+    _log(f"  (e) native sampler (built with {native._compiler()} into _build/, "
+         f"{native_ms:.1f} ms with the build): " + ", ".join(f"{k} {float(e):.2e}"
+                                                            for k, e in errs.items()))
+    bad = {k: e for k, e in errs.items() if e > bars.get(k, 1e-12)}
+    if bad:
+        raise RuntimeError(f"(e) native sampler: {bad}")
+    return {"entry_ms": ms, "entry_f64_ms": ms64}, entries
+
+
+def _parallel_phase(torch, fe, device, gen, refs):
+    """Phase 19: (a)-(c) and (e) on one card; each sub-phase's wall seconds
+    are logged.  One NCCL group of one rank holds the meshes of (a)-(c).
+    Returns (times, (e)'s kernel entries).
+    (d), two gloo ranks sharing the card, is not run: gloo takes the c10d
+    collectives on CUDA tensors, but the functional all_gather that
+    DTensor's redistribute issues killed both ranks (SIGSEGV) on the card
+    (PERF.md)."""
+    import torch.distributed as dist
+
+    from pulser_diff_torch.parallel import make_mesh
+    from pulser_diff_torch.parallel.multihost import initialize
+
+    def wall(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        _log(f"  {key}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    out = {}
+    initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        _log(f"  NCCL group of {dist.get_world_size()} rank, backend {dist.get_backend()}")
+        meshes = {a: make_mesh({a: 1}, device_type=device.type) for a in ("runs", "state", "rho")}
+        out.update(wall("(a)", lambda: _p19_runs(torch, fe, device, meshes["runs"])))
+        out.update(wall("(b)", lambda: _p19_train(torch, fe, device, meshes["runs"])))
+        out.update(wall("(c)", lambda: _p19_state(torch, fe, device, meshes)))
+    finally:
+        dist.destroy_process_group()
+    times, entries = wall("(e)", lambda: _p19_entry(torch, fe, device, gen, refs))
+    return {**out, **times}, entries
 
 
 def main() -> int:
@@ -3352,13 +3806,33 @@ def main() -> int:
     _log(f"phase 1 device: {name}; nvidia-smi: {smi}; torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
 
-    # 2. build, both sources at once
+    # the CPU references, each in a process of its own beside this one
+    refs = _CpuReferences(CPU_REFERENCES)
+    atexit.register(refs.close)
+
+    # 2. build, both sources at once; the phases that reach no kernel (12,
+    # 13) run while nvcc works
     t0 = time.perf_counter()
-    reports = kernel_build.build_all(("fused_evolution", "fused_ckpt"))
+    builds = kernel_build.start_builds(("fused_evolution", "fused_ckpt"))
+    _log("phase 2 build: nvcc started for fused_evolution.cu and fused_ckpt.cu; phases 12 and "
+         "13 (no kernel) run meanwhile")
+    # 12. the Lindblad path (bench_mesolve.py), no kernel on it
+    _log("phase 12 Lindblad: 10-atom value+grad through QuantumModel (DP5_ME, dense form) vs "
+         "the factored form and DP5_ME_F32; 3-atom rate gradient; 12-atom run() (factored); "
+         "8-atom dephasing + doppler run()")
+    me = _lindblad_phase(torch, fe, device)
+    # 13. quantum-jump trajectories (bench_mcwf.py), no kernel on it
+    _log("phase 13 MCWF: 3-atom populations vs DP5_ME; 12-atom MCWF_F32 run(); 10-atom "
+         "expectation_mcwf_fn value+grad vs DP5_ME")
+    mcwf = _mcwf_phase(torch, fe, device)
+    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in {**me, **mcwf}.items()
+                              if k.endswith("_ms")))
+    t1 = time.perf_counter()
+    reports = kernel_build.finish_builds(builds)
     fe._library()
     fe._ckpt_library()
-    _log(f"phase 2 build: fused_evolution.cu and fused_ckpt.cu in "
-         f"{time.perf_counter() - t0:.1f} s")
+    _log(f"  phase 2 build done {time.perf_counter() - t0:.1f} s after nvcc started (phases 12 "
+         f"and 13 took {t1 - t0:.1f} s of it, then {time.perf_counter() - t1:.1f} s of waiting)")
     for src, report in reports.items():
         for mangled, (regs, st, ld) in _ptxas_summary(report).items():
             kname = _instantiation(mangled)
@@ -3366,6 +3840,12 @@ def main() -> int:
                  f"{ld} B")
             if src == "fused_ckpt" and (st or ld):
                 raise RuntimeError(f"{kname} spills {st} / {ld} bytes")
+
+    # the CPU references end before the timed phases, so no host-bound
+    # reading from phase 3 on shares the CPU with them
+    t0 = time.perf_counter()
+    refs.wait()
+    _log(f"  CPU references done: {len(refs.done)}, {time.perf_counter() - t0:.1f} s of waiting")
 
     # 3. kernels against their plain versions
     _log("phase 3 kernels vs plain versions")
@@ -3609,17 +4089,6 @@ def main() -> int:
     mc = _mc_phase(torch, fe, device, gen)
     _log("  run() ms: " + ", ".join(f"{k}: {v:.2f}" for k, v in mc["run_ms"].items()))
 
-    # 12. the Lindblad path (bench_mesolve.py), no kernel on it
-    _log("phase 12 Lindblad: 10-atom value+grad through QuantumModel (DP5_ME, dense form) vs "
-         "the factored form and DP5_ME_F32; 3-atom rate gradient; 12-atom run() (factored); "
-         "8-atom dephasing + doppler run()")
-    me = _lindblad_phase(torch, fe, device)
-    # 13. quantum-jump trajectories (bench_mcwf.py), no kernel on it
-    _log("phase 13 MCWF: 3-atom populations vs DP5_ME; 12-atom MCWF_F32 run(); 10-atom "
-         "expectation_mcwf_fn value+grad vs DP5_ME")
-    mcwf = _mcwf_phase(torch, fe, device)
-    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in {**me, **mcwf}.items()
-                              if k.endswith("_ms")))
     # 14. training: the noisy models' steps past 8 parts, fit, fit_population,
     # durations, a noisy fit
     _log("phase 14 training: noisy 12-atom (K1/K2) and 16-atom (K4/K5) value+grad vs f64 on "
@@ -3634,7 +4103,7 @@ def main() -> int:
     _log("phase 15 front end: (a) 12-atom global + local channels value+grad (K1/K2; K4/K5 "
          "with ckpt=True), (b) 12-atom modulated run() with an EOM block (K1), (c) 12-atom XY "
          "under an SLM mask (K1/K2), (d) 16-atom XY under an SLM mask (K4/K5)")
-    front = _front_end_phase(torch, fe, device, gen)
+    front = _front_end_phase(torch, fe, device, gen, refs)
 
     # 16. the other bases: the all basis at da = 3^a (K1/K2 at C = 1, K4/K5),
     # the digital basis, leakage, the time derivatives
@@ -3651,7 +4120,7 @@ def main() -> int:
          "KRYLOV_SE, DP5_SE_ADAPTIVE, KRYLOV_SE_F32 (no kernel) against the same call on the "
          "CPU and against KRYLOV_SE; (b) pallas_evolve at 12 atoms (K1/K2), 16 atoms ckpt=True "
          "(K4/K5), 12-atom XY (K1/K2 with kron pairs)")
-    solvers_ms = _solvers_phase(torch, fe, device)
+    solvers_ms = _solvers_phase(torch, fe, device, refs)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in solvers_ms.items()))
     final = _final_state_phase(torch, fe, device, gen)
 
@@ -3661,9 +4130,18 @@ def main() -> int:
          "16), (c) 6-atom state preparation, (d) 9-atom AFM preparation, (e) multi_start, (f) "
          "noisy_simulation's Monte-Carlo run(), (g) basic_usage's derivatives, (h) large_scale "
          "at 18 atoms")
-    examples, _, examples_ms = _examples_phase(torch, fe, device, gen)
+    examples, _, examples_ms = _examples_phase(torch, fe, device, gen, refs)
     _log("  ms: " + ", ".join(f"{k}.{n}: {v:.1f}" for k, d in examples_ms.items()
                               for n, v in d.items()))
+
+    # 19. parallel/ on one card (no kernel: fused=False, as in the JAX
+    # package), the entry module's flagship (K1/K2) and the native binding
+    _log("phase 19 parallel: (a) bench_mc.py's noise on a runs mesh, (b) a sharded training "
+         "step, (c) large_scale's state-sharded f32 solve at 18 atoms, sharded trajectories and "
+         "a row-sharded mesolve, (e) entry()'s flagship (K1/K2, held against plain) and the "
+         "native sampler")
+    par_ms, entry_kernels = _parallel_phase(torch, fe, device, gen, refs)
+    _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in par_ms.items()))
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",
@@ -3722,7 +4200,7 @@ def main() -> int:
         kernels.append(entry(f"{kname} (plain_ms: {e['plain_runs']} run(s))", src, replaces,
                              e["launches"], e["err"], e["ms"], e["plain_ms"], e["bound"],
                              e["by"]))
-    for kname, src, replaces, count, e in front + bases + final + examples:
+    for kname, src, replaces, count, e in front + bases + final + examples + entry_kernels:
         kernels.append(entry(kname, src, replaces, count, e["err"], e["ms"], e["plain_ms"],
                              e["bound"], e["by"]))
     print(smi)
@@ -3733,4 +4211,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--cpu-references":
+        sys.exit(_cpu_references_main(sys.argv[2:]))
     sys.exit(main())

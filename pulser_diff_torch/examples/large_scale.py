@@ -9,11 +9,15 @@ dimension, as the JAX package does:
 | 2^16 <= dim < 2^18 | the checkpointed kernels K4/K5 |
 | dim >= 2^18 (18 atoms on) | the f32 stepper ``DP5_SE_F32``; ``fused=False`` gives f64 |
 
-``run(solver="DP5_SE_F32")`` takes the f32 stepper at any size.  The
-JAX script's last section, the state sharded over a device mesh, waits
-for the port of ``parallel/mesh.py``.
+``run(solver="DP5_SE_F32")`` takes the f32 stepper at any size.  Past
+one card the statevector's row-group axis shards over a mesh of the
+process group's ranks (``parallel.sharded_sesolve`` on DTensors, the
+row product's operand gathered by DTensor's matmul rule); the last
+section runs it in f32 when the group has more than one rank and its size
+divides the row dimension.
 
     N_ATOMS=18 python -m pulser_diff_torch.examples.large_scale
+    N_ATOMS=18 torchrun --nproc-per-node 4 -m pulser_diff_torch.examples.large_scale
 """
 
 from __future__ import annotations
@@ -83,6 +87,34 @@ def f32_final_norm(model: QuantumModel, amp: torch.Tensor) -> float:
     return float((final.re.double() ** 2 + final.im.double() ** 2).sum())
 
 
+def state_inputs(model: QuantumModel, amp: torch.Tensor) -> tuple:
+    """(ham_data, psi0 (1, da, db), grid) of the model at ``amp``, as
+    ``sesolve`` and ``parallel.sharded_sesolve`` take them."""
+    from pulser_diff_torch.cplx import Cplx
+    from pulser_diff_torch.solvers import TimeGrid
+
+    with torch.no_grad():
+        sim = model._make_emulator({"amp_0": amp})
+    h = sim._hamiltonian
+    da, db = h.dim**h._a, h.dim**h._b
+    p0 = sim.initial_state
+    return (h._ham_data, Cplx(p0.re.T.reshape(1, da, db), p0.im.T.reshape(1, da, db)),
+            TimeGrid.make(h.sampling_times, sim._eval_times_array, model.torch_device))
+
+
+def sharded_f32_norm(model: QuantumModel, amp: torch.Tensor, n_dev: int) -> tuple[int, float]:
+    """The f32 solve with the state's rows sharded over a ``{"state":
+    n_dev}`` mesh of the process group: (ranks placed on, final squared
+    norm)."""
+    from pulser_diff_torch.parallel import make_mesh, sharded_sesolve
+
+    mesh = make_mesh({"state": n_dev}, device_type=model.torch_device.type)
+    with torch.no_grad():
+        out = sharded_sesolve(*state_inputs(model, amp), mesh, solver=SolverType.DP5_SE_F32)
+        norm = (out.re[-1].double() ** 2 + out.im[-1].double() ** 2).sum().full_tensor()
+    return out.re.device_mesh.size(), float(norm)
+
+
 def main(device: DeviceLike = "cuda", ci: bool = False) -> dict:
     n_atoms, duration, n_params = sizes(ci)
     model = make_model(n_atoms, duration, n_params, device)
@@ -92,9 +124,23 @@ def main(device: DeviceLike = "cuda", ci: bool = False) -> dict:
           f"|grad|={float(grad.abs().max()):.4f}")
     norm = f32_final_norm(model, amp)
     print("f32 solve final-state norm:", norm)
-    print("(the mesh section waits for the port of parallel/mesh.py)")
-    return {"value": float(value), "grad": grad.cpu().numpy(), "norm": norm}
+    out = {"value": float(value), "grad": grad.cpu().numpy(), "norm": norm}
+    # past one card: the state's rows over the ranks of the process group
+    n_dev = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    da = 2 ** (n_atoms // 2)
+    if da % n_dev == 0 and n_dev > 1:
+        out["mesh_ranks"], out["mesh_norm"] = sharded_f32_norm(model, amp, n_dev)
+        print(f"sharded f32 solve over {out['mesh_ranks']} devices: "
+              f"norm={out['mesh_norm']:.9f}")
+    else:
+        print(f"(mesh demo skipped: da={da} not divisible by {n_dev} devices)")
+    return out
 
 
 if __name__ == "__main__":
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # started by torchrun
+        from pulser_diff_torch.parallel.multihost import initialize
+
+        initialize(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                   int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]))
     main()

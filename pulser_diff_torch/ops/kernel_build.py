@@ -57,30 +57,47 @@ def _start(name: str):
     # never load a half-written library
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # the compiler's report goes to a file, not a pipe: a build left
+    # running while the caller works never stalls on a full pipe
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, out
 
 
-def build_all(names) -> dict[str, str]:
-    """Compile several sources at once (one ``nvcc`` each, all started
-    together); returns each compiler's output (ptxas register and
-    shared-memory report), empty for a library that was current."""
-    started = {name: _start(name) for name in names}
+def start_builds(names) -> dict:
+    """Start one ``nvcc`` for each source that is not current, all at once,
+    and return at once; :func:`finish_builds` waits for them."""
+    return {name: _start(name) for name in names}
+
+
+def finish_builds(started: dict) -> dict[str, str]:
+    """Wait for the builds of :func:`start_builds`; returns each compiler's
+    output (ptxas register and shared-memory report), empty for a library
+    that was current.  Raises if one failed."""
     reports, failed = {}, []
     for name, job in started.items():
         if job is None:
             reports[name] = ""
             continue
         proc, tmp, out = job
-        stdout, stderr = proc.communicate()
+        proc.wait()
+        log = tmp.with_suffix(".log")
+        report = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{stderr[-4000:]}")
+            failed.append(f"nvcc failed for {name}.cu:\n{report[-4000:]}")
             continue
         os.replace(tmp, out)
-        reports[name] = stdout + stderr
+        reports[name] = report
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile several sources at once (one ``nvcc`` each, all started
+    together); returns each compiler's output, as :func:`finish_builds`."""
+    return finish_builds(start_builds(names))
 
 
 def build(name: str) -> str:

@@ -41,9 +41,12 @@ for name in names:
 for sub, mods in (("examples", ("afm_preparation", "basic_usage", "gate_optimization",
                                 "large_scale", "multi_start", "noisy_simulation",
                                 "state_preparation")),
-                  ("utils", ("checkpoint", "profiling"))):
+                  ("utils", ("checkpoint", "profiling")),
+                  ("parallel", ("mesh", "multihost"))):
     missing = {f"pulser_diff_torch.{sub}.{m}" for m in mods} - set(names)
     assert not missing, missing
+# the entry module and the native sampler's binding
+assert {"pulser_diff_torch.entry", "pulser_diff_torch.native"} <= set(names), names
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "pulser_diff_tpu"))
@@ -54,8 +57,9 @@ print("clean")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of pulser_diff_torch (the example flows of examples/
-    and the utilities of utils/ among them), and chip_smoke.py, import in
+    """Every module of pulser_diff_torch (the example flows of examples/,
+    the utilities of utils/, parallel/, entry.py and native.py among
+    them), and chip_smoke.py, import in
     a fresh interpreter without pulling in JAX or pulser_diff_tpu, and
     without touching torch's default dtype."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=ROOT,
@@ -86,7 +90,9 @@ def _no_device_calls():
     """Every entry point that makes tensors, called without a device."""
     from pulser_diff_torch.convert import factored_from_numpy, params_from_numpy
     from pulser_diff_torch.core.sampler import sample
+    from pulser_diff_torch.entry import entry
     from pulser_diff_torch.hamiltonian import zero_noise_draws
+    from pulser_diff_torch.parallel import make_mesh
     from pulser_diff_torch.solvers import TimeGrid
 
     z = np.zeros((1, 2, 2))
@@ -102,6 +108,8 @@ def _no_device_calls():
         "basis_state": lambda: tla.basis_state(2, 1),
         "total_magnetization": lambda: tla.total_magnetization(2),
         "zero_noise_draws": lambda: zero_noise_draws(2, 1),
+        "make_mesh": lambda: make_mesh({"runs": 1}),
+        "entry": lambda: entry(),
     }
 
 
@@ -186,6 +194,31 @@ def test_public_surface_matches_jax():
     np.testing.assert_allclose(to_numpy(tops.trace(as_cplx(rho)).re),
                                np.asarray(jops.trace(JCplx(jnp.asarray(rho.real),
                                                            jnp.asarray(rho.imag))).re), atol=1e-14)
+
+
+def test_parallel_native_and_entry_names_match_jax():
+    """parallel/ exports the JAX package's names, multihost and native
+    have JAX's public functions, and entry.py has __graft_entry__.py's
+    entry points."""
+    import importlib.util
+
+    import pulser_diff_torch.parallel as tpar
+    import pulser_diff_tpu.parallel as jpar
+    from pulser_diff_torch import entry, native
+    from pulser_diff_torch.parallel import multihost
+
+    assert tpar.__all__ == jpar.__all__
+    for name in jpar.__all__:
+        assert callable(getattr(tpar, name)), name
+    for name in ("initialize", "param_runs_mesh", "global_array", "param_sweep"):
+        assert callable(getattr(multihost, name)), name
+    for name in ("available", "blackman", "kaiser", "ramp", "pchip", "assemble_channel"):
+        assert callable(getattr(native, name)), name
+    spec = importlib.util.spec_from_file_location("_graft", ROOT / "__graft_entry__.py")
+    graft = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(graft)
+    for name in ("entry", "dryrun_multichip"):
+        assert callable(getattr(graft, name)) and callable(getattr(entry, name)), name
 
 
 def test_solver_names_and_run_options_match_jax():
