@@ -219,7 +219,17 @@ Phases (each raises on failure, so the script exits non-zero):
      against their plain versions on the first PLAIN_STEPS steps, timed
      with their bounds, and pulser_diff_torch.native against numpy, scipy
      and the port's torch waveform samples; each sub-phase's wall seconds
-     printed.
+     printed;
+ 20. export (pulser_diff_torch.utils.export): the value+grad steps of
+     phases 4 (12 atoms, K1/K2), 5 (16 atoms, K4/K5) and 6 (12-atom XY
+     with q1's coordinates, K1/K2 with kron pairs) exported on the card
+     with export_step, saved, reloaded with load_step and called once with
+     the launch counts set to 0 just before and read just after: one
+     launch of each kernel of the route and of no other, the sidecar
+     naming those ops, the value and every gradient equal bit for bit to
+     the eager step called after the export, and within phase 4's bars of
+     the f64 stepper; the export, save and load seconds and the reloaded
+     step's warm time beside the eager step's printed.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -862,7 +872,7 @@ def _xy_step_phase(torch, fe, device, xy):
         raise RuntimeError(f"12 atoms XY: fused path vs f64 stepper: |dv| {dv:.3e}, "
                            f"|dg| {dg:.3e}, |dc| {dc:.3e}")
     return {"launches": launches, "first_ms": first_ms, "f64_ms": f64_ms, "f64_peak": f64_peak,
-            "dv": dv, "dg": dg, "dc": dc}
+            "dv": dv, "dg": dg, "dc": dc, "v64": v64, "g64": g64, "c64": c64}
 
 
 def _ptxas_summary(report: str) -> dict:
@@ -2475,14 +2485,15 @@ def _fe_kernels(torch, fe, sim, substeps: int, device, gen, label: str, ckpt: bo
 
 @contextlib.contextmanager
 def _plain_versions(fe):
-    """K1 and K2's wrappers replaced by their plain versions (which count
+    """K1 and K2's CUDA implementations (the launches the ops'
+    ``"cuda"`` kernels call) replaced by their plain versions (which count
     no launch) for the steps run inside."""
-    saved = fe.fused_fwd, fe.fused_bwd
-    fe.fused_fwd, fe.fused_bwd = fe.fused_fwd_plain, fe.fused_bwd_plain
+    saved = fe._fused_fwd_cuda, fe._fused_bwd_cuda
+    fe._fused_fwd_cuda, fe._fused_bwd_cuda = fe.fused_fwd_plain, fe.fused_bwd_plain
     try:
         yield
     finally:
-        fe.fused_fwd, fe.fused_bwd = saved
+        fe._fused_fwd_cuda, fe._fused_bwd_cuda = saved
 
 
 def _entry(kname, src, replaces, launches, e, what):
@@ -3782,6 +3793,112 @@ def _parallel_phase(torch, fe, device, gen, refs):
     return {**out, **times}, entries
 
 
+# ----------------------------------------------------------------------
+# phase 20: export and reload of the main path's value+grad steps
+# ----------------------------------------------------------------------
+EXPORT_REPS = 3
+
+
+def _export_step_fn(torch, model):
+    """The model's value+grad step as a function of its parameter dict
+    (torch.autograd.grad, which torch.export traces): (value, {name:
+    gradient})."""
+    exp_fn = model.expectation_fn()
+
+    def step(p):
+        q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        _, vals = exp_fn(q)
+        grads = torch.autograd.grad(vals[-1], list(q.values()))
+        return vals[-1].detach(), {k: g.detach() for k, g in zip(q, grads)}
+
+    return step
+
+
+@contextlib.contextmanager
+def _export_timers(torch, secs: dict):
+    """Wall seconds of torch.export.export and torch.export.save (as
+    export_step calls them) inside the block, into ``secs``."""
+    saved = torch.export.export, torch.export.save
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[name] = time.perf_counter() - t0
+        return call
+
+    torch.export.export, torch.export.save = timed("export", saved[0]), timed("save", saved[1])
+    try:
+        yield
+    finally:
+        torch.export.export, torch.export.save = saved
+
+
+def _export_case(torch, fe, device, label: str, model, params: dict, want: dict, ref64: dict,
+                 outdir: str) -> dict:
+    """One step through export_step / load_step on the card: the sidecar,
+    the reloaded call's launches (``want``), bit-for-bit equality with the
+    eager step after the export, the f64 bars (``ref64``: value and each
+    gradient), times."""
+    from pulser_diff_torch.utils import export_step, load_meta, load_step
+
+    step = _export_step_fn(torch, model)
+    path = os.path.join(outdir, label.replace(" ", "_") + ".pt2")
+    secs: dict = {}
+    t0 = time.perf_counter()
+    with _export_timers(torch, secs):
+        export_step(step, (params,), path)
+    secs["export_step"] = time.perf_counter() - t0
+    meta = load_meta(path)
+    ops = sorted(f"pulser_diff_torch::{k}" for k, n in want.items() if n)
+    if meta["device_type"] != device.type or meta["custom_ops"] != ops:
+        raise RuntimeError(f"{label}: sidecar {meta}, expected device {device.type} and ops {ops}")
+    t0 = time.perf_counter()
+    loaded = load_step(path, device=device)
+    secs["load"] = time.perf_counter() - t0
+    (value, grads), launches, first_ms = _counted(torch, fe, label, lambda: loaded(params), want)
+    eager = step(params)
+    torch.cuda.synchronize()
+    same = torch.equal(value, eager[0]) and all(torch.equal(grads[k], eager[1][k]) for k in grads)
+    dv = abs(float(value) - float(ref64["value"]))
+    dg = max(float((grads[k] - ref64[k]).abs().max()) for k in grads)
+    reload_ms, _ = _host_time_ms(torch, lambda: loaded(params), EXPORT_REPS)
+    eager_ms, _ = _host_time_ms(torch, lambda: step(params), EXPORT_REPS)
+    _log(f"  {label}: export_step {secs['export_step']:.2f} s (torch.export.export "
+         f"{secs['export']:.2f} s, save {secs['save']:.2f} s, the eager call the rest), load "
+         f"{secs['load']:.2f} s, {os.path.getsize(path) / 2**20:.2f} MiB; ops "
+         f"{meta['custom_ops']}; launches {launches}")
+    _log(f"  {label}: reloaded value {float(value)!r}, equal to the eager step bit for bit: "
+         f"{same}; vs f64 |dv| {dv:.3e} (tol {VALUE_TOL:.0e}), max|dg| {dg:.3e} (tol "
+         f"{GRAD_TOL:.0e})")
+    _log(f"  {label}: reloaded step {reload_ms:.2f} ms warm (first {first_ms:.1f} ms), eager "
+         f"step {eager_ms:.2f} ms warm (medians of {EXPORT_REPS})")
+    if not same:
+        raise RuntimeError(f"{label}: the reloaded step differs from the eager step: "
+                           f"{value!r} {grads!r} against {eager!r}")
+    if dv > VALUE_TOL or dg > GRAD_TOL:
+        raise RuntimeError(f"{label}: reloaded step vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
+    return {**secs, "reload_ms": reload_ms, "eager_ms": eager_ms, "first_ms": first_ms}
+
+
+def _export_phase(torch, fe, device, cases) -> dict:
+    """Phase 20: each of ``cases`` (label, model, params, launches wanted,
+    f64 references) through :func:`_export_case`, the artifacts in a
+    temporary directory removed after; wall seconds of each printed."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for label, model, params, want, ref64 in cases:
+            t0 = time.perf_counter()
+            out[label] = _export_case(torch, fe, device, label, model, params, want, ref64,
+                                      outdir)
+            _log(f"  {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4142,6 +4259,21 @@ def main() -> int:
          "native sampler")
     par_ms, entry_kernels = _parallel_phase(torch, fe, device, gen, refs)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in par_ms.items()))
+
+    # 20. export: phases 4-6's steps exported, reloaded and called (each
+    # call's counts set to 0 just before and read just after)
+    _log("phase 20 export: the 12-atom (K1/K2), 16-atom (K4/K5) and 12-atom XY (K1/K2, K = 8) "
+         "value+grad steps through export_step / load_step")
+    f64 = torch.float64
+    p_main = {"amp_samples_0": torch.tensor(p0, dtype=f64, device=device)}
+    p_xy = {"amp_samples_0": torch.tensor(XY_P0, dtype=f64, device=device),
+            "q1": torch.tensor(xy["c1"], dtype=f64, device=device)}
+    _export_phase(torch, fe, device, (
+        ("12 atoms", fused_model, p_main, K1K2, {"value": v64, "amp_samples_0": g64}),
+        ("16 atoms", model16, p_main, K4K5, {"value": v64_16, "amp_samples_0": g64_16}),
+        ("12 atoms XY", xy["model"], p_xy, K1K2,
+         {"value": xy_step["v64"], "amp_samples_0": xy_step["g64"], "q1": xy_step["c64"]}),
+    ))
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",

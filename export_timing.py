@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Seconds to export a value+grad step against its steps, on the CPU.
+
+    python3 export_timing.py [--solver DP5_SE] [--ns 4 8 12] [--threads 1]
+
+The step is tests/test_torch_export.py's: two atoms 8 um apart, one
+constant rydberg_global pulse of trainable amplitude, the last total
+magnetization and its gradient (torch.autograd.grad).  For each pulse
+length it prints the steps the solver takes, the nodes of the exported
+graph, and the seconds of export_step (its eager call, the trace and the
+save), load_step and one reloaded call.  On the f64 and f32 steppers
+(DP5_SE, DP5_SE_F32) the trace unrolls the loop over steps, so the time
+grows with them; on the fused route (DP5_PALLAS, the kernels' plain
+versions on the CPU) the loop is one op.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from pulser_diff_torch.core import MockDevice, Pulse, Register, Sequence
+from pulser_diff_torch.model import QuantumModel
+from pulser_diff_torch.ops import total_magnetization
+from pulser_diff_torch.utils import export_step, load_step
+
+
+def _step(duration: int, solver: str):
+    reg = Register({"q0": np.array([-4.0, 0.0]), "q1": np.array([4.0, 0.0])})
+    seq = Sequence(reg, MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(Pulse.ConstantPulse(duration, seq.declare_variable("om"), -1.0, 0.0), "ryd")
+    model = QuantumModel(seq, {"om": 1.8}, solver=solver, device="cpu")
+    exp_fn = model.expectation_fn(total_magnetization(2, device="cpu"))
+
+    def step(p):
+        q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        _, vals = exp_fn(q)
+        grads = torch.autograd.grad(vals[-1], list(q.values()))
+        return vals[-1].detach(), {k: g.detach() for k, g in zip(q, grads)}
+
+    return model, step
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--solver", default="DP5_SE")
+    ap.add_argument("--ns", type=int, nargs="+", default=[4, 8, 12])
+    ap.add_argument("--threads", type=int, default=1)
+    args = ap.parse_args()
+    torch.set_num_threads(args.threads)
+    p0 = {"om": torch.tensor(1.8, dtype=torch.float64)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ns in args.ns:
+            model, step = _step(ns, args.solver)
+            path = os.path.join(tmp, f"step{ns}.pt2")
+            t0 = time.perf_counter()
+            export_step(step, (p0,), path)
+            t1 = time.perf_counter()
+            loaded = load_step(path, device="cpu")
+            t2 = time.perf_counter()
+            loaded(p0)
+            t3 = time.perf_counter()
+            nodes = len(torch.export.load(path).graph.nodes)
+            steps = ns * model._default_substeps()
+            print(f"{args.solver} {ns} ns: {steps} steps, {nodes} graph nodes; export_step "
+                  f"{t1 - t0:.1f} s, load_step {t2 - t1:.1f} s, reloaded call {t3 - t2:.2f} s",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from pulser_diff_torch.core.channels import Channel, Microwave, Raman, Rydberg
 from pulser_diff_torch.core.eom import BLUE, RED, RydbergEOM
@@ -68,9 +69,10 @@ class Device:
                 f"Register has {n} atoms; device allows {self.max_atom_num}."
             )
         coords = register.coords_array
-        if coords.requires_grad:
-            # trainable coordinates: the geometric checks are skipped, as
-            # the JAX package skips them for traced coordinates
+        if coords.requires_grad or torch.compiler.is_exporting():
+            # trainable coordinates, or a trace under torch.export: the
+            # geometric checks are skipped, as the JAX package skips them
+            # for traced coordinates (export_step runs them eagerly first)
             return
         coords = coords.cpu().numpy()
         if self.max_radial_distance is not None:

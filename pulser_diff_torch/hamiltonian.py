@@ -51,7 +51,7 @@ from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sampler import SequenceSamples
-from pulser_diff_torch.ops.apply import FactoredHamiltonian, h_matrix
+from pulser_diff_torch.ops.apply import FactoredHamiltonian, _matmul, _weighted_sum, h_matrix
 from pulser_diff_torch.ops.linalg import basis_state, kron
 from pulser_diff_torch.simconfig import SUPPORTED_NOISES, NoiseModel, doppler_sigma, host_float
 
@@ -216,9 +216,10 @@ DRAW_FIELDS = {"SPAM": "bad_atoms", "doppler": "doppler", "amplitude": "amp_fact
 
 def _maybe_nonzero(arr: torch.Tensor) -> bool:
     """True unless the array is provably all-zero.  A tensor that carries
-    gradients counts as nonzero, as a traced array does in the JAX
-    package: dropping its term would drop its gradient."""
-    return arr.requires_grad or bool((arr != 0).any())
+    gradients, or any tensor under ``torch.export``, counts as nonzero, as
+    a traced array does in the JAX package: dropping its term would drop
+    its gradient, and a trace cannot read its values."""
+    return arr.requires_grad or torch.compiler.is_exporting() or bool((arr != 0).any())
 
 
 class Hamiltonian:
@@ -505,8 +506,11 @@ class Hamiltonian:
         diff = coords[:, None, :] - coords[None, :, :]
         d2 = (diff * diff).sum(-1)
         eye = torch.eye(n, dtype=torch.bool, device=coords.device)
-        # grad-safe diagonal: sqrt'(0) is inf, and the diagonal is masked
-        dist = torch.sqrt(torch.where(eye, torch.ones_like(d2), d2))
+        # grad-safe diagonal: sqrt'(0) is inf, and the diagonal is masked.
+        # A power, not torch.sqrt: sqrt's backward reads its saved output,
+        # which autograd hands back as a tensor a torch.export trace of the
+        # step does not follow (utils/export.py); the power's reads its input
+        dist = torch.where(eye, torch.ones_like(d2), d2) ** 0.5
         if self._dist_override:
             ii, jj, vals = [], [], []
             for i in range(n):
@@ -534,7 +538,9 @@ class Hamiltonian:
             # gradient
             degenerate = mag_norm < 1e-8
             safe_denom = torch.where(degenerate, torch.ones_like(dist), dist * mag_norm)
-            cosine = torch.where(degenerate, torch.zeros_like(dist), (diff @ mag) / safe_denom)
+            # diff @ mag as one mm (``_matmul``: export keeps its saved operands)
+            proj = _matmul(diff, mag[:, None])[..., 0]
+            cosine = torch.where(degenerate, torch.zeros_like(dist), proj / safe_denom)
             w = self._device.interaction_coeff_xy * (1 - 3 * cosine**2) / dist**3
         tri = torch.triu(torch.ones(n, n, dtype=DTYPE, device=coords.device), diagonal=1)
         return w * tri * (good[:, None] * good[None, :])
@@ -726,7 +732,7 @@ class Hamiltonian:
                 du_col_j = t(np.stack(du_col))  # (b, db, db)
                 for i in range(a):
                     rows.append(t(ud_row[i]))
-                    cols.append(torch.einsum("j,jcd->cd", Wset[i, a:], du_col_j))
+                    cols.append(_weighted_sum(Wset[i, a:], du_col_j))
             return rows, cols
 
         mask_end = self.samples_obj._slm_mask.end

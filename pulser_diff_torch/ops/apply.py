@@ -22,6 +22,7 @@ The density-matrix forms (``h_apply_rho_left``, ``apply_local_left`` /
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import NamedTuple, Optional, Union
 
@@ -60,6 +61,27 @@ class FactoredHamiltonian(NamedTuple):
         return self.da * self.db
 
 
+def _is_dtensor(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor (without importing torch.distributed.tensor,
+    which no DTensor exists without)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _gather(s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """s[:, idx].  A 0-d index (the steppers' one time a stage) is taken as
+    one ``index_select`` on the device: indexing with a 0-d tensor reads it
+    on the host (a sync a stage, and an unbacked value under
+    torch.export).  A wider index keeps the indexing, whose backward on
+    CUDA accumulates in a fixed order (``index_select``'s adds atomically,
+    so a gradient would change from call to call); so does a DTensor
+    stream (parallel/'s replicated Hamiltonian), under which its gradient
+    flows."""
+    if idx.ndim or _is_dtensor(s):
+        return s[:, idx]
+    return s.index_select(1, idx.reshape(1)).view(-1)
+
+
 def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
     """Linearly interpolate all coefficient streams at times ``t`` (us).
 
@@ -78,8 +100,8 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
     def _take(streams: Cplx) -> Cplx:
         out = []
         for s in (streams.re, streams.im):
-            s1 = s[:, idx1]  # (P, ...)
-            s2 = s[:, idx2]
+            s1 = _gather(s, idx1)  # (P, ...)
+            s2 = _gather(s, idx2)
             z = s1 + (s2 - s1) * w
             out.append(z.movedim(0, -1))
         return Cplx(*out)
@@ -127,6 +149,23 @@ def _f32_full_precision():
             m.fp32_precision = new
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b.  Where a or b is 2-D, one ``mm`` or ``bmm`` on views, the same
+    kernel whether or not the operands require grad.  ``torch.matmul``
+    picks its kernel by that (so a reloaded exported step, which runs
+    without autograd, would round otherwise than the eager step), and it
+    reshapes its operands inside itself, where autograd saves tensors that
+    a ``torch.export`` trace calling ``torch.autograd.grad`` never sees (it
+    would freeze them into the artifact as constants)."""
+    if b.ndim == 2:  # (..., m, k) @ (k, n): the batch folds into the rows
+        return torch.mm(a.reshape(-1, a.shape[-1]), b).view(*a.shape[:-1], b.shape[-1])
+    if a.ndim == 2:  # (m, k) @ (..., k, n)
+        b3 = b.reshape(-1, *b.shape[-2:])
+        return torch.bmm(a.expand(b3.shape[0], *a.shape), b3).view(
+            *b.shape[:-2], a.shape[0], b.shape[-1])
+    return a @ b
+
+
 class _F32Matmul(torch.autograd.Function):
     """a @ b (both at least 2-D, broadcasting) with the forward and the
     backward products at full f32 precision: the backward pass runs later,
@@ -137,7 +176,7 @@ class _F32Matmul(torch.autograd.Function):
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
         with _f32_full_precision():
-            return a @ b
+            return _matmul(a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -145,9 +184,9 @@ class _F32Matmul(torch.autograd.Function):
         ga = gb = None
         with _f32_full_precision():
             if ctx.needs_input_grad[0]:
-                ga = (g @ b.transpose(-1, -2)).sum_to_size(a.shape)
+                ga = _matmul(g, b.transpose(-1, -2)).sum_to_size(a.shape)
             if ctx.needs_input_grad[1]:
-                gb = (a.transpose(-1, -2) @ g).sum_to_size(b.shape)
+                gb = _matmul(a.transpose(-1, -2), g).sum_to_size(b.shape)
         return ga, gb
 
 
@@ -161,7 +200,7 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b; in f32 pinned to full precision, forward and backward."""
     if a.dtype == torch.float32 and _needs_graph(a, b):
         return _F32Matmul.apply(a, b)
-    return a @ b
+    return _matmul(a, b)
 
 
 class _F32Einsum(torch.autograd.Function):
@@ -213,11 +252,9 @@ def ceinsum(sub: str, a: Cplx, b: Cplx) -> Cplx:
 
 def _weighted_sum(z: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
     """sum_k z_k stack_k over the leading axis of a (K, i, j) or (K, b, i, j)
-    stack (an einsum in f64; in f32 a pinned product, or elementwise, so
-    that no TF32 product enters)."""
-    if stack.dtype != torch.float32:
-        return torch.einsum("p,pij->ij" if stack.ndim == 3 else "k,kbid->bid", z, stack)
-    if stack.ndim == 3:
+    stack (one product of (1, K) and (K, rest), pinned in f32; in f32 with
+    (K, b, i, j) elementwise, so that no TF32 product enters)."""
+    if stack.dtype != torch.float32 or stack.ndim == 3:
         return _mm(z.reshape(1, -1), stack.reshape(stack.shape[0], -1)).reshape(stack.shape[1:])
     return (z.reshape((-1,) + (1,) * (stack.ndim - 1)) * stack).sum(0)
 

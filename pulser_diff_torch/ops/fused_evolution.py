@@ -44,11 +44,16 @@ kernel's plan).
 
 Beside each kernel sits its plain PyTorch version (``fused_fwd_plain``,
 ``fused_bwd_plain``, ``fused_fwd_ckpt_plain``, ``fused_bwd_ckpt_plain``),
-which repeats the kernel's arithmetic in the same order.  The wrappers
-``fused_fwd`` / ``fused_bwd`` / ``fused_fwd_ckpt`` / ``fused_bwd_ckpt``
-take the plain version for tensors on the CPU and launch the kernel for
-tensors on a CUDA device; on any other device they raise.  ``LAUNCHES``
-counts kernel launches (the plain versions never count).
+which repeats the kernel's arithmetic in the same order.  Each kernel is a
+``torch.library`` custom op (``pulser_diff_torch::fused_fwd``,
+``::fused_bwd``, ``::fused_fwd_ckpt``, ``::fused_bwd_ckpt``) whose "cpu"
+implementation is the plain version and whose "cuda" one launches the
+kernel, with a fake implementation (shapes only) so that ``torch.export``
+keeps the op in a traced step; K1's and K4's autograd rules, registered
+on their ops, call K2 and K5.  The wrappers ``fused_fwd`` / ``fused_bwd`` /
+``fused_fwd_ckpt`` / ``fused_bwd_ckpt`` check the inputs and call the
+ops; on any device but the CPU and CUDA they raise.  ``LAUNCHES`` counts
+kernel launches (the plain versions never count).
 
 Every kernel takes up to 32 row and 32 column parts (a per-qubit noisy
 build has 2 ceil(n / 2) a side); ``parts_fit`` / ``check_parts`` decide on
@@ -99,8 +104,8 @@ _ZB_KEYS = ("zbr_re", "zbr_im", "zbc_re", "zbc_im")
 _ZKF_KEYS = ("zkh_re", "zkh_im", "zkl_re", "zkl_im")
 _ZKB_KEYS = ("zkb_re", "zkb_im")
 
-# inputs of the autograd Function, in order; the first eight plus diag /
-# diag_lo / psi carry gradients, the rest are structural constants
+# the ops' data keys, in order; the first eight plus diag / diag_lo / psi
+# carry gradients, the rest are structural constants
 _FN_KEYS = _ZF_KEYS + (
     "diag", "diag_lo", "psi_re", "psi_im",
     "rp", "cp", "hb_hi", "hb_lo", "hs",
@@ -261,7 +266,7 @@ def _n_kron(data: dict) -> int:
 
 
 def _fn_keys(data: dict) -> tuple[str, ...]:
-    """The autograd Functions' data keys for ``data``."""
+    """The ops' data keys for ``data``."""
     return _FN_KEYS + (_KRON_FN_KEYS if "kr" in data else ())
 
 
@@ -642,14 +647,14 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
 
 def _bwd_outputs(data: dict, S: int):
     """(lam0_re, lam0_im, zbar, dbar), then (krbar, kcbar) with kron pairs
-    (zeroed: they accumulate)."""
-    R, n_steps, pr, pc, nb, da, db = _dims(data)
-    K = _n_kron(data)
+    (zeroed: they accumulate).  Shapes only (the ops' fake implementations
+    use it too)."""
     like = data["psi_re"]
-    zbar = torch.empty((R, n_steps, S, 2 * pr + 2 * pc + 2 * K), dtype=like.dtype,
-                       device=like.device)
+    K = data["kr"].shape[1] if "kr" in data else 0
+    zbar = like.new_empty((like.shape[0], data["hs"].shape[0], S,
+                           2 * data["rp"].shape[0] + 2 * data["cp"].shape[0] + 2 * K))
     outs = (torch.empty_like(like), torch.empty_like(like), zbar, torch.empty_like(data["diag"]))
-    if K:
+    if "kr" in data:
         outs += (torch.zeros_like(data["kr"]), torch.zeros_like(data["kc"]))
     return outs
 
@@ -981,21 +986,32 @@ def _fused_bwd_cuda(data: dict, method: str, slots: torch.Tensor, n_eval: int,
     return outs
 
 
-def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int, lo: bool = False):
+def _op_inputs(data: dict) -> tuple[str, list]:
+    """The ops' data keys, comma-joined (an op schema has no list of
+    strings), and their tensors in that order; raise for a device type
+    that has no kernel (the ops have a "cpu" and a "cuda" implementation
+    and nothing else)."""
+    dev = data["psi_re"].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+    keys = _fn_keys(data)
+    return ",".join(keys), [data[k] for k in keys]
+
+
+def fused_fwd(data: dict, method: str, slots: torch.Tensor, n_eval: int, lo: bool = False,
+              last_slot: int = -1):
     """K1: forward evolution writing every evaluation-slot state; with
     ``lo`` also the states' low words (their Kahan carries, negated).
 
     Replaces ``_fwd_kernel`` (pallas_evolution.py) with ``states=True``,
-    with its kron-pair branch when ``data`` has kron pairs.  CPU tensors
-    take :func:`fused_fwd_plain`; CUDA tensors launch
-    ``fused_fwd_kernel``."""
+    with its kron-pair branch when ``data`` has kron pairs.  A call of the
+    op ``pulser_diff_torch::fused_fwd``: CPU tensors take
+    :func:`fused_fwd_plain`, CUDA tensors launch ``fused_fwd_kernel``.
+    Differentiable through K2, which starts from ``last_slot``, the final
+    grid point's slot (-1: read from ``slots`` when the backward runs)."""
     _check_shapes(data, _tableau(method)[2], slots=slots, n_eval=n_eval)
-    dev = data["psi_re"].device
-    if dev.type == "cpu":
-        return fused_fwd_plain(data, method, slots, n_eval, lo)
-    if dev.type == "cuda":
-        return _fused_fwd_cuda(data, method, slots, n_eval, lo)
-    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+    keys, tensors = _op_inputs(data)
+    return tuple(_fwd_op(method, keys, slots, int(n_eval), int(last_slot), bool(lo), tensors))
 
 
 def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
@@ -1003,20 +1019,15 @@ def fused_bwd(data: dict, method: str, slots: torch.Tensor, n_eval: int,
     """K2: discrete adjoint of :func:`fused_fwd` for the slot cotangents
     ``lam``.  Replaces ``_bwd_kernel`` (lean interval form).  Returns
     (lam0_re, lam0_im, zbar, dbar), then (krbar, kcbar) with kron pairs.
-    CPU tensors take :func:`fused_bwd_plain`; CUDA tensors launch
-    ``fused_bwd_kernel``."""
+    A call of the op ``pulser_diff_torch::fused_bwd``: CPU tensors take
+    :func:`fused_bwd_plain`, CUDA tensors launch ``fused_bwd_kernel``."""
     _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im,
                   slots=slots, n_eval=n_eval)
     if not 0 <= last_slot < n_eval:
         raise ValueError(f"last_slot {last_slot} is not an evaluation slot (n_eval={n_eval}).")
-    dev = data["psi_re"].device
-    if dev.type == "cpu":
-        return fused_bwd_plain(data, method, slots, n_eval, last_slot,
-                               st_re, st_im, lam_re, lam_im)
-    if dev.type == "cuda":
-        return _fused_bwd_cuda(data, method, slots, n_eval, last_slot,
-                               st_re, st_im, lam_re, lam_im)
-    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+    keys, tensors = _op_inputs(data)
+    return tuple(_bwd_op(method, keys, slots, int(n_eval), int(last_slot),
+                         st_re, st_im, lam_re, lam_im, tensors))
 
 
 # ----------------------------------------------------------------------
@@ -1165,40 +1176,153 @@ def fused_fwd_ckpt(data: dict, method: str, lo: bool = False):
     (R, n_steps, nb, da, db) re/im; with ``lo`` also their low words.
 
     Replaces ``_fwd_ckpt_kernel`` (pallas_evolution.py), with its
-    kron-pair branch when ``data`` has kron pairs.  CPU tensors take
-    :func:`fused_fwd_ckpt_plain`; CUDA tensors launch
-    ``fused_fwd_ckpt_kernel`` (csrc/fused_ckpt.cu)."""
+    kron-pair branch when ``data`` has kron pairs.  A call of the op
+    ``pulser_diff_torch::fused_fwd_ckpt``: CPU tensors take
+    :func:`fused_fwd_ckpt_plain`, CUDA tensors launch
+    ``fused_fwd_ckpt_kernel`` (csrc/fused_ckpt.cu).  Differentiable
+    through K5."""
     _check_shapes(data, _tableau(method)[2])
-    dev = data["psi_re"].device
-    if dev.type == "cpu":
-        return fused_fwd_ckpt_plain(data, method, lo)
-    if dev.type == "cuda":
-        return _fused_fwd_ckpt_cuda(data, method, lo)
-    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+    keys, tensors = _op_inputs(data)
+    return tuple(_fwd_ckpt_op(method, keys, bool(lo), tensors))
 
 
 def fused_bwd_ckpt(data: dict, method: str, st_re, st_im, lam_re, lam_im):
     """K5: adjoint of :func:`fused_fwd_ckpt` for the per-step cotangents
     ``lam``, from the stored states ``st``.  Replaces ``_bwd_ckpt_kernel``.
-    Returns what :func:`fused_bwd` returns.  CPU tensors take
-    :func:`fused_bwd_ckpt_plain`; CUDA tensors launch
+    Returns what :func:`fused_bwd` returns.  A call of the op
+    ``pulser_diff_torch::fused_bwd_ckpt``: CPU tensors take
+    :func:`fused_bwd_ckpt_plain`, CUDA tensors launch
     ``fused_bwd_ckpt_kernel``."""
     _check_shapes(data, _tableau(method)[2], st_re, st_im, lam_re, lam_im)
-    dev = data["psi_re"].device
-    if dev.type == "cpu":
-        return fused_bwd_ckpt_plain(data, method, st_re, st_im, lam_re, lam_im)
-    if dev.type == "cuda":
-        return _fused_bwd_ckpt_cuda(data, method, st_re, st_im, lam_re, lam_im)
-    raise ValueError(f"No fused kernel for device type '{dev.type}'.")
+    keys, tensors = _op_inputs(data)
+    return tuple(_bwd_ckpt_op(method, keys, st_re, st_im, lam_re, lam_im, tensors))
 
 
 # ----------------------------------------------------------------------
-# autograd
+# the kernels as torch.library custom ops, with their autograd rules
 # ----------------------------------------------------------------------
+# Each op takes the data as one list of tensors and its keys as one
+# comma-joined string (an op schema has no list of strings).  Its "cpu"
+# implementation is the plain version and its "cuda" one the launch; a
+# fake implementation gives the outputs' shapes, so ``torch.export`` keeps
+# the op (and, under ``torch.autograd.grad``, its adjoint) in the graph.
+# The implementations look the launches up when they run, so a harness can
+# swap a launch for its plain version.
+def _data_of(keys: str, tensors) -> dict:
+    return dict(zip(keys.split(","), tensors))
+
+
+def _no_kernel(*args):
+    raise ValueError("The fused kernels run on 'cpu' (plain versions) and 'cuda' tensors only.")
+
+
+def _fwd_outputs(data: dict, lead, lo: bool) -> list:
+    """Fresh (R, lead, nb, da, db) f32 states: two, or four with ``lo``."""
+    psi = data["psi_re"]
+    return [psi.new_empty((psi.shape[0], lead, *psi.shape[1:])) for _ in range(4 if lo else 2)]
+
+
+@torch.library.custom_op("pulser_diff_torch::fused_fwd", mutates_args=())
+def _fwd_op(method: str, keys: str, slots: torch.Tensor, n_eval: int, last_slot: int, lo: bool,
+            tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K1 (``last_slot`` is its adjoint's; see :func:`fused_fwd`)."""
+    _no_kernel()
+
+
+@_fwd_op.register_kernel("cpu")
+def _(method, keys, slots, n_eval, last_slot, lo, tensors):
+    return list(fused_fwd_plain(_data_of(keys, tensors), method, slots, n_eval, lo))
+
+
+@_fwd_op.register_kernel("cuda")
+def _(method, keys, slots, n_eval, last_slot, lo, tensors):
+    return list(_fused_fwd_cuda(_data_of(keys, tensors), method, slots, n_eval, lo))
+
+
+@_fwd_op.register_fake
+def _(method, keys, slots, n_eval, last_slot, lo, tensors):
+    return _fwd_outputs(_data_of(keys, tensors), n_eval, lo)
+
+
+@torch.library.custom_op("pulser_diff_torch::fused_bwd", mutates_args=())
+def _bwd_op(method: str, keys: str, slots: torch.Tensor, n_eval: int, last_slot: int,
+            st_re: torch.Tensor, st_im: torch.Tensor, lam_re: torch.Tensor, lam_im: torch.Tensor,
+            tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K2 (see :func:`fused_bwd`)."""
+    _no_kernel()
+
+
+@_bwd_op.register_kernel("cpu")
+def _(method, keys, slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im, tensors):
+    return list(fused_bwd_plain(_data_of(keys, tensors), method, slots, n_eval, last_slot,
+                                st_re, st_im, lam_re, lam_im))
+
+
+@_bwd_op.register_kernel("cuda")
+def _(method, keys, slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im, tensors):
+    return list(_fused_bwd_cuda(_data_of(keys, tensors), method, slots, n_eval, last_slot,
+                                st_re, st_im, lam_re, lam_im))
+
+
+@_bwd_op.register_fake
+def _(method, keys, slots, n_eval, last_slot, st_re, st_im, lam_re, lam_im, tensors):
+    return list(_bwd_outputs(_data_of(keys, tensors), _tableau(method)[2]))
+
+
+@torch.library.custom_op("pulser_diff_torch::fused_fwd_ckpt", mutates_args=())
+def _fwd_ckpt_op(method: str, keys: str, lo: bool,
+                 tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K4 (see :func:`fused_fwd_ckpt`)."""
+    _no_kernel()
+
+
+@_fwd_ckpt_op.register_kernel("cpu")
+def _(method, keys, lo, tensors):
+    return list(fused_fwd_ckpt_plain(_data_of(keys, tensors), method, lo))
+
+
+@_fwd_ckpt_op.register_kernel("cuda")
+def _(method, keys, lo, tensors):
+    return list(_fused_fwd_ckpt_cuda(_data_of(keys, tensors), method, lo))
+
+
+@_fwd_ckpt_op.register_fake
+def _(method, keys, lo, tensors):
+    data = _data_of(keys, tensors)
+    return _fwd_outputs(data, data["hs"].shape[0], lo)
+
+
+@torch.library.custom_op("pulser_diff_torch::fused_bwd_ckpt", mutates_args=())
+def _bwd_ckpt_op(method: str, keys: str, st_re: torch.Tensor, st_im: torch.Tensor,
+                 lam_re: torch.Tensor, lam_im: torch.Tensor,
+                 tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K5 (see :func:`fused_bwd_ckpt`)."""
+    _no_kernel()
+
+
+@_bwd_ckpt_op.register_kernel("cpu")
+def _(method, keys, st_re, st_im, lam_re, lam_im, tensors):
+    return list(fused_bwd_ckpt_plain(_data_of(keys, tensors), method, st_re, st_im,
+                                     lam_re, lam_im))
+
+
+@_bwd_ckpt_op.register_kernel("cuda")
+def _(method, keys, st_re, st_im, lam_re, lam_im, tensors):
+    return list(_fused_bwd_ckpt_cuda(_data_of(keys, tensors), method, st_re, st_im,
+                                     lam_re, lam_im))
+
+
+@_bwd_ckpt_op.register_fake
+def _(method, keys, st_re, st_im, lam_re, lam_im, tensors):
+    return list(_bwd_outputs(_data_of(keys, tensors), _tableau(method)[2]))
+
+
 def _states_out(outs) -> tuple:
-    """A forward kernel's states as the autograd Functions return them:
+    """A forward kernel's states as the differentiable forms return them:
     the f32 hi words, or with kron pairs (outs carries the low words) the
-    compensated state hi + lo, exactly, in f64.
+    compensated state hi + lo, exactly, in f64 (torch ops outside the op,
+    so autograd hands the hi word the cotangent of the sum and the lo
+    word's is dropped, as :func:`_f32_cot` says).
 
     Why only with kron pairs: the XY main path's observable (12 atoms,
     total magnetization ~11.9 from a state within a few 1e-3 of |u...u>)
@@ -1210,7 +1334,7 @@ def _states_out(outs) -> tuple:
     from the JAX package's fused value (which returns the hi words), past
     the 1e-7 parity those tests hold, for no bar the ising path misses."""
     if len(outs) == 2:
-        return outs
+        return tuple(outs)
     f64 = torch.float64
     return outs[0].to(f64) + outs[2].to(f64), outs[1].to(f64) + outs[3].to(f64)
 
@@ -1230,30 +1354,67 @@ def _cotangents(data: dict, outs) -> dict:
     return _zero_like_aux(data, _unpack_zbar(zbar, pr, pc), dbar, lam0_re, lam0_im, kron)
 
 
-class _FusedEvolveStates(torch.autograd.Function):
-    """Counterpart of the JAX custom VJP ``fused_evolve_states``: forward
-    is K1, backward is K2."""
+def _data_grads(keys: str, cot: dict, needs) -> list:
+    return [cot[k] if n else None for k, n in zip(keys.split(","), needs)]
 
-    @staticmethod
-    def forward(ctx, method, slots, n_eval, last_slot, keys, *tensors):
-        data = dict(zip(keys, tensors))
-        outs = fused_fwd(data, method, slots, n_eval, lo="kr" in data)
-        ctx.method, ctx.n_eval, ctx.last_slot, ctx.keys = method, n_eval, last_slot, keys
-        ctx.save_for_backward(slots, outs[0], outs[1], *tensors)
-        return _states_out(outs)
 
-    @staticmethod
-    def backward(ctx, g_re, g_im):
-        slots, st_re, st_im, *tensors = ctx.saved_tensors
-        data = dict(zip(ctx.keys, tensors))
-        cot = _cotangents(data, fused_bwd(
-            data, ctx.method, slots, ctx.n_eval, ctx.last_slot,
-            st_re, st_im, _f32_cot(g_re), _f32_cot(g_im),
-        ))
-        grads = tuple(
-            cot[k] if ctx.needs_input_grad[5 + i] else None for i, k in enumerate(ctx.keys)
-        )
-        return (None, None, None, None, None) + grads
+def _save_states(ctx, output, *inputs) -> None:
+    """Keep the forward's hi words and the inputs for the adjoint.  Under
+    ``torch.export`` the states are held on ``ctx`` itself: a saved output
+    comes back from autograd as a new tensor, which the trace no longer
+    knows and would freeze into the artifact as a constant.  Eagerly they
+    are saved tensors (no reference cycle through the graph)."""
+    if torch.compiler.is_exporting():
+        ctx.states = (output[0], output[1])
+        ctx.save_for_backward(*inputs)
+    else:
+        ctx.states = None
+        ctx.save_for_backward(output[0], output[1], *inputs)
+
+
+def _saved(ctx) -> tuple:
+    """(st_re, st_im, *inputs) as :func:`_save_states` kept them."""
+    if ctx.states is None:
+        return ctx.saved_tensors
+    return (*ctx.states, *ctx.saved_tensors)
+
+
+def _fwd_setup(ctx, inputs, output) -> None:
+    method, keys, slots, n_eval, last_slot, lo, tensors = inputs
+    ctx.method, ctx.keys, ctx.n_eval, ctx.last_slot = method, keys, n_eval, last_slot
+    _save_states(ctx, output, slots, *tensors)
+
+
+def _fwd_backward(ctx, grads):
+    """K1's rule (counterpart of the JAX custom VJP ``fused_evolve_states``):
+    K2 on the hi words' cotangents."""
+    st_re, st_im, slots, *tensors = _saved(ctx)
+    data = _data_of(ctx.keys, tensors)
+    last_slot = ctx.last_slot if ctx.last_slot >= 0 else int(slots[-1])
+    cot = _cotangents(data, fused_bwd(data, ctx.method, slots, ctx.n_eval, last_slot,
+                                      st_re, st_im, _f32_cot(grads[0]), _f32_cot(grads[1])))
+    return (None,) * 6 + (_data_grads(ctx.keys, cot, ctx.needs_input_grad[6]),)
+
+
+def _fwd_ckpt_setup(ctx, inputs, output) -> None:
+    method, keys, lo, tensors = inputs
+    ctx.method, ctx.keys = method, keys
+    _save_states(ctx, output, *tensors)
+
+
+def _fwd_ckpt_backward(ctx, grads):
+    """K4's rule (counterpart of the JAX custom VJP ``fused_evolve_ckpt``):
+    K5 fed the per-step cotangent buffer autograd hands it (dense, zero at
+    every step no slot reads)."""
+    st_re, st_im, *tensors = _saved(ctx)
+    data = _data_of(ctx.keys, tensors)
+    cot = _cotangents(data, fused_bwd_ckpt(data, ctx.method, st_re, st_im,
+                                           _f32_cot(grads[0]), _f32_cot(grads[1])))
+    return (None,) * 3 + (_data_grads(ctx.keys, cot, ctx.needs_input_grad[3]),)
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+_fwd_ckpt_op.register_autograd(_fwd_ckpt_backward, setup_context=_fwd_ckpt_setup)
 
 
 def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
@@ -1265,35 +1426,8 @@ def fused_evolve_states(method: str, slots: torch.Tensor, n_eval: int,
     device; n_eval: number of evaluation slots; last_slot: the final grid
     point's slot.  Returns (R, n_eval, nb, da, db) re/im: f32, or with
     kron pairs the two-word states hi + lo in f64 (see ``_states_out``)."""
-    keys = _fn_keys(data)
-    return _FusedEvolveStates.apply(
-        method, slots, int(n_eval), int(last_slot), keys, *[data[k] for k in keys]
-    )
-
-
-class _FusedEvolveCkpt(torch.autograd.Function):
-    """Counterpart of the JAX custom VJP ``fused_evolve_ckpt``: forward is
-    K4, backward is K5, fed the per-step cotangent buffer autograd hands
-    it (dense, zero at every step no slot reads)."""
-
-    @staticmethod
-    def forward(ctx, method, keys, *tensors):
-        data = dict(zip(keys, tensors))
-        outs = fused_fwd_ckpt(data, method, lo="kr" in data)
-        ctx.method, ctx.keys = method, keys
-        ctx.save_for_backward(outs[0], outs[1], *tensors)
-        return _states_out(outs)
-
-    @staticmethod
-    def backward(ctx, g_re, g_im):
-        st_re, st_im, *tensors = ctx.saved_tensors
-        data = dict(zip(ctx.keys, tensors))
-        cot = _cotangents(data, fused_bwd_ckpt(
-            data, ctx.method, st_re, st_im, _f32_cot(g_re), _f32_cot(g_im)))
-        grads = tuple(
-            cot[k] if ctx.needs_input_grad[2 + i] else None for i, k in enumerate(ctx.keys)
-        )
-        return (None, None) + grads
+    return _states_out(fused_fwd(data, method, slots, n_eval, lo="kr" in data,
+                                 last_slot=int(last_slot)))
 
 
 def fused_evolve_ckpt(method: str, data: dict):
@@ -1302,8 +1436,7 @@ def fused_evolve_ckpt(method: str, data: dict):
     them; the state after step k at index k), differentiable through the
     checkpointed adjoint kernel, which reads exact start states (the hi
     words the forward stepped from) instead of reconstructing them."""
-    keys = _fn_keys(data)
-    return _FusedEvolveCkpt.apply(method, keys, *[data[k] for k in keys])
+    return _states_out(fused_fwd_ckpt(data, method, lo="kr" in data))
 
 
 def evolve_mc(hams, psi0: Cplx, grid, method: str = "DP5", ckpt: bool = False) -> Cplx:

@@ -1,0 +1,129 @@
+"""Export and reload of a traced simulation step (counterpart of
+pulser_diff_tpu/utils/export.py).
+
+A trained model's value+grad step (a function of the parameters that calls
+``torch.autograd.grad``) is traced once with ``torch.export`` and written
+with ``torch.export.save``; ``load_step`` reloads it, in a fresh process if
+need be, as a callable that runs the traced graph: no Python front end, no
+Hamiltonian build, no autograd, for serving a fixed pulse program.  The
+fused kernels K1/K2/K4/K5 are ``torch.library`` custom ops
+(``pulser_diff_torch::fused_*``, ``ops/fused_evolution.py``), so a step on
+the fused route holds them, forward and adjoint, in the artifact.
+
+Notes:
+- The artifact is tied to the device type it was traced on: a step traced
+  on CUDA tensors launches the CUDA kernels, one traced on the CPU runs
+  their plain versions.  ``torch.export`` does not lower for a device it
+  does not trace on, so there is no counterpart of the JAX package's
+  ``platforms=``; the device type is stored alongside and checked at load.
+- Inputs must keep the exported shapes and dtypes.
+- The steppers' loop over steps is a Python loop, which the trace unrolls:
+  the artifact of a step on the f64 or f32 stepper, and the time to export
+  it, grow with the steps.  On the fused route the loop lives inside one
+  op.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Callable, Sequence
+
+import torch
+from torch.utils import _pytree as pytree
+
+from pulser_diff_torch.config import DeviceLike, resolve_device
+
+_META_SUFFIX = ".meta.json"
+_OP_NAMESPACE = "pulser_diff_torch"
+
+
+class _Step(torch.nn.Module):
+    def __init__(self, fn: Callable[..., Any]) -> None:
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args: Any) -> Any:
+        return self.fn(*args)
+
+
+def _avals(tree: Any) -> list[str]:
+    """dtype[shape] of every tensor leaf, as ``float64[8]``."""
+    return [f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}"
+            for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _custom_ops(exported: torch.export.ExportedProgram) -> list[str]:
+    """The ``pulser_diff_torch::`` ops the exported graphs call."""
+    names = set()
+    for gm in exported.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                target = node.target
+                if node.op == "call_function" and isinstance(target, torch._ops.OpOverload) \
+                        and target.namespace == _OP_NAMESPACE:
+                    names.add(target._schema.name)
+    return sorted(names)
+
+
+def export_step(fn: Callable[..., Any], example_args: Sequence[Any], path: str) -> str:
+    """Export ``fn`` at ``example_args``'s shapes to ``path``.
+
+    ``fn`` maps the step's inputs (e.g. a dict of parameter tensors) to its
+    outputs, e.g. a value+grad step written with ``torch.autograd.grad``
+    (``torch.func.grad_and_value`` does not trace under ``torch.export``).
+    It is first called eagerly on ``example_args``: every check of the
+    build runs there on real values (the trace skips the checks that read
+    values, as the JAX package skips them on traced arrays), and the
+    model's caches (the substep count) are filled from real values.  Then
+    it is traced with ``torch.export.export(..., strict=False)``
+    (``strict=True`` refuses ``torch.autograd.grad``), written with
+    ``torch.export.save``, and described in ``path + ".meta.json"``.
+    Returns the path written."""
+    example_args = tuple(example_args)
+    out = fn(*example_args)
+    devices = {t.device.type for t in pytree.tree_leaves((example_args, out))
+               if isinstance(t, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"A step runs on one device type; its tensors are on {sorted(devices)}.")
+    exported = torch.export.export(_Step(fn), example_args, strict=False)
+    path = os.path.abspath(path)
+    torch.export.save(exported, path)
+    meta = {
+        "device_type": devices.pop(),
+        "nr_args": len(example_args),
+        "in_avals": _avals(example_args),
+        "out_avals": _avals(out),
+        "torch_version": torch.__version__,
+        "custom_ops": _custom_ops(exported),
+    }
+    with open(path + _META_SUFFIX, "w") as f:
+        json.dump(meta, f, indent=1)
+    return path
+
+
+def load_step(path: str, *, device: DeviceLike = None,
+              check_device: bool = True) -> Callable[..., Any]:
+    """Load a step written by :func:`export_step`; returns a callable
+    running the traced graph.  ``device`` is resolved as every entry point
+    resolves it (CUDA unless given); with ``check_device`` an artifact
+    traced on another device type raises ValueError, before CUDA is
+    touched."""
+    meta = load_meta(path)
+    want = torch.device(device).type if device is not None else "cuda"
+    if check_device and want != meta["device_type"]:
+        raise ValueError(
+            f"Artifact was exported on device type '{meta['device_type']}' but is loaded for "
+            f"'{want}'. Pass check_device=False to try anyway.")
+    resolve_device(device)
+    # the fused kernels' custom ops must be registered before the graph
+    # that calls them is read
+    from pulser_diff_torch.ops import fused_evolution  # noqa: F401
+
+    return torch.export.load(os.path.abspath(path)).module()
+
+
+def load_meta(path: str) -> dict[str, Any]:
+    """Read the sidecar metadata written by :func:`export_step`."""
+    with open(os.path.abspath(path) + _META_SUFFIX) as f:
+        return json.load(f)

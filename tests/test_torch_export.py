@@ -1,0 +1,292 @@
+"""PyTorch port vs the JAX package: export and reload of a value+grad step
+(pulser_diff_torch.utils.export, the counterpart of
+pulser_diff_tpu/utils/export.py) and the fused kernels as ``torch.library``
+custom ops (``pulser_diff_torch::fused_*``, ops/fused_evolution.py).
+
+The ports of tests/test_misc.py's export tests: the 2-atom step on the
+default route (the f64 stepper) and on ``DP5_SE_F32`` is exported,
+reloaded and held bit for bit against the port's eager step, and against
+JAX's jitted step on the same pulse.  The steppers' loop unrolls under the
+trace (its export time grows with the steps), so those two hold both
+packages at ``SHORT_NS``; the fused route (K1/K2, K4/K5, and with kron
+pairs), whose loop lives inside one op, runs at JAX's 200 ns.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pulser_diff_torch.core as tcore
+import pulser_diff_tpu.core as jcore
+from pulser_diff_torch.cplx import Cplx
+from pulser_diff_torch.model import QuantumModel
+from pulser_diff_torch.ops import fused_evolution as tfe
+from pulser_diff_torch.ops import total_magnetization
+from pulser_diff_torch.solvers import TimeGrid
+from pulser_diff_torch.utils import export_step, load_meta, load_step
+from pulser_diff_tpu.model import QuantumModel as JModel
+from pulser_diff_tpu.ops import total_magnetization as j_total_mag
+
+from tests.test_torch_f32 import GRAD_REL_TOL, STATE_TOL
+from tests.test_torch_model import FUSED_TOL
+from tests.torch_port_cases import emulators, xy_emulators
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# the f64 and f32 steppers' pulse: the shortest the sampler takes (4
+# samples at 1 GHz).  The trace records every op of every stage of every
+# step: on one CPU thread the f64 step took 53.3 s to export and 28.4 s to
+# reload at 4 ns (4 steps, 16720 graph nodes), 112.3 s and 71.8 s at 8 ns
+# (export_timing.py).
+SHORT_NS = 4
+# the fused route: one op holds the loop, at JAX's pulse
+FUSED_NS = 200
+# f64 on both sides: the same steps in another order of products
+F64_TOL = 1e-12
+# the XY model's coordinates (2 atoms, 7.3 um apart; q1's are trainable)
+XY_COORDS = ((0.0, 0.0), (7.0, 2.0))
+
+
+def _sequence(core, duration: int, xy: bool = False):
+    """test_misc's 2-atom sequence (a constant pulse of variable amplitude
+    ``om``), or in XY mode one microwave pulse on two atoms 7.3 um apart."""
+    if xy:
+        reg = core.Register.from_coordinates(list(XY_COORDS), prefix="q")
+    else:
+        reg = core.Register({"q0": np.array([-4.0, 0.0]), "q1": np.array([4.0, 0.0])})
+    seq = core.Sequence(reg, core.MockDevice)
+    seq.declare_channel("ch", "microwave_global" if xy else "rydberg_global")
+    om = seq.declare_variable("om")
+    seq.add(core.Pulse.ConstantPulse(duration, om, -0.4 if xy else -1.0, 0.3 if xy else 0.0), "ch")
+    return seq
+
+
+def _params(xy: bool) -> dict:
+    p = {"om": 1.8}
+    if xy:
+        p["q1"] = np.asarray(XY_COORDS[1])
+    return p
+
+
+def _jax_step(duration: int, xy: bool = False, **options):
+    """JAX's jitted value+grad of the last expectation value, as
+    tests/test_misc.py builds it: (value, {name: grad})."""
+    p0 = {k: jnp.asarray(v) for k, v in _params(xy).items()}
+    model = JModel(_sequence(jcore, duration, xy), dict(p0), **options)
+    exp_fn = model.expectation_fn(j_total_mag(2))
+
+    def loss(p):
+        _, vals = exp_fn(p)
+        return vals[-1].real
+
+    v, g = jax.jit(jax.value_and_grad(loss))(p0)
+    return float(v), {k: np.asarray(x) for k, x in g.items()}
+
+
+def _port_step(duration: int, xy: bool = False, **options):
+    """The port's value+grad step (params -> (value, {name: grad})) and its
+    example input."""
+    model = QuantumModel(_sequence(tcore, duration, xy), _params(xy), device="cpu", **options)
+    exp_fn = model.expectation_fn(total_magnetization(2, device="cpu"))
+
+    def step(p):
+        q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        _, vals = exp_fn(q)
+        grads = torch.autograd.grad(vals[-1], list(q.values()))
+        return vals[-1].detach(), {k: g.detach() for k, g in zip(q, grads)}
+
+    p0 = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in _params(xy).items()}
+    return step, p0
+
+
+def _roundtrip(tmp_path, name: str, step, p0):
+    """export_step -> load_meta -> load_step -> one call."""
+    path = export_step(step, (p0,), str(tmp_path / f"{name}.pt2"))
+    meta = load_meta(path)
+    assert meta["device_type"] == "cpu" and meta["nr_args"] == 1
+    assert meta["in_avals"] == [f"float64{list(v.shape)}" for v in p0.values()]
+    assert meta["torch_version"] == torch.__version__
+    return path, meta, load_step(path, device="cpu")(p0)
+
+
+def _assert_same(got, want) -> None:
+    """Bit for bit: value and every gradient."""
+    assert torch.equal(got[0], want[0]), (got[0], want[0])
+    assert got[1].keys() == want[1].keys()
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), (k, got[1][k], want[1][k])
+
+
+def test_export_step_roundtrip(tmp_path):
+    """The default route (the f64 stepper): exported, reloaded, equal to
+    the eager step bit for bit and to JAX's jitted step at 1e-12; the
+    export leaves the model's eager step as it was."""
+    step, p0 = _port_step(SHORT_NS)
+    before = step(p0)
+    path, meta, got = _roundtrip(tmp_path, "step", step, p0)
+    assert meta["custom_ops"] == [] and meta["out_avals"] == ["float64[]", "float64[]"]
+    after = step(p0)
+    _assert_same(after, before)
+    _assert_same(got, after)
+    jv, jg = _jax_step(SHORT_NS)
+    assert abs(float(got[0]) - jv) < F64_TOL
+    assert abs(float(got[1]["om"]) - float(jg["om"])) < F64_TOL
+    assert abs(float(got[1]["om"])) > 1e-6  # the gradient is there
+
+
+def test_export_step_f32_solver(tmp_path):
+    """DP5_SE_F32 (the f32 stepper) exports and reloads like the f64 one:
+    equal to the eager step bit for bit, to JAX's within
+    tests/test_torch_f32.py's tolerances."""
+    step, p0 = _port_step(SHORT_NS, solver="DP5_SE_F32")
+    _, _, got = _roundtrip(tmp_path, "step32", step, p0)
+    _assert_same(got, step(p0))
+    jv, jg = _jax_step(SHORT_NS, solver="DP5_SE_F32")
+    assert abs(float(got[0]) - jv) < STATE_TOL * abs(jv) * 10
+    assert abs(float(got[1]["om"]) - float(jg["om"])) / abs(float(jg["om"])) < GRAD_REL_TOL
+
+
+def test_load_step_device_check(tmp_path, monkeypatch):
+    """A CPU artifact loads with device="cpu"; asked for CUDA, or with no
+    device (which means CUDA), it raises ValueError naming both device
+    types, before CUDA is touched.  (The JAX package's ``platforms=``, an
+    export for another platform, has no counterpart: torch.export traces
+    on the device it runs on.)"""
+
+    def f(x):
+        return (x * x).sum()
+
+    path = export_step(f, (torch.ones(4, dtype=torch.float64),), str(tmp_path / "f.pt2"))
+    fn = load_step(path, device="cpu")
+    assert float(fn(torch.ones(4, dtype=torch.float64))) == 4.0
+
+    def touched():
+        raise AssertionError("CUDA was queried")
+
+    monkeypatch.setattr(torch.cuda, "is_available", touched)
+    for device in ("cuda", None):
+        with pytest.raises(ValueError, match="'cpu'.*'cuda'"):
+            load_step(path, device=device)
+    assert load_meta(path)["custom_ops"] == []
+
+
+FUSED_CASES = {
+    "K1/K2": ({"solver": "DP5_PALLAS"}, False, ("fused_bwd", "fused_fwd")),
+    "K4/K5": ({"solver": "DP5_PALLAS", "ckpt": True}, False, ("fused_bwd_ckpt", "fused_fwd_ckpt")),
+    "K1/K2 kron": ({"solver": "DP5_PALLAS"}, True, ("fused_bwd", "fused_fwd")),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_export_fused_route(tmp_path, case):
+    """The fused route on the CPU (the kernels' plain versions): the
+    exported graph holds the forward op and its adjoint, the reloaded step
+    equals the eager step bit for bit, and the eager step equals JAX's
+    fused step (Pallas in interpret mode) within tests/test_torch_model.py's
+    parity; with kron pairs the coordinate gradient included."""
+    options, xy, ops = FUSED_CASES[case]
+    step, p0 = _port_step(FUSED_NS, xy, **options)
+    _, meta, got = _roundtrip(tmp_path, "fused", step, p0)
+    assert meta["custom_ops"] == [f"pulser_diff_torch::{op}" for op in ops]
+    want = step(p0)
+    _assert_same(got, want)
+    jv, jg = _jax_step(FUSED_NS, xy, **options)
+    assert abs(float(want[0]) - jv) < FUSED_TOL
+    for k, g in jg.items():
+        np.testing.assert_allclose(want[1][k].numpy(), g, rtol=0, atol=FUSED_TOL)
+    if xy:
+        assert float(want[1]["q1"].abs().max()) > 1e-5
+
+
+def test_export_checks_the_register_eagerly(tmp_path):
+    """The trace skips the register's geometric checks (they read values):
+    a step that builds a sequence on its input coordinates exports.  But
+    export_step calls the step eagerly first, so atoms closer than the
+    device allows (AnalogDevice: 5 um) still raise."""
+
+    def step(coords):
+        reg = tcore.Register({"q0": coords[0], "q1": coords[1]})
+        return tcore.Sequence(reg, tcore.AnalogDevice).register.coords_array.sum()
+
+    ok = torch.tensor([[0.0, 0.0], [8.0, 0.0]], dtype=torch.float64)
+    path = export_step(step, (ok,), str(tmp_path / "ok.pt2"))
+    assert float(load_step(path, device="cpu")(ok)) == 8.0
+    with pytest.raises(ValueError, match="inter-atom distance"):
+        export_step(step, (ok / 8.0,), str(tmp_path / "bad.pt2"))
+
+
+def _op_args(ckpt: bool, xy: bool):
+    """(op, arguments) of the forward op and of its adjoint at 2 atoms on 6
+    steps: the forward's data as leaves that require grad (its autograd
+    rule is checked), the adjoint's with random slot cotangents (seeded)."""
+    _, tsim = (xy_emulators if xy else emulators)(2, duration=6, seed=3, sampling_rate=1.0,
+                                                  evaluation_times="Full")
+    h = tsim._hamiltonian
+    grid = TimeGrid.make(h.sampling_times, tsim._eval_times_array, torch.device("cpu"))
+    psi = tsim.initial_state
+    da, db = h.dim ** h._a, h.dim ** h._b
+    p0 = Cplx(psi.re.T.reshape(1, da, db), psi.im.T.reshape(1, da, db))
+    data = tfe.prepare_fused_inputs(h._ham_data, p0, grid.times, "DP5")
+    keys, tensors = tfe._op_inputs(data)
+    slots = torch.as_tensor(np.asarray(grid.write_slots, dtype=np.int32))
+    n_eval, last = grid.n_eval, int(slots[-1])
+    gen = torch.Generator().manual_seed(11)
+    leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+    if ckpt:
+        fwd = (tfe._fwd_ckpt_op, ("DP5", keys, xy, leaves))
+        st = tfe.fused_fwd_ckpt(data, "DP5")
+    else:
+        fwd = (tfe._fwd_op, ("DP5", keys, slots, n_eval, last, xy, leaves))
+        st = tfe.fused_fwd(data, "DP5", slots, n_eval)
+    lam = [torch.randn(st[0].shape, generator=gen, dtype=torch.float32) for _ in range(2)]
+    if ckpt:
+        bwd = (tfe._bwd_ckpt_op, ("DP5", keys, *st, *lam, tensors))
+    else:
+        bwd = (tfe._bwd_op, ("DP5", keys, slots, n_eval, last, *st, *lam, tensors))
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("kind", ["K1/K2", "K4/K5", "K1/K2 kron"])
+def test_ops_pass_opcheck(kind):
+    """torch.library.opcheck: each op's schema, fake implementation and
+    (for the forward ops) registered autograd rule agree with its CPU
+    implementation, the plain version."""
+    for op, args in _op_args(ckpt=kind == "K4/K5", xy=kind.endswith("kron")):
+        result = torch.library.opcheck(op, args)
+        assert set(result.values()) == {"SUCCESS"}, result
+
+
+_FRESH_PROCESS = """
+import json, sys
+sys.modules["jax"] = None  # any import of JAX fails
+import torch
+from pulser_diff_torch.utils import load_step
+p = {"om": torch.tensor(1.8, dtype=torch.float64)}
+v, g = load_step(sys.argv[1], device="cpu")(p)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jaxlib", "pulser_diff_tpu"))
+print(json.dumps({"value": float(v).hex(), "grad": float(g["om"]).hex(), "bad": bad}))
+"""
+
+
+def test_fresh_process_reloads_without_jax(tmp_path):
+    """A fresh process with JAX unimportable, which imports only
+    pulser_diff_torch.utils, loads an artifact holding the fused ops (a
+    20 ns pulse: only the reload is checked here) and reproduces its
+    outputs bit for bit."""
+    step, p0 = _port_step(20, solver="DP5_PALLAS")
+    path = export_step(step, (p0,), str(tmp_path / "fresh.pt2"))
+    want = load_step(path, device="cpu")(p0)
+    out = subprocess.run([sys.executable, "-c", _FRESH_PROCESS, path], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"value": float(want[0]).hex(), "grad": float(want[1]["om"]).hex(), "bad": []}

@@ -163,18 +163,22 @@ def test_f32_products_are_pinned(monkeypatch, setting):
     left to the global setting."""
     m = torch.backends.cuda.matmul
     _, th, psi, _, tg = _xy_setup()
-    seen, real_mm, real_einsum = [], torch.Tensor.__matmul__, torch.einsum
+    seen, real_einsum = [], torch.einsum
 
-    def mm(a, b):
-        if a.dtype == torch.float32:
-            seen.append(m.allow_tf32)
-        return real_mm(a, b)
+    def spied(real):
+        # the products: @, and the mm / bmm that apply._matmul calls
+        def product(a, b):
+            if a.dtype == torch.float32:
+                seen.append(m.allow_tf32)
+            return real(a, b)
+        return product
 
     def einsum(eq, *ops):
         assert all(o.dtype != torch.float32 for o in ops), eq
         return real_einsum(eq, *ops)
 
-    monkeypatch.setattr(torch.Tensor, "__matmul__", mm)
+    for owner, name in ((torch.Tensor, "__matmul__"), (torch, "mm"), (torch, "bmm")):
+        monkeypatch.setattr(owner, name, spied(getattr(owner, name)))
     monkeypatch.setattr(torch, "einsum", einsum)
     prev = m.fp32_precision
     try:

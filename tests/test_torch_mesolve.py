@@ -363,19 +363,23 @@ def test_f32_me_products_are_pinned(monkeypatch, form):
     _, tc = _collapse_pair(jsim)
     _, tg = _grids(jsim)
     re, im = _rho(th.dim, seed=6)
-    seen, real_mm, real_einsum = [], torch.Tensor.__matmul__, torch.einsum
+    seen, real_einsum = [], torch.einsum
 
-    def mm(a, b):
-        if a.dtype == torch.float32:
-            seen.append(m.allow_tf32)
-        return real_mm(a, b)
+    def spied(real):
+        # the products: @, and the mm / bmm that apply._matmul calls
+        def product(a, b):
+            if a.dtype == torch.float32:
+                seen.append(m.allow_tf32)
+            return real(a, b)
+        return product
 
     def einsum(eq, *ops):
         if any(o.dtype == torch.float32 for o in ops):
             seen.append(m.allow_tf32)
         return real_einsum(eq, *ops)
 
-    monkeypatch.setattr(torch.Tensor, "__matmul__", mm)
+    for owner, name in ((torch.Tensor, "__matmul__"), (torch, "mm"), (torch, "bmm")):
+        monkeypatch.setattr(owner, name, spied(getattr(owner, name)))
     monkeypatch.setattr(torch, "einsum", einsum)
     prev = m.allow_tf32
     try:

@@ -41,7 +41,7 @@ for name in names:
 for sub, mods in (("examples", ("afm_preparation", "basic_usage", "gate_optimization",
                                 "large_scale", "multi_start", "noisy_simulation",
                                 "state_preparation")),
-                  ("utils", ("checkpoint", "profiling")),
+                  ("utils", ("checkpoint", "profiling", "export")),
                   ("parallel", ("mesh", "multihost"))):
     missing = {f"pulser_diff_torch.{sub}.{m}" for m in mods} - set(names)
     assert not missing, missing
@@ -219,6 +219,17 @@ def test_parallel_native_and_entry_names_match_jax():
     spec.loader.exec_module(graft)
     for name in ("entry", "dryrun_multichip"):
         assert callable(getattr(graft, name)) and callable(getattr(entry, name)), name
+
+
+def test_utils_names_match_jax():
+    """utils/ exports the JAX package's names (export_step, load_step and
+    load_meta among them), each callable."""
+    import pulser_diff_torch.utils as tutils
+    import pulser_diff_tpu.utils as jutils
+
+    assert tutils.__all__ == jutils.__all__
+    for name in jutils.__all__:
+        assert callable(getattr(tutils, name)), name
 
 
 def test_solver_names_and_run_options_match_jax():
