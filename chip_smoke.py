@@ -222,14 +222,30 @@ Phases (each raises on failure, so the script exits non-zero):
      printed;
  20. export (pulser_diff_torch.utils.export): the value+grad steps of
      phases 4 (12 atoms, K1/K2), 5 (16 atoms, K4/K5) and 6 (12-atom XY
-     with q1's coordinates, K1/K2 with kron pairs) exported on the card
-     with export_step, saved, reloaded with load_step and called once with
-     the launch counts set to 0 just before and read just after: one
+     with q1's coordinates, K1/K2 with kron pairs), and bench.py's 12-atom
+     step with q1's coordinates trainable (ising, K1/K2), exported on the
+     card with export_step, saved, reloaded with load_step and called once
+     with the launch counts set to 0 just before and read just after: one
      launch of each kernel of the route and of no other, the sidecar
      naming those ops, the value and every gradient equal bit for bit to
      the eager step called after the export, and within phase 4's bars of
      the f64 stepper; the export, save and load seconds and the reloaded
-     step's warm time beside the eager step's printed.
+     step's warm time beside the eager step's printed;
+ 21. (a) the wide adjoint interval, a plain version only (fused_bwd_plain
+     with form="wide", the JAX package's _bwd_interval_wide), on the
+     first PLAIN_STEPS steps of phase 3's 12-atom main-path inputs and of
+     the 12-atom XY ones (K = 8): K2 (CUDA) and K2's plain version (the
+     lean form) against it, lam0 and every stream and part-matrix
+     cotangent within K2_TOL_REL of its largest magnitude (the lean form
+     equal bit for bit on lam0 and the streams), dbar within
+     WIDE_DBAR_REL of its scale, each output's largest difference and the
+     two plain forms' times printed; (b) bench.py's 12-atom model built
+     and stepped under set_default_dtype(torch.float32) (float64 restored
+     after, in a finally): one K1 and one K2 launch, a float32 value and
+     gradient, held against the f64 stepper at phase 4's bars, and against
+     phase 4's step at JAX's own f32-versus-f64 gap on the CPU
+     (F32_DEFAULT_*_BAR, printed as held or missed), its warm time beside
+     phase 4's and its peak device memory.
 
 The last two lines are one JSON object per kernel list and the result
 line {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
@@ -424,9 +440,11 @@ class _CpuReferences:
 
 
 def _bench_model(torch, device, fused, n_qubits: int = N_QUBITS,
-                 duration: int = DURATION, **options):
+                 duration: int = DURATION, q1: bool = False, **options):
     """bench.py's model at ``n_qubits`` atoms; ``fused=None`` keeps the
-    default routing."""
+    default routing; ``q1`` makes q1's coordinates trainable too.  The
+    interpolation matrix is float64 whatever the default dtype, and its
+    product takes the parameters to float64 (as jnp promotes them)."""
     from pulser_diff_torch import QuantumModel
     from pulser_diff_torch.core import (
         ConstantWaveform, CustomWaveform, MockDevice, Pulse, Register, Sequence,
@@ -447,7 +465,8 @@ def _bench_model(torch, device, fused, n_qubits: int = N_QUBITS,
     p0 = np.linspace(1.0, 3.0, N_PARAMS)
     model = QuantumModel(
         seq,
-        {"amp_samples": ((p0,), lambda v: M @ v)},
+        {"amp_samples": ((p0,), lambda v: M @ v.to(M.dtype)),
+         **({"q1": coords[1]} if q1 else {})},
         sampling_rate=SAMPLING_RATE,
         evaluation_times="Minimal",
         device=device,
@@ -487,9 +506,10 @@ def _xy_model(torch, device, fused, n_qubits: int = N_QUBITS, duration: int = XY
     return model, coords[1]
 
 
-def _xy_value_and_grad(torch, model, c1, device):
-    """(value, parameter gradient, coordinate gradient, values)."""
-    p = torch.tensor(XY_P0, dtype=torch.float64, device=device, requires_grad=True)
+def _xy_value_and_grad(torch, model, c1, device, p0=XY_P0):
+    """(value, parameter gradient, q1's coordinate gradient, values) of a
+    model with q1's coordinates trainable (bench_xy.py's by default)."""
+    p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
     c = torch.tensor(c1, dtype=torch.float64, device=device, requires_grad=True)
     _, vals = model.expectation_fn()({"amp_samples_0": p, "q1": c})
     value = vals[-1]
@@ -497,8 +517,10 @@ def _xy_value_and_grad(torch, model, c1, device):
     return value.detach(), p.grad.detach(), c.grad.detach(), vals.detach()
 
 
-def _value_and_grad(torch, model, p0, device):
-    p = torch.tensor(p0, dtype=torch.float64, device=device, requires_grad=True)
+def _value_and_grad(torch, model, p0, device, dtype=None):
+    """(value, gradient, values) of the last value; the parameters in
+    ``dtype`` (float64 unless given)."""
+    p = torch.tensor(p0, dtype=dtype or torch.float64, device=device, requires_grad=True)
     _, vals = model.expectation_fn()({"amp_samples_0": p})
     value = vals[-1]
     value.backward()
@@ -1694,6 +1716,20 @@ def _counted(torch, fe, label, fn, want: dict):
     return res, launches, ms
 
 
+def _window_slots(torch, slots, n_eval: int, n: int):
+    """(slots, n_eval, last slot) of the window of the first ``n`` steps:
+    its first n grid points' slots and the last one's, renumbered in order
+    so that the window writes every output slot (K1 leaves the others as
+    they were allocated)."""
+    cs = torch.cat([slots[:n], slots[-1:]]).long()
+    written = torch.unique(cs[cs < n_eval])
+    cn = int(written.numel())
+    renum = torch.full((n_eval + 1,), cn, dtype=torch.long, device=cs.device)
+    renum[written] = torch.arange(cn, device=cs.device)
+    cslots = renum[cs].to(slots.dtype)
+    return cslots, cn, int(cslots[-1])
+
+
 def _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt: bool, *,
                   n=None, start: int = 0, reps: int = 3):
     """K1 and K2 (K4 and K5 with ``ckpt``) on ``data``: each against its
@@ -1716,16 +1752,7 @@ def _held_kernels(torch, fe, data, slots, n_eval, last_slot, gen, label, ckpt: b
     else:
         cslots, cn, clast = slots, n_eval, last_slot
         if n < n_steps:
-            # the window's own slots: its first n grid points' and the last
-            # one's, renumbered in order so that the window writes every
-            # output slot (K1 leaves the others as they were allocated)
-            cs = torch.cat([slots[:n], slots[-1:]]).long()
-            written = torch.unique(cs[cs < n_eval])
-            cn = int(written.numel())
-            renum = torch.full((n_eval + 1,), cn, dtype=torch.long, device=cs.device)
-            renum[written] = torch.arange(cn, device=cs.device)
-            cslots = renum[cs].to(slots.dtype)
-            clast = int(cslots[-1])
+            cslots, cn, clast = _window_slots(torch, slots, n_eval, n)
         errs = _check_kernels(torch, fe, win, cslots, cn, clast, "DP5", gen, tag, times)[:2]
         fwd, bwd = (lambda: fe.fused_fwd(data, "DP5", slots, n_eval, lo=lo)), fe.fused_bwd
         names, kinds, bslots = ("K1", "K2"), ("fwd", "bwd"), slots
@@ -3899,6 +3926,112 @@ def _export_phase(torch, fe, device, cases) -> dict:
     return out
 
 
+# phase 21 (a): the wide adjoint's bar on the stage-summed diagonal
+# cotangent (JAX's lean-versus-wide bar, tests/test_pallas.py)
+WIDE_DBAR_REL = 1e-6
+# phase 21 (b): JAX's own f32-default-versus-f64 gap on bench.py's model at
+# 4 atoms through its fused kernels (DP5_PALLAS, interpret mode, CPU):
+# |dv| 1.474e-7, max|dg| 2.035e-7 (python -m tests.test_torch_dtype; PERF.md)
+F32_DEFAULT_VALUE_BAR = 1.474e-7
+F32_DEFAULT_GRAD_BAR = 2.035e-7
+
+
+def _wide_case(torch, fe, data, slots, n_eval, gen, label: str) -> dict:
+    """Phase 21 (a) at one shape: on the window of the first PLAIN_STEPS
+    steps, K2 (CUDA) from K1's states and seeded slot cotangents, K2's
+    plain version (the lean form) and the wide plain version
+    (``form="wide"``, the JAX package's ``_bwd_interval_wide``) on the same
+    inputs.  K2 and the lean form against the wide one: lam0 and every
+    stream (and kron part-matrix) cotangent within K2_TOL_REL of its
+    largest magnitude, dbar within WIDE_DBAR_REL of its scale; the lean
+    form's lam0 and stream cotangents equal the wide form's bit for bit.
+    Returns the largest differences and the plain forms' times."""
+    n = min(PLAIN_STEPS, fe._dims(data)[1])
+    win = _cut_steps(data, n)
+    ws, wn, wl = _window_slots(torch, slots, n_eval, n)
+    lo = fe._n_kron(win) > 0
+    st = fe.fused_fwd(win, "DP5", ws, wn, lo=lo)
+    lam = [torch.randn(tuple(st[0].shape), generator=gen, dtype=torch.float32).to(st[0].device)
+           for _ in range(2)]
+    args = (win, "DP5", ws, wn, wl, st[0], st[1], *lam)
+    k2 = fe.fused_bwd(*args)
+    lean_ms, lean = _host_time_ms(torch, lambda: fe.fused_bwd_plain(*args), 1)
+    wide_ms, wide = _host_time_ms(torch, lambda: fe.fused_bwd_plain(*args, form="wide"), 1)
+    pr, pc = int(win["rp"].shape[0]), int(win["cp"].shape[0])
+
+    def named(outs):
+        out = {"lam0_re": outs[0], "lam0_im": outs[1], "dbar": outs[3]}
+        out.update(zip(("zbar_rr", "zbar_ri", "zbar_cr", "zbar_ci"),
+                       fe._unpack_zbar(outs[2], pr, pc)))
+        if len(outs) > 4:
+            out.update(zip(("zbar_kr", "zbar_ki"), fe._unpack_zbar_kron(outs[2], pr, pc)))
+            out.update(krbar=outs[4], kcbar=outs[5])
+        return out
+
+    w = named(wide)
+    res = {"lean_ms": lean_ms, "wide_ms": wide_ms}
+    for who, got in (("K2", named(k2)), ("lean", named(lean))):
+        errs = {}
+        for k, g in got.items():
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"{label}: {who} {k} is not finite")
+            err = _max_err(g, w[k])
+            scale = float(w[k].abs().max())
+            bar = WIDE_DBAR_REL * scale + 1e-9 if k == "dbar" else K2_TOL_REL * max(scale, 1e-30)
+            if who == "lean" and k not in ("dbar", "krbar", "kcbar") and err != 0.0:
+                raise RuntimeError(f"{label}: lean vs wide {k} differs by {err:.3e}")
+            if err > bar:
+                raise RuntimeError(f"{label}: {who} vs wide {k} {err:.3e} > {bar:.3e}")
+            errs[k] = err
+        res[who] = errs
+        _log(f"  {label}: {who} vs wide, max|diff| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+    _log(f"  {label}: steps 0-{n - 1} of {fe._dims(data)[1]}; plain lean form {lean_ms:.1f} ms, "
+         f"wide form {wide_ms:.1f} ms (host clock, once)")
+    return res
+
+
+def _f32_default_phase(torch, fe, device, p0, ref: dict) -> dict:
+    """Phase 21 (b): bench.py's 12-atom model built and stepped under
+    ``set_default_dtype(torch.float32)`` (restored to float64 after): one
+    K1 and one K2 launch, float32 value and gradient, held against the
+    f64 stepper at phase 4's bars, and against phase 4's step (the f64
+    default) at F32_DEFAULT_*_BAR, printed as held or missed; its warm
+    time beside phase 4's and its peak device memory."""
+    from pulser_diff_torch import config
+
+    config.set_default_dtype(torch.float32)
+    try:
+        model, _ = _bench_model(torch, device, fused=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (value, grad, vals), launches, first_ms = _counted(
+            torch, fe, "f32 default", lambda: _value_and_grad(torch, model, p0, device,
+                                                               torch.float32), K1K2)
+        peak = _peak_gib(torch)
+        step_ms, _ = _host_time_ms(
+            torch, lambda: _value_and_grad(torch, model, p0, device, torch.float32), 5)
+        dtypes = {str(value.dtype), str(grad.dtype), str(vals.dtype),
+                  str(model.params["amp_samples_0"].dtype)}
+    finally:
+        config.set_default_dtype(torch.float64)
+    finite = bool(torch.isfinite(vals).all() and torch.isfinite(grad).all())
+    if dtypes != {"torch.float32"} or not finite:
+        raise RuntimeError(f"f32 default: dtypes {dtypes}, values {vals}, grad {grad}")
+    _hold_against_f64(torch, value.double(), grad.double(), ref["v64"], ref["g64"],
+                      "12 atoms, f32 default")
+    dv = abs(float(value) - float(ref["value"]))
+    dg = float((grad.double() - ref["grad"]).abs().max())
+    held = dv <= F32_DEFAULT_VALUE_BAR and dg <= F32_DEFAULT_GRAD_BAR
+    _log(f"  12 atoms, f32 default vs phase 4's step (f64 default): |dv| {dv:.3e} (bar "
+         f"{F32_DEFAULT_VALUE_BAR:.3e}), max|dg| {dg:.3e} (bar {F32_DEFAULT_GRAD_BAR:.3e}): "
+         f"{'held' if held else 'MISSED'}")
+    _log(f"  12 atoms, f32 default: launches {launches}; value+grad step {step_ms:.2f} ms warm "
+         f"(first {first_ms:.1f} ms) against phase 4's {ref['step_ms']:.2f} ms; peak device "
+         f"memory {peak:.3f} GiB")
+    return {"dv": dv, "dg": dg, "held": held, "step_ms": step_ms, "peak": peak}
+
+
 def main() -> int:
     import torch
 
@@ -4263,17 +4396,43 @@ def main() -> int:
     # 20. export: phases 4-6's steps exported, reloaded and called (each
     # call's counts set to 0 just before and read just after)
     _log("phase 20 export: the 12-atom (K1/K2), 16-atom (K4/K5) and 12-atom XY (K1/K2, K = 8) "
-         "value+grad steps through export_step / load_step")
+         "value+grad steps, and the 12-atom step with q1's coordinates trainable (K1/K2), "
+         "through export_step / load_step")
     f64 = torch.float64
     p_main = {"amp_samples_0": torch.tensor(p0, dtype=f64, device=device)}
     p_xy = {"amp_samples_0": torch.tensor(XY_P0, dtype=f64, device=device),
             "q1": torch.tensor(xy["c1"], dtype=f64, device=device)}
+    q1_model, _ = _bench_model(torch, device, fused=True, q1=True)
+    c1 = (SPACING, 0.0)
+    q1_f64, _ = _bench_model(torch, device, fused=False, q1=True)
+    q1_v64, q1_g64, q1_c64, _ = _xy_value_and_grad(torch, q1_f64, c1, device, p0)
+    del q1_f64
+    _log(f"  12 atoms, q1 trainable: f64 stepper value {float(q1_v64)!r}, q1's gradient "
+         f"{q1_c64.cpu().numpy().tolist()!r}")
+    p_q1 = {**p_main, "q1": torch.tensor(c1, dtype=f64, device=device)}
     _export_phase(torch, fe, device, (
         ("12 atoms", fused_model, p_main, K1K2, {"value": v64, "amp_samples_0": g64}),
         ("16 atoms", model16, p_main, K4K5, {"value": v64_16, "amp_samples_0": g64_16}),
         ("12 atoms XY", xy["model"], p_xy, K1K2,
          {"value": xy_step["v64"], "amp_samples_0": xy_step["g64"], "q1": xy_step["c64"]}),
+        ("12 atoms q1", q1_model, p_q1, K1K2,
+         {"value": q1_v64, "amp_samples_0": q1_g64, "q1": q1_c64}),
     ))
+    del q1_model
+
+    # 21. (a) the wide adjoint (plain) against K2 and its lean plain version
+    # at the main path's and the XY shapes; (b) the main path under the f32
+    # default dtype (counts set to 0 just before, read just after)
+    t21 = time.perf_counter()
+    _log("phase 21 (a) the wide adjoint interval (plain) against K2 and the lean plain version "
+         f"on the first {PLAIN_STEPS} steps at the 12-atom and 12-atom XY shapes; (b) the "
+         "12-atom value+grad under set_default_dtype(torch.float32)")
+    _wide_case(torch, fe, data, slots, n_eval, gen, "12 atoms (main path)")
+    _wide_case(torch, fe, xy["data"], xy["slots"], xy["n_eval"], gen,
+               f"12 atoms XY (K = {fe._n_kron(xy['data'])})")
+    _f32_default_phase(torch, fe, device, p0, {
+        "value": value, "grad": grad, "v64": v64, "g64": g64, "step_ms": step_ms})
+    _log(f"  phase 21 {time.perf_counter() - t21:.1f} s")
 
     def entry(kname, src, replaces, count, err, ms, plain_ms, bound, by):
         return {"name": kname, "route": "cuda", "source": f"pulser_diff_torch/csrc/{src}",

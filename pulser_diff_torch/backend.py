@@ -49,7 +49,7 @@ from typing import Any, Callable, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import Register
 from pulser_diff_torch.core.sampler import SequenceSamples, sample
@@ -238,12 +238,12 @@ class TorchEmulator:
             pos = 0
             for _ in range(h._size):
                 pos = pos * h.dim + idx
-            ket = torch.zeros((h.dim**h._size, 1), dtype=DTYPE, device=dev)
+            ket = torch.zeros((h.dim**h._size, 1), dtype=default_dtype(), device=dev)
             ket[pos, 0] = 1.0
             self._initial_state = Cplx(ket, torch.zeros_like(ket))
             self._initial_is_ground = True
             return
-        st = as_cplx(state, dtype=DTYPE, device=dev).to(device=dev)
+        st = as_cplx(state, dtype=default_dtype(), device=dev).to(device=dev)
         legal = h.dim**h._size
         if st.shape[0] != legal:
             raise ValueError(
@@ -298,7 +298,8 @@ class TorchEmulator:
 
     @property
     def evaluation_times(self) -> torch.Tensor:
-        return torch.as_tensor(self._eval_times_array, dtype=DTYPE, device=self.torch_device)
+        return torch.as_tensor(self._eval_times_array, dtype=default_dtype(),
+                               device=self.torch_device)
 
     def set_evaluation_times(self, value: Union[str, float, Any]) -> None:
         """As in the JAX package: the times are kept host-side (the grid
@@ -484,7 +485,8 @@ class TorchEmulator:
         from pulser_diff_torch.hamiltonian import zero_noise_draws
         from pulser_diff_torch.ops.linalg import expect as _expect
 
-        obs = as_cplx(obs, dtype=DTYPE, device=self.torch_device).to(device=self.torch_device)
+        obs = as_cplx(obs, dtype=default_dtype(), device=self.torch_device).to(
+            device=self.torch_device)
         h = self._hamiltonian
         keys = self.qq_distance_keys
         substeps = int(options.get("substeps", self._auto_substeps(options)))
@@ -512,7 +514,8 @@ class TorchEmulator:
         constants."""
         from pulser_diff_torch.ops.linalg import expect as _expect
 
-        obs = as_cplx(obs, dtype=DTYPE, device=self.torch_device).to(device=self.torch_device)
+        obs = as_cplx(obs, dtype=default_dtype(), device=self.torch_device).to(
+            device=self.torch_device)
         h = self._hamiltonian
         substeps = int(options.get("substeps", self._auto_substeps(options)))
         grid0 = TimeGrid.make(h.sampling_times, self._eval_times_array, self.torch_device)
@@ -617,7 +620,7 @@ class TorchEmulator:
                 for _ in range(cfg.runs)
             ).most_common()
             draws = [zero_noise_draws(h._size, n_slots, self.torch_device)._replace(
-                bad_atoms=torch.tensor([float(c) for c in bits], dtype=DTYPE,
+                bad_atoms=torch.tensor([float(c) for c in bits], dtype=default_dtype(),
                                        device=self.torch_device)) for bits, _ in configs]
             return draws, [r for _, r in configs], frozenset({"bad_atoms"})
         gen = self._generator()
@@ -763,7 +766,7 @@ class TorchEmulator:
         normalised along the last axis: (R, n_eval, 2^n)."""
         h = self._hamiltonian
         full = h.dim**h._size
-        re, im = states_all.re.to(DTYPE), states_all.im.to(DTYPE)
+        re, im = states_all.re.to(torch.float64), states_all.im.to(torch.float64)
         if re.ndim == 4 and re.shape[-2] == re.shape[-1] == full:
             probs = torch.diagonal(re, dim1=-2, dim2=-1).abs()
         else:
@@ -818,6 +821,23 @@ class TorchEmulator:
             results.append(SampledResult(tuple(h._qdict), self._meas_basis, counter))
         return NoisyResults(results, h._size, h.basis_name, self._eval_times_array,
                             runs * samples_per_run)
+
+    # ------------------------------------------------------------------
+    def draw(self, draw_phase_area: bool = False, draw_phase_shifts: bool = False,
+             draw_phase_curve: bool = False, fig_name: Optional[str] = None,
+             kwargs_savefig: dict = {}) -> None:
+        """Plot the sampled amp/det(/phase) per channel (the renderer is
+        shared with Sequence.draw, core/drawing.py)."""
+        from pulser_diff_torch.core.drawing import draw_channel_samples
+
+        draw_channel_samples(
+            self.samples_obj.channel_samples,
+            draw_phase_area=draw_phase_area,
+            draw_phase_shifts=draw_phase_shifts,
+            draw_phase_curve=draw_phase_curve,
+            fig_name=fig_name,
+            kwargs_savefig=kwargs_savefig,
+        )
 
     # ------------------------------------------------------------------
     @classmethod

@@ -1,9 +1,14 @@
-"""Dtype helpers and device resolution (counterpart of pulser_diff_tpu/config.py).
+"""The default dtype and device resolution (counterpart of
+pulser_diff_tpu/config.py).
 
-The JAX package switches its process into x64 mode at import.  The port
-changes no global state: every tensor it makes gets an explicit dtype
-(``DTYPE`` for the f64 paths, ``torch.float32`` inside the fused kernels)
-and an explicit device.
+The default dtype is the one piece of global state the port keeps, as the
+JAX package keeps it: ``set_default_dtype(torch.float32)`` makes the
+parameters, the register, the samples, the Hamiltonian, the time grid and
+the states of every later build float32, as the JAX package's
+``set_default_dtype(jnp.float32)`` does.  It is the port's own global and
+never touches ``torch.set_default_dtype``.  Where the port needs float64
+whatever the default (host reads, the f64 references, the hi/lo split's
+source), it names ``torch.float64``; the fused kernels take float32 words.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Without a device and without CUDA they raise: nothing falls back to the
@@ -16,8 +21,23 @@ from typing import Union
 
 import torch
 
-# real dtype of the f64 paths (state, coefficients, Hamiltonian parts)
-DTYPE = torch.float64
+# real dtype of the state, coefficient and Hamiltonian arrays
+_DEFAULT_DTYPE = torch.float64
+
+
+def set_default_dtype(dtype: torch.dtype) -> None:
+    """Make ``dtype`` (``torch.float32`` or ``torch.float64``) the real
+    dtype of every later build; ValueError otherwise."""
+    global _DEFAULT_DTYPE
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError("default dtype must be float32 or float64")
+    _DEFAULT_DTYPE = dtype
+
+
+def default_dtype() -> torch.dtype:
+    """The real dtype of the state, coefficient and Hamiltonian arrays."""
+    return _DEFAULT_DTYPE
+
 
 DeviceLike = Union[str, torch.device, None]
 

@@ -12,14 +12,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, resolve_device
 from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.ops.apply import FactoredHamiltonian
 
 
 def _tensor(x: Any, device: DeviceLike) -> torch.Tensor:
     """An f64 copy of an array (JAX hands out read-only buffers)."""
-    return torch.tensor(np.array(x, dtype=np.float64), dtype=DTYPE, device=device)
+    return torch.tensor(np.array(x, dtype=np.float64), dtype=torch.float64, device=device)
 
 
 def _cplx(pair: Any, device: DeviceLike) -> Cplx:

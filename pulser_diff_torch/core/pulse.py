@@ -106,5 +106,27 @@ class Pulse:
         return cls(amplitude, CustomWaveform(det, duration=phase.duration), ph[0],
                    post_phase_shift)
 
+    def draw(self, fig_name: str | None = None, kwargs_savefig: dict = {}) -> None:
+        """Plot the pulse's amplitude and detuning (pulser's ``Pulse.draw``)."""
+        import matplotlib.pyplot as plt
+        import numpy as np
+
+        from pulser_diff_torch.core.drawing import to_host
+
+        fig, (ax_a, ax_d) = plt.subplots(2, 1, sharex=True, figsize=(8, 4))
+        amp = to_host(self.amplitude.samples)
+        det = to_host(self.detuning.samples)
+        t = np.arange(self.duration)
+        ax_a.fill_between(t, 0, amp, color="darkgreen", alpha=0.4)
+        ax_a.plot(t, amp, color="darkgreen")
+        ax_a.set_ylabel("Ω (rad/µs)")
+        ax_d.fill_between(t, 0, det, color="indigo", alpha=0.3)
+        ax_d.plot(t, det, color="indigo")
+        ax_d.set_ylabel("δ (rad/µs)")
+        ax_d.set_xlabel("t (ns)")
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        plt.show()
+
     def __repr__(self) -> str:
         return f"Pulse({self.amplitude!r}, {self.detuning!r}, phase={self.phase})"

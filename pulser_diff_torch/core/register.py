@@ -11,7 +11,7 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
+from pulser_diff_torch.config import default_dtype
 
 QubitId = Any
 
@@ -23,8 +23,8 @@ class Register:
         if not qubits:
             raise ValueError("Register cannot be empty.")
         self._coords: dict[QubitId, torch.Tensor] = {
-            qid: (c.to(DTYPE) if isinstance(c, torch.Tensor)
-                  else torch.as_tensor(c, dtype=DTYPE))
+            qid: (c.to(default_dtype()) if isinstance(c, torch.Tensor)
+                  else torch.as_tensor(c, dtype=default_dtype()))
             for qid, c in qubits.items()
         }
         dims = {int(v.shape[-1]) for v in self._coords.values()}
@@ -62,7 +62,7 @@ class Register:
     ) -> "Register":
         coords = list(coords)
         if center:
-            arr = torch.stack([torch.as_tensor(c, dtype=DTYPE) for c in coords])
+            arr = torch.stack([torch.as_tensor(c, dtype=default_dtype()) for c in coords])
             arr = arr - arr.mean(dim=0)
             coords = list(arr)
         if labels is not None:
@@ -172,12 +172,39 @@ class Register:
             raise ValueError("rotated() only applies to 2D registers.")
         th = np.deg2rad(degrees)
         rot = torch.as_tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]],
-                              dtype=DTYPE)
+                              dtype=default_dtype())
         return Register({qid: rot.to(c.device) @ c for qid, c in self._coords.items()})
 
     def with_coords(self, coords: Mapping[QubitId, Any]) -> "Register":
         """New register with (a subset of) coordinates replaced."""
         return Register({**self._coords, **coords})
+
+    def draw(self, blockade_radius: float | None = None, draw_half_radius: bool = False,
+             fig_name: str | None = None, kwargs_savefig: dict = {}) -> None:
+        """Scatter-plot the register with qubit-id labels (pulser's
+        ``Register.draw``); optionally circle each atom at half the
+        blockade radius so overlapping circles mark blockaded pairs."""
+        import matplotlib.pyplot as plt
+
+        from pulser_diff_torch.core.drawing import to_host
+
+        coords = to_host(self.coords_array)
+        if self._dim != 2:
+            raise NotImplementedError("draw() only supports 2D registers.")
+        fig, ax = plt.subplots(figsize=(6, 6))
+        ax.scatter(coords[:, 0], coords[:, 1], s=60, color="darkgreen")
+        for qid, c in zip(self.qubit_ids, coords):
+            ax.annotate(str(qid), c, textcoords="offset points", xytext=(6, 6), fontsize=9)
+        if blockade_radius is not None and draw_half_radius:
+            for c in coords:
+                ax.add_patch(plt.Circle(tuple(c), blockade_radius / 2, fill=True, alpha=0.1,
+                                        color="darkgreen"))
+        ax.set_xlabel("x (µm)")
+        ax.set_ylabel("y (µm)")
+        ax.set_aspect("equal")
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        plt.show()
 
     def __repr__(self) -> str:
         return f"Register({self._coords})"

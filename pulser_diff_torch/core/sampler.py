@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.core.channels import Channel
 from pulser_diff_torch.core.register import QubitId
 from pulser_diff_torch.core.sequence import Sequence
@@ -177,15 +177,16 @@ def _sample_channel(seq: Sequence, name: str, ch: Channel, total: int,
     phases: list[torch.Tensor] = []
     slots: list[_PulseTargetSlot] = []
     cursor = 0
-    last_phase = torch.zeros((), dtype=DTYPE, device=device)
+    dt = default_dtype()
+    last_phase = torch.zeros((), dtype=dt, device=device)
 
     def idle(n: int, det: float = 0.0) -> None:
-        amps.append(torch.zeros(n, dtype=DTYPE, device=device))
-        dets.append(torch.full((n,), det, dtype=DTYPE, device=device))
+        amps.append(torch.zeros(n, dtype=dt, device=device))
+        dets.append(torch.full((n,), det, dtype=dt, device=device))
         phases.append(last_phase.expand(n))
 
     def tensor(x: Any) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=DTYPE).to(device)
+        return torch.as_tensor(x, dtype=dt).to(device)
 
     for slot in seq._schedule[name]:
         if slot.ti > cursor:
@@ -194,8 +195,8 @@ def _sample_channel(seq: Sequence, name: str, ch: Channel, total: int,
         n = slot.tf - slot.ti
         if slot.kind == "pulse" and slot.pulse is not None:
             p = slot.pulse
-            amps.append(p.amplitude.samples.to(device=device, dtype=DTYPE))
-            dets.append(p.detuning.samples.to(device=device, dtype=DTYPE))
+            amps.append(p.amplitude.samples.to(device=device, dtype=dt))
+            dets.append(p.detuning.samples.to(device=device, dtype=dt))
             # the targets' phase reference at add time (phase_shift and
             # post_phase_shift, shared by the channels of the basis)
             ph = tensor(p.phase) + tensor(slot.phase_ref)
@@ -211,7 +212,7 @@ def _sample_channel(seq: Sequence, name: str, ch: Channel, total: int,
     if amps:
         amp, det, phase = torch.cat(amps), torch.cat(dets), torch.cat(phases)
     else:
-        amp = det = phase = torch.zeros(total, dtype=DTYPE, device=device)
+        amp = det = phase = torch.zeros(total, dtype=dt, device=device)
     blocks = [(int(ti), int(tf) if tf is not None else total)
               for ti, tf in seq._eom_blocks.get(name, [])]
     return ChannelSamples(amp, det, phase, slots, ch.addressing, ch.basis, eom_blocks=blocks)

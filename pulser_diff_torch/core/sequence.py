@@ -802,6 +802,26 @@ class Sequence:
 
         return from_abstract_repr(obj)
 
+    def draw(self, draw_phase_area: bool = False, draw_phase_shifts: bool = False,
+             draw_phase_curve: bool = False, fig_name: Optional[str] = None,
+             kwargs_savefig: dict = {}, *, device=None) -> None:
+        """Plot the sequence's sampled channel streams (pulser's
+        ``Sequence.draw``; the renderer is shared with TorchEmulator.draw),
+        sampled on ``device`` (CUDA unless given)."""
+        from pulser_diff_torch.core.drawing import draw_channel_samples
+        from pulser_diff_torch.core.sampler import sample
+
+        if self.is_parametrized():
+            raise ValueError("Cannot draw a parametrized sequence: call build() first.")
+        draw_channel_samples(
+            sample(self, device=device).channel_samples,
+            draw_phase_area=draw_phase_area,
+            draw_phase_shifts=draw_phase_shifts,
+            draw_phase_curve=draw_phase_curve,
+            fig_name=fig_name,
+            kwargs_savefig=kwargs_savefig,
+        )
+
     def __repr__(self) -> str:
         lines = [f"Sequence({len(self._register)} qubits, device={self._device.name})"]
         for name, slots in self._schedule.items():

@@ -14,8 +14,6 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-from pulser_diff_torch.config import DTYPE
-
 
 class Expr:
     """Base class for deferred expressions over sequence variables."""
@@ -90,7 +88,8 @@ class Expr:
 
 def _unary(fn: Callable) -> Callable:
     """``fn`` on a tensor, a number made an f64 tensor first."""
-    return lambda x: fn(x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=DTYPE))
+    return lambda x: fn(x if isinstance(x, torch.Tensor)
+                        else torch.as_tensor(x, dtype=torch.float64))
 
 
 class Variable(Expr):
@@ -109,7 +108,7 @@ class Variable(Expr):
         if self.name not in values:
             raise ValueError(f"No value given for variable '{self.name}'.")
         val = values[self.name]
-        arr = val if isinstance(val, torch.Tensor) else torch.as_tensor(val, dtype=DTYPE)
+        arr = val if isinstance(val, torch.Tensor) else torch.as_tensor(val, dtype=torch.float64)
         if self.dtype is int and arr.is_floating_point():
             arr = torch.round(arr).to(torch.int64)
         return arr

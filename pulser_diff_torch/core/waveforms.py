@@ -15,16 +15,16 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
+from pulser_diff_torch.config import default_dtype
 from pulser_diff_torch.core.variables import Expr, evaluate
 
 
 def _as_tensor(x: Any) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(DTYPE)
+        return x.to(default_dtype())
     if isinstance(x, (list, tuple)) and any(isinstance(v, torch.Tensor) for v in x):
         return torch.stack([_as_tensor(v) for v in x])
-    return torch.as_tensor(x, dtype=DTYPE)
+    return torch.as_tensor(x, dtype=default_dtype())
 
 
 def _host_int(x: Any) -> int:
@@ -100,6 +100,28 @@ class Waveform:
         function, extended by the rise/fall tail."""
         return channel.modulate(self.samples)
 
+    def draw(self, output_channel=None, fig_name: str | None = None,
+             kwargs_savefig: dict = {}) -> None:
+        """Plot the waveform (pulser's ``Waveform.draw``); with an
+        ``output_channel``, overlay the modulated output."""
+        import matplotlib.pyplot as plt
+
+        from pulser_diff_torch.core.drawing import to_host
+
+        s = to_host(self.samples)
+        fig, ax = plt.subplots(figsize=(8, 3))
+        ax.plot(np.arange(s.shape[0]), s, color="darkgreen", label="input")
+        if output_channel is not None:
+            m = to_host(self.modulated_samples(output_channel))
+            ax.plot(np.arange(m.shape[0]), m, color="crimson", linestyle="--",
+                    label="modulated output")
+            ax.legend()
+        ax.set_xlabel("t (ns)")
+        ax.set_ylabel("value (rad/µs)")
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        plt.show()
+
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Waveform):
             return NotImplemented
@@ -146,7 +168,7 @@ class RampWaveform(Waveform):
     def _samples(self) -> torch.Tensor:
         d = self.duration
         start, stop = _as_tensor(self.start), _as_tensor(self.stop)
-        frac = torch.arange(d, dtype=DTYPE, device=start.device) / max(d - 1, 1)
+        frac = torch.arange(d, dtype=default_dtype(), device=start.device) / max(d - 1, 1)
         return start + (stop - start) * frac
 
     @property
@@ -159,8 +181,8 @@ class RampWaveform(Waveform):
 
 def _blackman_window(n: int, device=None) -> torch.Tensor:
     if n == 1:
-        return torch.ones(1, dtype=DTYPE, device=device)
-    x = 2.0 * np.pi * torch.arange(n, dtype=DTYPE, device=device) / (n - 1)
+        return torch.ones(1, dtype=default_dtype(), device=device)
+    x = 2.0 * np.pi * torch.arange(n, dtype=default_dtype(), device=device) / (n - 1)
     return 0.42 - 0.5 * torch.cos(x) + 0.08 * torch.cos(2 * x)
 
 
@@ -225,10 +247,10 @@ def _shortest_duration_for_peak(window_np, area_f: float, max_val: float) -> int
 
 def _kaiser_window(n: int, beta: float, device=None) -> torch.Tensor:
     if n == 1:
-        return torch.ones(1, dtype=DTYPE, device=device)
-    r = 2.0 * torch.arange(n, dtype=DTYPE, device=device) / (n - 1) - 1.0
+        return torch.ones(1, dtype=default_dtype(), device=device)
+    r = 2.0 * torch.arange(n, dtype=default_dtype(), device=device) / (n - 1) - 1.0
     num = torch.special.i0(beta * torch.sqrt(torch.clamp(1 - r * r, min=0.0)))
-    return num / torch.special.i0(torch.as_tensor(beta, dtype=DTYPE, device=device))
+    return num / torch.special.i0(torch.as_tensor(beta, dtype=default_dtype(), device=device))
 
 
 class KaiserWaveform(Waveform):
@@ -367,11 +389,11 @@ class InterpolatedWaveform(Waveform):
         vals = _as_tensor(self.values)
         n = vals.shape[0]
         if self.times is None:
-            tfrac = torch.linspace(0.0, 1.0, n, dtype=DTYPE, device=vals.device)
+            tfrac = torch.linspace(0.0, 1.0, n, dtype=default_dtype(), device=vals.device)
         else:
             tfrac = _as_tensor(self.times).to(vals.device)
         x = tfrac * (self.duration - 1)
-        t = torch.arange(self.duration, dtype=DTYPE, device=vals.device)
+        t = torch.arange(self.duration, dtype=default_dtype(), device=vals.device)
         return pchip_interpolate(x, vals, t)
 
     def change_duration(self, new_duration: int) -> "InterpolatedWaveform":

@@ -13,7 +13,6 @@ from typing import Any, NamedTuple, Sequence, Union
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
 
 Scalar = Union[int, float, complex]
 
@@ -124,6 +123,10 @@ class Cplx(NamedTuple):
             self.im.sum(dim=axis, keepdim=keepdims),
         )
 
+    def mul_i(self) -> "Cplx":
+        """Multiply by +i (rotates (re, im) -> (-im, re))."""
+        return Cplx(-self.im, self.re)
+
     def mul_neg_i(self) -> "Cplx":
         """Multiply by -i (rotates (re, im) -> (im, -re))."""
         return Cplx(self.im, -self.re)
@@ -142,7 +145,8 @@ def as_cplx(x: Any, like: Cplx | None = None, dtype=None, device=None) -> Cplx:
     if like is not None:
         dtype = dtype or like.dtype
         device = device or like.device
-    dtype = dtype or DTYPE
+    # float64 by default, as jnp.asarray under the JAX package's x64 mode
+    dtype = dtype or torch.float64
     if isinstance(x, torch.Tensor):
         if x.is_complex():
             return Cplx(x.real.to(dtype), x.imag.to(dtype))
@@ -173,18 +177,18 @@ def cstack(xs: Sequence[Cplx], axis: int = 0) -> Cplx:
 
 
 def czeros(shape, dtype=None, device=None) -> Cplx:
-    z = torch.zeros(shape, dtype=dtype or DTYPE, device=device)
+    z = torch.zeros(shape, dtype=dtype or torch.float64, device=device)
     return Cplx(z, z.clone())
 
 
 def cones(shape, dtype=None, device=None) -> Cplx:
-    return Cplx(torch.ones(shape, dtype=dtype or DTYPE, device=device),
-                torch.zeros(shape, dtype=dtype or DTYPE, device=device))
+    return Cplx(torch.ones(shape, dtype=dtype or torch.float64, device=device),
+                torch.zeros(shape, dtype=dtype or torch.float64, device=device))
 
 
 def ceye(n: int, dtype=None, device=None) -> Cplx:
-    return Cplx(torch.eye(n, dtype=dtype or DTYPE, device=device),
-                torch.zeros(n, n, dtype=dtype or DTYPE, device=device))
+    return Cplx(torch.eye(n, dtype=dtype or torch.float64, device=device),
+                torch.zeros(n, n, dtype=dtype or torch.float64, device=device))
 
 
 def cexp_i(theta: torch.Tensor) -> Cplx:
@@ -197,14 +201,33 @@ def cmatmul(a: Cplx, b: Cplx) -> Cplx:
     return Cplx(a.re @ b.re - a.im @ b.im, a.re @ b.im + a.im @ b.re)
 
 
+def cmatmul_rc(a: torch.Tensor, b: Cplx) -> Cplx:
+    """Real @ complex."""
+    return Cplx(a @ b.re, a @ b.im)
+
+
+def cmatmul_cr(a: Cplx, b: torch.Tensor) -> Cplx:
+    """Complex @ real."""
+    return Cplx(a.re @ b, a.im @ b)
+
+
 def cdot(a: Cplx, b: Cplx) -> Cplx:
     """<a|b> = sum(conj(a) * b) over all elements."""
     return Cplx((a.re * b.re + a.im * b.im).sum(), (a.re * b.im - a.im * b.re).sum())
 
 
+def cnorm2(a: Cplx) -> torch.Tensor:
+    return a.abs2().sum()
+
+
 def cnorm(a: Cplx) -> torch.Tensor:
-    return torch.sqrt(a.abs2().sum())
+    return torch.sqrt(cnorm2(a))
 
 
 def cconcat(xs: Sequence[Cplx], axis: int = 0) -> Cplx:
     return Cplx(torch.cat([x.re for x in xs], dim=axis), torch.cat([x.im for x in xs], dim=axis))
+
+
+# the complex einsum lives beside the f32-pinned real einsum it is made of;
+# imported last, as ops/ imports this module's names first
+from pulser_diff_torch.ops.apply import ceinsum  # noqa: E402,F401

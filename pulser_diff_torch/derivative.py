@@ -18,7 +18,6 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
 
 
 def _fix_border_vals(deriv: np.ndarray, border_indices: Sequence[int], dt: float) -> np.ndarray:
@@ -46,7 +45,9 @@ def deriv_time(f: Callable[[torch.Tensor], torch.Tensor], times,
     real function ``f`` (times (n,) -> values (n,)) with an all-ones
     cotangent.  With ``pulse_endtimes`` (``TorchEmulator.endtimes``) the
     boundary samples are rebuilt by linear extrapolation."""
-    t = torch.as_tensor(times, dtype=DTYPE).detach().clone().requires_grad_(True)
+    # the times keep a tensor's dtype, as jax.vjp keeps them
+    dt = times.dtype if isinstance(times, torch.Tensor) else torch.float64
+    t = torch.as_tensor(times, dtype=dt).detach().clone().requires_grad_(True)
     val = f(t)
     (res,) = torch.autograd.grad(val, t, torch.ones_like(val))
     if pulse_endtimes is not None:

@@ -11,7 +11,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DeviceLike
 from pulser_diff_torch.ops.linalg import _interpolate_sine_np
 
 
@@ -22,12 +22,12 @@ def ci_mode(ci: bool) -> bool:
 
 def knots(values, device: DeviceLike) -> torch.Tensor:
     """An f64 tensor of ``values`` on ``device``."""
-    return torch.as_tensor(values, dtype=DTYPE, device=device)
+    return torch.as_tensor(values, dtype=torch.float64, device=device)
 
 
 def sine_drive(params: torch.Tensor, duration: int) -> torch.Tensor:
     """``duration`` samples sine-interpolated from the knots ``params``."""
-    m = torch.as_tensor(_interpolate_sine_np(int(params.shape[0]), duration), dtype=DTYPE,
+    m = torch.as_tensor(_interpolate_sine_np(int(params.shape[0]), duration), dtype=torch.float64,
                         device=params.device)
     return m @ params
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from pulser_diff_torch import TorchEmulator
-from pulser_diff_torch.config import DTYPE, DeviceLike
+from pulser_diff_torch.config import DeviceLike
 from pulser_diff_torch.core import Register
 from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.examples._common import (
@@ -58,7 +58,7 @@ def gate_emulator(params, coords, duration: int, device: DeviceLike) -> TorchEmu
     """The emulator of the gate pulse for knots ``params`` = (amplitude,
     detuning), its initial state the identity (one state a column)."""
     sim = sweep_emulator(Register(coords), *params, duration, SAMPLING_RATE, device)
-    eye = torch.eye(2 ** len(coords), dtype=DTYPE, device=sim.torch_device)
+    eye = torch.eye(2 ** len(coords), dtype=torch.float64, device=sim.torch_device)
     sim.set_initial_state(Cplx(eye, torch.zeros_like(eye)))
     return sim
 
@@ -67,7 +67,7 @@ def overlap_fidelity(states: Cplx, target: np.ndarray) -> torch.Tensor:
     """|tr(U_target^H U)|^2 / d^2 of the last evolved gate matrix U (the
     target is real)."""
     u = states[states.re.shape[0] - 1]
-    tgt = torch.as_tensor(target, dtype=DTYPE, device=u.re.device)
+    tgt = torch.as_tensor(target, dtype=torch.float64, device=u.re.device)
     ov_re = torch.sum(tgt * u.re)
     ov_im = torch.sum(tgt * u.im)
     return (ov_re**2 + ov_im**2) / target.shape[0] ** 2

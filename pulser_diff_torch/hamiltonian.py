@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
@@ -116,10 +116,10 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
     noise = config.noise_types
 
     def rate(x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=DTYPE).to(device)
+        return torch.as_tensor(x, dtype=default_dtype()).to(device)
 
     def op(mat) -> Cplx:
-        return as_cplx(mat, dtype=DTYPE, device=device).to(device=device)
+        return as_cplx(mat, dtype=default_dtype(), device=device).to(device=device)
 
     def pauli(p: str) -> Cplx:
         """A Pauli matrix on the first two levels of a site."""
@@ -176,9 +176,9 @@ def zero_noise_draws(n_qubits: int, n_slots: int, device: DeviceLike = None) -> 
     """The draws of a noiseless run, on ``device`` (CUDA unless given)."""
     device = resolve_device(device)
     return NoiseDraws(
-        bad_atoms=torch.zeros(n_qubits, dtype=DTYPE, device=device),
-        doppler=torch.zeros(n_qubits, dtype=DTYPE, device=device),
-        amp_factors=torch.ones(max(n_slots, 1), dtype=DTYPE, device=device),
+        bad_atoms=torch.zeros(n_qubits, dtype=default_dtype(), device=device),
+        doppler=torch.zeros(n_qubits, dtype=default_dtype(), device=device),
+        amp_factors=torch.ones(max(n_slots, 1), dtype=default_dtype(), device=device),
     )
 
 
@@ -193,17 +193,17 @@ def draw_noise(gen: torch.Generator, config: NoiseModel, n_qubits: int,
     draws = zero_noise_draws(n_qubits, n_slots, dev)
 
     def param(x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=DTYPE).to(dev)
+        return torch.as_tensor(x, dtype=default_dtype()).to(dev)
 
     if "SPAM" in config.noise_types:
-        u = torch.rand(n_qubits, generator=gen, dtype=DTYPE, device=dev)
-        draws = draws._replace(bad_atoms=(u < param(config.state_prep_error)).to(DTYPE))
+        u = torch.rand(n_qubits, generator=gen, dtype=default_dtype(), device=dev)
+        draws = draws._replace(bad_atoms=(u < param(config.state_prep_error)).to(default_dtype()))
     if "doppler" in config.noise_types:
         sigma = doppler_sigma(param(config.temperature) * 1e-6)  # uK -> K
-        z = torch.randn(n_qubits, generator=gen, dtype=DTYPE, device=dev)
+        z = torch.randn(n_qubits, generator=gen, dtype=default_dtype(), device=dev)
         draws = draws._replace(doppler=sigma * z)
     if "amplitude" in config.noise_types:
-        z = torch.randn(max(n_slots, 1), generator=gen, dtype=DTYPE, device=dev)
+        z = torch.randn(max(n_slots, 1), generator=gen, dtype=default_dtype(), device=dev)
         draws = draws._replace(amp_factors=torch.clamp(1.0 + param(config.amp_sigma) * z, min=0.0))
     return draws
 
@@ -237,7 +237,7 @@ class Hamiltonian:
         self.samples_obj = samples_obj
         self.torch_device = torch_device
         self._qdict = {
-            k: torch.as_tensor(v, dtype=DTYPE).to(torch_device) for k, v in qdict.items()
+            k: torch.as_tensor(v, dtype=default_dtype()).to(torch_device) for k, v in qdict.items()
         }
         self._device = device
         self._sampling_rate = sampling_rate
@@ -332,10 +332,11 @@ class Hamiltonian:
         self._basis_labels = labels
         dev = self.torch_device
         self.basis = {b: basis_state(dim, i, device=dev) for i, b in enumerate(labels)}
-        self.op_matrix: dict[str, Cplx] = {"I": as_cplx(np.eye(dim), dtype=DTYPE, device=dev)}
+        self.op_matrix: dict[str, Cplx] = {
+            "I": as_cplx(np.eye(dim), dtype=default_dtype(), device=dev)}
         for proj in projectors:
             self.op_matrix["sigma_" + proj] = as_cplx(
-                _local_op_np(dim, labels, "sigma_" + proj), dtype=DTYPE, device=dev)
+                _local_op_np(dim, labels, "sigma_" + proj), dtype=default_dtype(), device=dev)
         self._lifts.clear()
         self._stacks.clear()
         self._norms.clear()
@@ -365,7 +366,7 @@ class Hamiltonian:
                     raise ValueError(f"{operator} is not a valid operator")
                 operator = self.op_matrix[operator]
             else:
-                operator = as_cplx(operator, dtype=DTYPE, device=self.torch_device).to(
+                operator = as_cplx(operator, dtype=default_dtype(), device=self.torch_device).to(
                     device=self.torch_device)
             for qubit in qubits:
                 op_list[self._qid_index[qubit]] = operator
@@ -378,7 +379,7 @@ class Hamiltonian:
 
         def H_t(t) -> Cplx:
             return h_matrix(self._ham_data,
-                            torch.as_tensor(t, dtype=DTYPE, device=self.torch_device))
+                            torch.as_tensor(t, dtype=default_dtype(), device=self.torch_device))
 
         return H_t
 
@@ -436,7 +437,7 @@ class Hamiltonian:
                         noise_amp = amp_base
                         if cfg.laser_waist is not None:
                             r = torch.linalg.norm(self._qdict[qid])
-                            w0 = torch.as_tensor(cfg.laser_waist, dtype=DTYPE).to(dev)
+                            w0 = torch.as_tensor(cfg.laser_waist, dtype=default_dtype()).to(dev)
                             noise_amp = amp_base * torch.exp(-((r / w0) ** 2))
                         qs["amp"] = torch.where(win, qs["amp"] * noise_amp, qs["amp"])
                 slot_idx += 1
@@ -468,7 +469,7 @@ class Hamiltonian:
         per term structure."""
         if (group, keys) not in self._stacks:
             self._stacks[group, keys] = torch.as_tensor(
-                np.stack([self._lift(*k, group) for k in keys]), dtype=DTYPE,
+                np.stack([self._lift(*k, group) for k in keys]), dtype=default_dtype(),
                 device=self.torch_device)
         return self._stacks[group, keys]
 
@@ -519,7 +520,7 @@ class Hamiltonian:
                     if key in self._dist_override:
                         ii.append(i)
                         jj.append(j)
-                        vals.append(torch.as_tensor(self._dist_override[key], dtype=DTYPE,
+                        vals.append(torch.as_tensor(self._dist_override[key], dtype=default_dtype(),
                                                     device=coords.device))
             if vals:
                 dist = dist.index_put((torch.as_tensor(ii, device=coords.device),
@@ -527,10 +528,14 @@ class Hamiltonian:
                                       torch.stack(vals))
         self._last_dist = (qids, dist)
         if self._interaction == "ising":
-            w = self._device.interaction_coeff / dist**6
+            # a tensor over a tensor: ``scalar / t`` is reciprocal(t) * scalar,
+            # and reciprocal's backward reads its saved output (as sqrt's)
+            c6 = torch.as_tensor(self._device.interaction_coeff, dtype=dist.dtype,
+                                 device=dist.device)
+            w = c6 / dist**6
         else:
             mag = torch.as_tensor(self.samples_obj._magnetic_field[: coords.shape[-1]],
-                                  dtype=DTYPE, device=coords.device)
+                                  dtype=default_dtype(), device=coords.device)
             mag_norm = torch.linalg.norm(mag)
             # double where: a plain where still propagates the unselected
             # branch's NaN through the gradient when mag_norm == 0 (the
@@ -542,7 +547,7 @@ class Hamiltonian:
             proj = _matmul(diff, mag[:, None])[..., 0]
             cosine = torch.where(degenerate, torch.zeros_like(dist), proj / safe_denom)
             w = self._device.interaction_coeff_xy * (1 - 3 * cosine**2) / dist**3
-        tri = torch.triu(torch.ones(n, n, dtype=DTYPE, device=coords.device), diagonal=1)
+        tri = torch.triu(torch.ones(n, n, dtype=default_dtype(), device=coords.device), diagonal=1)
         return w * tri * (good[:, None] * good[None, :])
 
     @property
@@ -617,8 +622,8 @@ class Hamiltonian:
 
         def _stack_parts(keys, streams, group, g):
             if not keys:
-                z = torch.zeros(1, n_samples, dtype=DTYPE, device=dev)
-                return torch.zeros(1, d**g, d**g, dtype=DTYPE, device=dev), Cplx(z, z)
+                z = torch.zeros(1, n_samples, dtype=default_dtype(), device=dev)
+                return torch.zeros(1, d**g, d**g, dtype=default_dtype(), device=dev), Cplx(z, z)
             return (
                 self._part_stack(tuple(keys), group),
                 Cplx(
@@ -630,7 +635,7 @@ class Hamiltonian:
         rp, rs = _stack_parts(row_keys, row_streams, "row", a)
         cp, cs = _stack_parts(col_keys, col_streams, "col", b)
 
-        int_diag = torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
+        int_diag = torch.zeros(d**a, d**b, dtype=default_dtype(), device=dev)
         kron_row = kron_col = kron_streams = None
         if n > 1 and self.basis_name != "digital":
             W = self._interaction_weights(good)
@@ -663,17 +668,20 @@ class Hamiltonian:
             out = np.zeros((g, d**g)) if g else np.zeros((0, 1))
             for k in range(g):
                 out[k] = np.kron(np.kron(np.ones(d**k), occ_site), np.ones(d ** (g - k - 1)))
-            return torch.as_tensor(out, dtype=DTYPE, device=dev)
+            return torch.as_tensor(out, dtype=default_dtype(), device=dev)
 
         Or, Oc = occ_table(a), occ_table(b)
         W_rr, W_cc, W_rc = W[:a, :a], W[a:, a:], W[:a, a:]
-        zeros1 = torch.zeros(1, dtype=DTYPE, device=dev)
-        diag_r = torch.einsum("ij,ix,jx->x", W_rr, Or, Or) if a else zeros1
-        diag_c = torch.einsum("ij,ix,jx->x", W_cc, Oc, Oc) if b else zeros1
+        zeros1 = torch.zeros(1, dtype=default_dtype(), device=dev)
+        # JAX's three-operand einsums as two-operand mm (``_matmul``): an
+        # einsum saves reshapes that a torch.export trace does not see
+        # sum_ij W_ij O_ix O_jx = sum_i (W @ O)_ix O_ix
+        diag_r = (_matmul(W_rr, Or) * Or).sum(0) if a else zeros1
+        diag_c = (_matmul(W_cc, Oc) * Oc).sum(0) if b else zeros1
         cross = (
-            torch.einsum("ij,ix,jy->xy", W_rc, Or, Oc)
+            _matmul(_matmul(Or.T, W_rc), Oc)  # Or^T W_rc Oc
             if (a and b)
-            else torch.zeros(d**a, d**b, dtype=DTYPE, device=dev)
+            else torch.zeros(d**a, d**b, dtype=default_dtype(), device=dev)
         )
         return diag_r[:, None] + diag_c[None, :] + cross
 
@@ -702,7 +710,7 @@ class Hamiltonian:
             return np.kron(np.kron(np.eye(d**loc), op), np.eye(d ** (g - loc - 1)))
 
         def t(x: np.ndarray) -> torch.Tensor:
-            return torch.as_tensor(x, dtype=DTYPE, device=dev)
+            return torch.as_tensor(x, dtype=default_dtype(), device=dev)
 
         ud_row = [lift(sig_ud, i, a) for i in range(a)]
         du_row = [lift(sig_du, i, a) for i in range(a)]
@@ -713,19 +721,19 @@ class Hamiltonian:
             rows, cols = [], []
             # within-row pairs
             if a >= 2:
-                m = torch.zeros(da, da, dtype=DTYPE, device=dev)
+                m = torch.zeros(da, da, dtype=default_dtype(), device=dev)
                 for i in range(a):
                     for j in range(i + 1, a):
                         m = m + Wset[i, j] * t(ud_row[i] @ du_row[j])
                 rows.append(m)
-                cols.append(torch.eye(db, dtype=DTYPE, device=dev))
+                cols.append(torch.eye(db, dtype=default_dtype(), device=dev))
             # within-col pairs
             if b >= 2:
-                m = torch.zeros(db, db, dtype=DTYPE, device=dev)
+                m = torch.zeros(db, db, dtype=default_dtype(), device=dev)
                 for i in range(b):
                     for j in range(i + 1, b):
                         m = m + Wset[a + i, a + j] * t(ud_col[i] @ du_col[j])
-                rows.append(torch.eye(da, dtype=DTYPE, device=dev))
+                rows.append(torch.eye(da, dtype=default_dtype(), device=dev))
                 cols.append(m)
             # cross pairs grouped by row site
             if a and b:
@@ -751,5 +759,5 @@ class Hamiltonian:
             zs = torch.stack([on] * len(rows_f) + [1.0 - on] * len(rows_m))
         else:
             rows, cols = build_set(W)
-            zs = torch.ones(len(rows), n_samples, dtype=DTYPE, device=dev)
+            zs = torch.ones(len(rows), n_samples, dtype=default_dtype(), device=dev)
         return torch.stack(rows), torch.stack(cols), Cplx(zs, torch.zeros_like(zs))

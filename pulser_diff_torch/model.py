@@ -50,7 +50,7 @@ import torch
 from torch import nn
 
 from pulser_diff_torch.backend import _LINDBLAD_NOISES, TorchEmulator, check_options
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.channels import Rydberg
 from pulser_diff_torch.core.register import Register
@@ -172,7 +172,7 @@ class QuantumModel(nn.Module):
         place, so it never shares the caller's memory)."""
         if isinstance(v, torch.Tensor):
             v = v.detach()
-        return torch.as_tensor(v, dtype=DTYPE, device=self.torch_device).clone()
+        return torch.as_tensor(v, dtype=default_dtype(), device=self.torch_device).clone()
 
     # ------------------------------------------------------------------
     def _build_values(self, params: Mapping[str, Any]) -> dict[str, Any]:
@@ -261,14 +261,16 @@ class QuantumModel(nn.Module):
         total = 0
         for rec in self.seq_abs_repr:
             val = self._param_value(rec["duration"], params)
-            total += int(float(torch.as_tensor(val, dtype=DTYPE).detach()) * 1000)
+            # read on the host in f64, whatever the default dtype
+            total += int(float(torch.as_tensor(val, dtype=torch.float64).detach()) * 1000)
         return total + 5
 
     def _opt_duration_samples(self, params: Mapping[str, Any]):
         """(amp, det, phase) on the padded grid of ``_t_max`` ns: each pulse
         a tanh-edged boxcar from the end of the one before."""
-        t = torch.arange(self._t_max, dtype=DTYPE, device=self.torch_device)
-        amp = det = phase = torch.zeros(self._t_max, dtype=DTYPE, device=self.torch_device)
+        dt = default_dtype()
+        t = torch.arange(self._t_max, dtype=dt, device=self.torch_device)
+        amp = det = phase = torch.zeros(self._t_max, dtype=dt, device=self.torch_device)
         ti: Any = 0
         for rec in self.seq_abs_repr:
             tf = ti + self._param_value(rec["duration"], params)
@@ -385,7 +387,7 @@ class QuantumModel(nn.Module):
         if obs is None:
             obs = total_magnetization(len(self.register.qubit_ids), dense=False,
                                       device=self.torch_device)
-        return as_cplx(obs, dtype=DTYPE).to(device=self.torch_device)
+        return as_cplx(obs, dtype=default_dtype()).to(device=self.torch_device)
 
     def expectation_fn(
         self, obs: Optional[Cplx] = None
@@ -654,7 +656,8 @@ class QuantumModel(nn.Module):
         opt = (optimizer or _adam)(list(stack.values()))
         pop_fn = self.expectation_population_fn(obs)
         n_pop = int(next(iter(stack.values())).shape[0])
-        best_loss = torch.full((n_pop,), math.inf, dtype=DTYPE, device=self.torch_device)
+        best_loss = torch.full((n_pop,), math.inf, dtype=default_dtype(),
+                               device=self.torch_device)
         best_stack = {k: v.detach().clone() for k, v in stack.items()}
         final_stack: dict[str, torch.Tensor] = {}
         draws: dict[int, Optional[NoiseDraws]] = {}

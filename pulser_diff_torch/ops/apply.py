@@ -287,14 +287,35 @@ def _kron_terms_batched(h: FactoredHamiltonian, zk: Cplx, x: torch.Tensor, y: to
         x1, x2 = _mm(_mm(kr, x[None]), kct), _mm(_mm(krt, x[None]), kc)
         y1, y2 = _mm(_mm(kr, y[None]), kct), _mm(_mm(krt, y[None]), kc)
     else:
-        x1 = torch.einsum("kij,bjc,kdc->kbid", KR, x, KC)
-        x2 = torch.einsum("kji,bjc,kcd->kbid", KR, x, KC)
-        y1 = torch.einsum("kij,bjc,kdc->kbid", KR, y, KC)
-        y2 = torch.einsum("kji,bjc,kcd->kbid", KR, y, KC)
+        # JAX's three-operand einsums as two bmm each, on views of the part
+        # matrices and the state: an einsum saves reshapes that a
+        # torch.export trace does not see
+        K, da, db = KR.shape[0], KR.shape[1], KC.shape[1]
+
+        def pairs(u: torch.Tensor):
+            nb = u.shape[0]
+            # u as (da, nb db), one view shared by the K terms
+            uk = u.transpose(0, 1).reshape(da, nb * db).expand(K, da, nb * db)
+
+            def product(r, c):  # r_k u c_k for every k, as (K, nb, da, db)
+                ru = torch.bmm(r, uk).view(K, da * nb, db)
+                return torch.bmm(ru, c).view(K, da, nb, db).transpose(1, 2)
+
+            return product(KR, KC.transpose(1, 2)), product(KR.transpose(1, 2), KC)
+
+        x1, x2 = pairs(x)
+        y1, y2 = pairs(y)
     a, b = zk.re, zk.im
     add_re = _weighted_sum(a, x1 + x2) - _weighted_sum(b, y1 - y2)
     add_im = _weighted_sum(a, y1 + y2) + _weighted_sum(b, x1 - x2)
     return add_re, add_im
+
+
+def h_apply(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx],
+            psi: Cplx) -> Cplx:
+    """H(t) @ psi for one (da, db) state."""
+    out = h_apply_batched(h, zr, zc, zk, Cplx(psi.re[None], psi.im[None]))
+    return Cplx(out.re[0], out.im[0])
 
 
 def h_apply_batched(h: FactoredHamiltonian, zr: Cplx, zc: Cplx, zk: Optional[Cplx],
@@ -341,8 +362,8 @@ def h_matrix(h: FactoredHamiltonian, t: torch.Tensor) -> Cplx:
         # M = sum_k z_k R_k (x) C_k;  H += M + M^H
         kr_full = torch.stack([torch.kron(h.kron_row[k], h.kron_col[k])
                                for k in range(h.kron_row.shape[0])])
-        m_re = torch.einsum("k,kij->ij", zk.re, kr_full)
-        m_im = torch.einsum("k,kij->ij", zk.im, kr_full)
+        m_re = _weighted_sum(zk.re, kr_full)
+        m_im = _weighted_sum(zk.im, kr_full)
         full_re = full_re + m_re + m_re.T
         full_im = full_im + m_im - m_im.T
     return Cplx(full_re, full_im)

@@ -44,7 +44,9 @@ kernel's plan).
 
 Beside each kernel sits its plain PyTorch version (``fused_fwd_plain``,
 ``fused_bwd_plain``, ``fused_fwd_ckpt_plain``, ``fused_bwd_ckpt_plain``),
-which repeats the kernel's arithmetic in the same order.  Each kernel is a
+which repeats the kernel's arithmetic in the same order.  K2's plain
+version also runs the JAX package's wide adjoint interval
+(``form="wide"``), an oracle that no kernel runs.  Each kernel is a
 ``torch.library`` custom op (``pulser_diff_torch::fused_fwd``,
 ``::fused_bwd``, ``::fused_fwd_ckpt``, ``::fused_bwd_ckpt``) whose "cpu"
 implementation is the plain version and whose "cuda" one launches the
@@ -165,9 +167,13 @@ def _precompute_stage_z(ham: FactoredHamiltonian, grid_times: torch.Tensor,
 
 
 def _split_hi_lo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two-word f32 split of an f64 tensor: hi = f32(x), lo = f32(x - hi)."""
+    """Two-word f32 split: hi = f32(x), lo = f32(x - hi), the difference
+    taken in f64 whatever the default dtype.  Under an f32 default the
+    data is f32 already, so hi = x and lo = 0, which the kernels take as
+    they take any low word."""
+    x = x.to(torch.float64)
     hi = x.to(torch.float32)
-    lo = (x - hi.to(x.dtype)).to(torch.float32)
+    lo = (x - hi.to(torch.float64)).to(torch.float32)
     return hi, lo
 
 
@@ -586,6 +592,48 @@ def fused_fwd_ckpt_plain(data: dict, method: str, lo: bool = False):
     return tuple(outs)
 
 
+def _stage_rows(run: _PlainRun, side, gx, gy, ux, uy, kbar) -> torch.Tensor:
+    """One stage's cotangent row (2pr + 2pc + 2K,) for the stage cotangent
+    g = (gx, gy) and the stage input u = (ux, uy): the outer products
+    summed over the batch, against each part; with kron pairs the kron
+    stream rows, and the part-matrix cotangents added to ``kbar``.  Both
+    adjoint forms pack their rows with it, as the JAX package's share
+    ``_stage_cotangent_rows``."""
+    pr, pc = run.rsym.shape[0], run.csym.shape[0]
+    W = torch.zeros_like(run.rsym[0])
+    V = torch.zeros_like(W)
+    Wc = torch.zeros_like(run.csym[0])
+    Vc = torch.zeros_like(Wc)
+    for b in range(gx.shape[0]):
+        W = W + (gx[b] @ uy[b].T - gy[b] @ ux[b].T)
+        V = V + (gx[b] @ ux[b].T + gy[b] @ uy[b].T)
+        Wc = Wc + (uy[b].T @ gx[b] - ux[b].T @ gy[b])
+        Vc = Vc + (ux[b].T @ gx[b] + uy[b].T @ gy[b])
+    rows = []
+    for p in range(pr):
+        rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
+    for p in range(pc):
+        rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
+    if run.K:
+        rows += run.kron_cotangents(side[4], gx, gy, ux, uy, *kbar)
+    return torch.stack(rows)
+
+
+def _stage_cotangent(lx, ly, w, h, bhl, A, B, S, s: int):
+    """The cotangent of stage s: h b_s lam' + sum_{r>s} h a_rs w_r."""
+    if B[s] != 0.0:
+        gx, gy = lx * bhl[s], ly * bhl[s]
+    else:
+        gx, gy = torch.zeros_like(lx), torch.zeros_like(ly)
+    for rr in range(s + 1, S):
+        a = A[rr][s]
+        if a != 0.0:
+            c = float(_f32(a) * h)
+            gx = gx + w[rr][0] * c
+            gy = gy + w[rr][1] * c
+    return gx, gy
+
+
 def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B, S,
                         zrow: torch.Tensor, kbar=None):
     """Phases 2-3 of one adjoint step from the step's START state (x, y):
@@ -595,8 +643,6 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
     accumulate into ``kbar`` = (krbar, kcbar) of the run.  Shared by K2's
     and K5's plain versions, as the JAX package shares ``_adjoint_core``.
     Returns (lx', ly', dacc')."""
-    nb = x.shape[0]
-    pr, pc = run.rsym.shape[0], run.csym.shape[0]
     # forward stage inputs (the last stage's product is dead)
     us, fk = [], []
     for s in range(S):
@@ -606,43 +652,63 @@ def _adjoint_core_plain(run: _PlainRun, k: int, x, y, lx, ly, dacc, h, bhl, A, B
     # reversed transpose recursion with the cotangent work
     w = [None] * S
     for s in reversed(range(S)):
-        if B[s] != 0.0:
-            gx, gy = lx * bhl[s], ly * bhl[s]
-        else:
-            gx, gy = torch.zeros_like(lx), torch.zeros_like(ly)
-        for rr in range(s + 1, S):
-            a = A[rr][s]
-            if a != 0.0:
-                c = float(_f32(a) * h)
-                gx = gx + w[rr][0] * c
-                gy = gy + w[rr][1] * c
+        gx, gy = _stage_cotangent(lx, ly, w, h, bhl, A, B, S, s)
         # F^T = -F for the real form of -iH (H hermitian)
         side = run.side(k, s)
         kx, ky = run.apply_minus_iH(side, gx, gy)
         w[s] = (-kx, -ky)
         ux, uy = us[s]
         dacc = dacc + (gx * uy - gy * ux).sum(0)
-        W = torch.zeros_like(run.rsym[0])
-        V = torch.zeros_like(W)
-        Wc = torch.zeros_like(run.csym[0])
-        Vc = torch.zeros_like(Wc)
-        for b in range(nb):
-            W = W + (gx[b] @ uy[b].T - gy[b] @ ux[b].T)
-            V = V + (gx[b] @ ux[b].T + gy[b] @ uy[b].T)
-            Wc = Wc + (uy[b].T @ gx[b] - ux[b].T @ gy[b])
-            Vc = Vc + (ux[b].T @ gx[b] + uy[b].T @ gy[b])
-        rows = []
-        for p in range(pr):
-            rows += [(run.rsym[p] * W).sum(), (run.rasym[p] * V).sum()]
-        for p in range(pc):
-            rows += [(run.csym[p] * Wc).sum(), ((-run.casym[p]) * Vc).sum()]
-        if run.K:
-            rows += run.kron_cotangents(side[4], gx, gy, ux, uy, *kbar)
-        zrow[s] = torch.stack(rows)
+        zrow[s] = _stage_rows(run, side, gx, gy, ux, uy, kbar)
     # costate update
     for s in range(S):
         lx, ly = lx + w[s][0], ly + w[s][1]
     return lx, ly, dacc
+
+
+def _reconstruct_plain(run: _PlainRun, sides_b, x, y, h, bhl, A, B, S):
+    """A step's start state from its end state (x, y): the same tableau
+    with step -h on the mirror-node sides ``sides_b``."""
+    rk = []
+    for s in range(S):
+        xs, ys = _combine(x, y, rk, _stage_coeffs(A, s, h), sign=-1.0)
+        rk.append(run.apply_minus_iH(sides_b[s], xs, ys))
+    return _combine(x, y, rk, [bhl[s] if B[s] != 0.0 else 0.0 for s in range(S)], sign=-1.0)
+
+
+def _bwd_interval_wide_plain(run: _PlainRun, k: int, x1, y1, lx, ly, dacc, h, bhl, A, B, S,
+                             zrow: torch.Tensor, kbar=None):
+    """One adjoint step in the JAX package's wide form
+    (``_bwd_interval_wide``, run there under ``PDT_KERNEL_WIDE_ADJ=1``):
+    all 2S stage sides assembled up front, the start state rebuilt on the
+    mirror nodes, every stage recomputed, the exact transpose of the stage
+    recursion, then the cotangent pass as a phase of its own, stage by
+    stage in forward order.  The lean form (:func:`_adjoint_core_plain`,
+    K2's) does the same arithmetic but adds ``dacc`` and the kron
+    part-matrix cotangents in reversed stage order.  A test oracle: no
+    kernel runs this form.  Returns (x0, y0, lx', ly', dacc')."""
+    sides = [run.side(k, s) for s in range(S)]
+    sides_b = [run.side(k, s, mirror=True) for s in range(S)]
+    x0, y0 = _reconstruct_plain(run, sides_b, x1, y1, h, bhl, A, B, S)
+    # forward stage inputs, every stage's product
+    us, fk = [], []
+    for s in range(S):
+        us.append(_combine(x0, y0, fk, _stage_coeffs(A, s, h)))
+        fk.append(run.apply_minus_iH(sides[s], *us[s]))
+    # exact transpose of the stage recursion
+    kb, w = [None] * S, [None] * S
+    for s in reversed(range(S)):
+        kb[s] = _stage_cotangent(lx, ly, w, h, bhl, A, B, S, s)
+        kx, ky = run.apply_minus_iH(sides[s], *kb[s])
+        w[s] = (-kx, -ky)
+    for s in range(S):
+        lx, ly = lx + w[s][0], ly + w[s][1]
+    # the cotangent pass, in stage order
+    for s in range(S):
+        (gx, gy), (ux, uy) = kb[s], us[s]
+        zrow[s] = _stage_rows(run, sides[s], gx, gy, ux, uy, kbar)
+        dacc = dacc + (gx * uy - gy * ux).sum(0)
+    return x0, y0, lx, ly, dacc
 
 
 def _bwd_outputs(data: dict, S: int):
@@ -670,10 +736,14 @@ def _step_weights(data: dict, S: int):
 
 
 def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
-                    last_slot: int, st_re, st_im, lam_re, lam_im):
+                    last_slot: int, st_re, st_im, lam_re, lam_im, form: str = "lean"):
     """Plain version of K2.  Returns (lam0_re, lam0_im, zbar, dbar) with
     zbar (R, n_steps, S, 2pr + 2pc + 2K) and dbar (R, da, db), then
-    (krbar, kcbar) with kron pairs."""
+    (krbar, kcbar) with kron pairs.  ``form="wide"`` runs each step as the
+    JAX package's wide adjoint interval (:func:`_bwd_interval_wide_plain`),
+    the oracle K2's lean form is held against."""
+    if form not in ("lean", "wide"):
+        raise ValueError(f"form must be 'lean' or 'wide', not {form!r}")
     A, B, S = _tableau(method)
     R, n_steps, pr, pc, nb, da, db = _dims(data)
     sl = [int(v) for v in slots.tolist()]
@@ -689,16 +759,16 @@ def fused_bwd_plain(data: dict, method: str, slots: torch.Tensor, n_eval: int,
         for k in reversed(range(n_steps)):
             h = _f32(hs[k])
             bhl = bhl_all[k]
-            # 1. reconstruct the step's start state on the mirror streams
-            rk = []
-            for s in range(S):
-                xs, ys = _combine(x, y, rk, _stage_coeffs(A, s, h), sign=-1.0)
-                rk.append(run.apply_minus_iH(run.side(k, s, mirror=True), xs, ys))
-            x, y = _combine(x, y, rk, [bhl[s] if B[s] != 0.0 else 0.0 for s in range(S)],
-                            sign=-1.0)
-            # 2-3. stage recompute, transpose recursion, costate update
-            lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, h, bhl, A, B, S,
-                                               zbar[r, k], kbar)
+            if form == "wide":
+                x, y, lx, ly, dacc = _bwd_interval_wide_plain(
+                    run, k, x, y, lx, ly, dacc, h, bhl, A, B, S, zbar[r, k], kbar)
+            else:
+                # 1. reconstruct the step's start state on the mirror streams
+                sides_b = [run.side(k, s, mirror=True) for s in range(S)]
+                x, y = _reconstruct_plain(run, sides_b, x, y, h, bhl, A, B, S)
+                # 2-3. stage recompute, transpose recursion, costate update
+                lx, ly, dacc = _adjoint_core_plain(run, k, x, y, lx, ly, dacc, h, bhl, A, B,
+                                                   S, zbar[r, k], kbar)
             # 4. the stored state / slot cotangent
             if sl[k] < n_eval:
                 x, y = st_re[r, sl[k]], st_im[r, sl[k]]

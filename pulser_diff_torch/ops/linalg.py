@@ -14,7 +14,7 @@ from math import pi, prod, sin
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx, ckron
 
 IMAT = as_cplx(np.eye(2))
@@ -26,7 +26,7 @@ HMAT = as_cplx(np.array([[1, 1], [1, -1]]) / np.sqrt(2.0))
 
 def kron(*args) -> Cplx:
     """Dense Kronecker product of any number of (split-)complex matrices."""
-    return reduce(ckron, [as_cplx(a) for a in args])
+    return reduce(ckron, [as_cplx(a, dtype=default_dtype()) for a in args])
 
 
 @lru_cache
@@ -41,7 +41,7 @@ def _total_magnetization_diag_np(n_qubits: int) -> np.ndarray:
 
 def total_magnetization_diag(n_qubits: int, device: DeviceLike = None) -> torch.Tensor:
     """The diagonal of sum_i Z_i, on ``device`` (CUDA unless given)."""
-    return torch.as_tensor(_total_magnetization_diag_np(n_qubits), dtype=DTYPE,
+    return torch.as_tensor(_total_magnetization_diag_np(n_qubits), dtype=default_dtype(),
                            device=resolve_device(device))
 
 
@@ -56,7 +56,8 @@ def total_magnetization(
         dense = n_qubits <= 12
     if not dense:
         return Cplx(d, torch.zeros_like(d))
-    return Cplx(torch.diag(d), torch.zeros(d.shape[0], d.shape[0], dtype=DTYPE, device=device))
+    return Cplx(torch.diag(d),
+                torch.zeros(d.shape[0], d.shape[0], dtype=default_dtype(), device=device))
 
 
 def expect(obs: Cplx, states: Cplx) -> Cplx:
@@ -69,7 +70,7 @@ def expect(obs: Cplx, states: Cplx) -> Cplx:
     (n_t, dim, dim, n_batch), sum_k tr(O rho_k).  A 1-D ``obs`` of shape
     (dim,) is the diagonal operator diag(obs).
     """
-    obs = as_cplx(obs, dtype=DTYPE).to(device=states.device)
+    obs = as_cplx(obs, dtype=default_dtype()).to(device=states.device)
     if states.ndim == 2 and states.shape[-1] != states.shape[-2]:
         states = states.reshape(states.shape + (1,))
     if states.ndim == 4:
@@ -145,7 +146,7 @@ def basis_state(dim: int | tuple[int, ...], number: int | tuple[int, ...],
         n = d * n + s_
     ket = np.zeros((prod(dim), 1))
     ket[n] = 1.0
-    return as_cplx(ket, device=device)
+    return as_cplx(ket, dtype=default_dtype(), device=device)
 
 
 def s(t: float) -> float:
@@ -174,5 +175,5 @@ def interpolate_sine(num_values: int, duration: int, device: DeviceLike = None) 
     ``interpolate_sine(n, T) @ values``."""
     device = resolve_device(device)
     return torch.as_tensor(
-        _interpolate_sine_np(num_values, duration), dtype=DTYPE, device=device
+        _interpolate_sine_np(num_values, duration), dtype=default_dtype(), device=device
     )

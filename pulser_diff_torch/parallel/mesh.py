@@ -39,7 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.hamiltonian import draw_noise
 from pulser_diff_torch.ops.linalg import expect as _expect
@@ -293,7 +293,7 @@ def sharded_expectation_step(
     parameter gradients are summed over the runs axis, so every rank
     takes the same optimiser step and keeps the same parameters.
     """
-    obs = as_cplx(obs, dtype=DTYPE).to(device=model.torch_device)
+    obs = as_cplx(obs, dtype=default_dtype()).to(device=model.torch_device)
     params = list(model.params.values())
     opt = optimizer(params)
     group = mesh.get_group(runs_axis)

@@ -19,8 +19,8 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DTYPE
-from pulser_diff_torch.cplx import Cplx, as_cplx, cstack
+from pulser_diff_torch.config import default_dtype
+from pulser_diff_torch.cplx import Cplx, as_cplx, cmatmul, cstack
 from pulser_diff_torch.ops.linalg import expect as _expect
 from pulser_diff_torch.result import QuantumResult
 from pulser_diff_torch.simconfig import host_float
@@ -75,6 +75,12 @@ class SimulationResults:
     def states(self) -> Cplx:
         raise NotImplementedError
 
+    def get_state(self, t: float) -> Cplx:
+        raise NotImplementedError
+
+    def get_final_state(self) -> Cplx:
+        raise NotImplementedError
+
     def expect(self, obs_list: Sequence) -> list[Cplx]:
         """Expectation values of each observable over time; a 1-D
         observable of shape (dim**size,) is its diagonal.  On the
@@ -86,7 +92,7 @@ class SimulationResults:
         legal = (dim**self._size, dim**self._size)
         out = []
         for obs in obs_list:
-            obs = as_cplx(obs, dtype=DTYPE)
+            obs = as_cplx(obs, dtype=default_dtype())
             if obs.shape not in (legal, legal[:1]):
                 raise ValueError(
                     f"Incompatible shape of observable. Expected {legal} or "
@@ -107,6 +113,15 @@ class SimulationResults:
 
     def sample_final_state(self, N_samples: int = 1000) -> Counter:
         return self.sample_state(float(self._sim_times[-1]), N_samples)
+
+    def plot(self, op, fmt: str = "", label: str = "") -> None:
+        """Plot the expectation value of ``op`` over the simulation times."""
+        import matplotlib.pyplot as plt
+
+        vals = self.expect([op])[0]
+        plt.plot(np.asarray(self._sim_times), vals.re.detach().cpu().numpy(), fmt, label=label)
+        plt.xlabel("Time (µs)")
+        plt.ylabel("Expectation value")
 
     def _get_index_from_time(self, t_float: float, tol: float = 1e-3) -> int:
         hits = np.where(np.abs(t_float - np.asarray(self._sim_times)) < tol)[0]
@@ -131,7 +146,7 @@ class SimulationResults:
     def _calc_pseudo_density(self, t_index: int) -> Cplx:
         """Diagonal (2^n, 2^n) pseudo-density from the measurement weights."""
         w = self._weights_at(t_index)
-        K1 = torch.as_tensor(self._meas_kernel_1q(), dtype=DTYPE, device=w.device)
+        K1 = torch.as_tensor(self._meas_kernel_1q(), dtype=default_dtype(), device=w.device)
         K = K1
         for _ in range(self._size - 1):
             K = torch.kron(K, K1)
@@ -174,13 +189,33 @@ class NoisyResults(SimulationResults):
         w = np.zeros(2**self._size)
         for b, p in self[t_index].sampling_dist.items():
             w[int(b, 2)] = p
-        return torch.as_tensor(w, dtype=DTYPE)
+        return torch.as_tensor(w, dtype=default_dtype())
 
     def get_state(self, t: float, t_tol: float = 1e-3) -> Cplx:
         return self._calc_pseudo_density(self._get_index_from_time(t, t_tol))
 
     def get_final_state(self) -> Cplx:
         return self.get_state(float(self._sim_times[-1]))
+
+    def plot(self, op, fmt: str = ".", label: str = "", error_bars: bool = True) -> None:
+        """The expectation value of ``op`` over time, with error bars of
+        one standard error over ``n_measures`` shots (from <O^2> - <O>^2
+        on the diagonal pseudo-densities)."""
+        import matplotlib.pyplot as plt
+
+        if not error_bars:
+            super().plot(op, fmt, label)
+            return
+        moy = self.expect([op])[0]
+        opc = as_cplx(op, dtype=default_dtype())
+        # a 1-D op is diag(op): O^2 squares elementwise
+        o2 = opc * opc if opc.ndim == 1 else cmatmul(opc, opc)
+        var = self.expect([o2])[0].re - moy.re**2
+        st = np.sqrt(np.clip(var.detach().cpu().numpy(), 0, None) / self.n_measures)
+        plt.errorbar(np.asarray(self._sim_times), moy.re.detach().cpu().numpy(), st, fmt=fmt,
+                     lw=1, capsize=3, label=label)
+        plt.xlabel("Time (µs)")
+        plt.ylabel("Expectation value")
 
 
 class CoherentResults(SimulationResults):

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from pulser_diff_torch.config import DTYPE, DeviceLike, resolve_device
+from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
 from pulser_diff_torch.cplx import Cplx, cstack
 from pulser_diff_torch.hamiltonian import CollapseOps
 from pulser_diff_torch.ops.apply import (
@@ -117,10 +117,10 @@ class TimeGrid:
             [np.full(len(s_np), n_eval, dtype=np.int32), np.arange(n_eval, dtype=np.int32)]
         )
         return TimeGrid(
-            times=torch.as_tensor(merged[perm], dtype=DTYPE, device=device),
+            times=torch.as_tensor(merged[perm], dtype=default_dtype(), device=device),
             write_slots=src_slot[perm],
             n_eval=n_eval,
-            sampling_times=torch.as_tensor(s_np, dtype=DTYPE, device=device),
+            sampling_times=torch.as_tensor(s_np, dtype=default_dtype(), device=device),
             perm=perm,
         )
 
@@ -133,7 +133,7 @@ class TimeGrid:
             raise ValueError("TimeGrid was not built by TimeGrid.make().")
         dev = self.sampling_times.device
         times = torch.cat([self.sampling_times,
-                           torch.as_tensor(eval_times, dtype=DTYPE).to(dev)])
+                           torch.as_tensor(eval_times, dtype=default_dtype()).to(dev)])
         return TimeGrid(times=times[torch.as_tensor(self.perm, device=dev)],
                         write_slots=self.write_slots, n_eval=self.n_eval,
                         sampling_times=self.sampling_times, perm=self.perm)

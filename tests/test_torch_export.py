@@ -3,13 +3,14 @@
 pulser_diff_tpu/utils/export.py) and the fused kernels as ``torch.library``
 custom ops (``pulser_diff_torch::fused_*``, ops/fused_evolution.py).
 
-The ports of tests/test_misc.py's export tests: the 2-atom step on the
-default route (the f64 stepper) and on ``DP5_SE_F32`` is exported,
-reloaded and held bit for bit against the port's eager step, and against
-JAX's jitted step on the same pulse.  The steppers' loop unrolls under the
-trace (its export time grows with the steps), so those two hold both
-packages at ``SHORT_NS``; the fused route (K1/K2, K4/K5, and with kron
-pairs), whose loop lives inside one op, runs at JAX's 200 ns.
+The fused route (K1/K2, K4/K5, with kron pairs, and with trainable
+coordinates in the ising basis), whose loop lives inside one op, is
+exported at JAX's 200 ns, reloaded and held bit for bit against the
+port's eager step, and against JAX's jitted step on the same pulse.  One
+right-hand side of the f64 XY stepper (the Hamiltonian built from the
+coordinates, ``h_apply_batched`` once, its coordinate gradient) exports
+too.  The ports of tests/test_misc.py's two export tests on the steppers,
+whose loop unrolls under the trace, are in test_torch_export_steppers.py.
 """
 
 import json
@@ -29,25 +30,22 @@ from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.model import QuantumModel
 from pulser_diff_torch.ops import fused_evolution as tfe
 from pulser_diff_torch.ops import total_magnetization
+from pulser_diff_torch.ops.apply import h_apply_batched, interp_streams
 from pulser_diff_torch.solvers import TimeGrid
 from pulser_diff_torch.utils import export_step, load_meta, load_step
+from pulser_diff_tpu.cplx import Cplx as JCplx
 from pulser_diff_tpu.model import QuantumModel as JModel
 from pulser_diff_tpu.ops import total_magnetization as j_total_mag
+from pulser_diff_tpu.ops.apply import h_apply_batched as j_h_apply_batched
+from pulser_diff_tpu.ops.apply import interp_streams as j_interp_streams
 
-from tests.test_torch_f32 import GRAD_REL_TOL, STATE_TOL
 from tests.test_torch_model import FUSED_TOL
-from tests.torch_port_cases import emulators, xy_emulators
+from tests.torch_port_cases import emulators, random_state, xy_emulators
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# the f64 and f32 steppers' pulse: the shortest the sampler takes (4
-# samples at 1 GHz).  The trace records every op of every stage of every
-# step: on one CPU thread the f64 step took 53.3 s to export and 28.4 s to
-# reload at 4 ns (4 steps, 16720 graph nodes), 112.3 s and 71.8 s at 8 ns
-# (export_timing.py).
-SHORT_NS = 4
 # the fused route: one op holds the loop, at JAX's pulse
 FUSED_NS = 200
 # f64 on both sides: the same steps in another order of products
@@ -70,17 +68,21 @@ def _sequence(core, duration: int, xy: bool = False):
     return seq
 
 
-def _params(xy: bool) -> dict:
+def _params(xy: bool, coords: bool = False) -> dict:
+    """The trainable values: ``om``, and q1's coordinates in XY mode or
+    with ``coords``."""
     p = {"om": 1.8}
     if xy:
         p["q1"] = np.asarray(XY_COORDS[1])
+    elif coords:
+        p["q1"] = np.array([4.0, 0.0])
     return p
 
 
-def _jax_step(duration: int, xy: bool = False, **options):
+def _jax_step(duration: int, xy: bool = False, coords: bool = False, **options):
     """JAX's jitted value+grad of the last expectation value, as
     tests/test_misc.py builds it: (value, {name: grad})."""
-    p0 = {k: jnp.asarray(v) for k, v in _params(xy).items()}
+    p0 = {k: jnp.asarray(v) for k, v in _params(xy, coords).items()}
     model = JModel(_sequence(jcore, duration, xy), dict(p0), **options)
     exp_fn = model.expectation_fn(j_total_mag(2))
 
@@ -92,10 +94,11 @@ def _jax_step(duration: int, xy: bool = False, **options):
     return float(v), {k: np.asarray(x) for k, x in g.items()}
 
 
-def _port_step(duration: int, xy: bool = False, **options):
+def _port_step(duration: int, xy: bool = False, coords: bool = False, **options):
     """The port's value+grad step (params -> (value, {name: grad})) and its
     example input."""
-    model = QuantumModel(_sequence(tcore, duration, xy), _params(xy), device="cpu", **options)
+    model = QuantumModel(_sequence(tcore, duration, xy), _params(xy, coords), device="cpu",
+                         **options)
     exp_fn = model.expectation_fn(total_magnetization(2, device="cpu"))
 
     def step(p):
@@ -104,7 +107,7 @@ def _port_step(duration: int, xy: bool = False, **options):
         grads = torch.autograd.grad(vals[-1], list(q.values()))
         return vals[-1].detach(), {k: g.detach() for k, g in zip(q, grads)}
 
-    p0 = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in _params(xy).items()}
+    p0 = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in _params(xy, coords).items()}
     return step, p0
 
 
@@ -124,35 +127,6 @@ def _assert_same(got, want) -> None:
     assert got[1].keys() == want[1].keys()
     for k in want[1]:
         assert torch.equal(got[1][k], want[1][k]), (k, got[1][k], want[1][k])
-
-
-def test_export_step_roundtrip(tmp_path):
-    """The default route (the f64 stepper): exported, reloaded, equal to
-    the eager step bit for bit and to JAX's jitted step at 1e-12; the
-    export leaves the model's eager step as it was."""
-    step, p0 = _port_step(SHORT_NS)
-    before = step(p0)
-    path, meta, got = _roundtrip(tmp_path, "step", step, p0)
-    assert meta["custom_ops"] == [] and meta["out_avals"] == ["float64[]", "float64[]"]
-    after = step(p0)
-    _assert_same(after, before)
-    _assert_same(got, after)
-    jv, jg = _jax_step(SHORT_NS)
-    assert abs(float(got[0]) - jv) < F64_TOL
-    assert abs(float(got[1]["om"]) - float(jg["om"])) < F64_TOL
-    assert abs(float(got[1]["om"])) > 1e-6  # the gradient is there
-
-
-def test_export_step_f32_solver(tmp_path):
-    """DP5_SE_F32 (the f32 stepper) exports and reloads like the f64 one:
-    equal to the eager step bit for bit, to JAX's within
-    tests/test_torch_f32.py's tolerances."""
-    step, p0 = _port_step(SHORT_NS, solver="DP5_SE_F32")
-    _, _, got = _roundtrip(tmp_path, "step32", step, p0)
-    _assert_same(got, step(p0))
-    jv, jg = _jax_step(SHORT_NS, solver="DP5_SE_F32")
-    assert abs(float(got[0]) - jv) < STATE_TOL * abs(jv) * 10
-    assert abs(float(got[1]["om"]) - float(jg["om"])) / abs(float(jg["om"])) < GRAD_REL_TOL
 
 
 def test_load_step_device_check(tmp_path, monkeypatch):
@@ -179,10 +153,13 @@ def test_load_step_device_check(tmp_path, monkeypatch):
     assert load_meta(path)["custom_ops"] == []
 
 
+# (options, XY mode, q1's coordinates trainable, the graph's ops)
 FUSED_CASES = {
-    "K1/K2": ({"solver": "DP5_PALLAS"}, False, ("fused_bwd", "fused_fwd")),
-    "K4/K5": ({"solver": "DP5_PALLAS", "ckpt": True}, False, ("fused_bwd_ckpt", "fused_fwd_ckpt")),
-    "K1/K2 kron": ({"solver": "DP5_PALLAS"}, True, ("fused_bwd", "fused_fwd")),
+    "K1/K2": ({"solver": "DP5_PALLAS"}, False, False, ("fused_bwd", "fused_fwd")),
+    "K4/K5": ({"solver": "DP5_PALLAS", "ckpt": True}, False, False,
+              ("fused_bwd_ckpt", "fused_fwd_ckpt")),
+    "K1/K2 kron": ({"solver": "DP5_PALLAS"}, True, True, ("fused_bwd", "fused_fwd")),
+    "K1/K2 coords": ({"solver": "DP5_PALLAS"}, False, True, ("fused_bwd", "fused_fwd")),
 }
 
 
@@ -192,19 +169,106 @@ def test_export_fused_route(tmp_path, case):
     exported graph holds the forward op and its adjoint, the reloaded step
     equals the eager step bit for bit, and the eager step equals JAX's
     fused step (Pallas in interpret mode) within tests/test_torch_model.py's
-    parity; with kron pairs the coordinate gradient included."""
-    options, xy, ops = FUSED_CASES[case]
-    step, p0 = _port_step(FUSED_NS, xy, **options)
+    parity; with trainable coordinates (kron pairs, or the ising
+    interaction diagonal) the coordinate gradient included."""
+    options, xy, coords, ops = FUSED_CASES[case]
+    step, p0 = _port_step(FUSED_NS, xy, coords, **options)
     _, meta, got = _roundtrip(tmp_path, "fused", step, p0)
     assert meta["custom_ops"] == [f"pulser_diff_torch::{op}" for op in ops]
     want = step(p0)
     _assert_same(got, want)
-    jv, jg = _jax_step(FUSED_NS, xy, **options)
+    jv, jg = _jax_step(FUSED_NS, xy, coords, **options)
     assert abs(float(want[0]) - jv) < FUSED_TOL
+    assert jg.keys() == want[1].keys()
     for k, g in jg.items():
         np.testing.assert_allclose(want[1][k].numpy(), g, rtol=0, atol=FUSED_TOL)
-    if xy:
+    if coords:
         assert float(want[1]["q1"].abs().max()) > 1e-5
+
+
+def test_ising_diag_matches_jax_at_12_atoms():
+    """The interaction diagonal of bench.py's 12-atom register (3 x 4 at 10
+    um; the products written as mm, not einsums, so that the trace sees
+    them) and its coordinate gradient equal the JAX package's at 1e-12."""
+    coords = [(10.0 * (i % 4), 10.0 * (i // 4)) for i in range(12)]
+    weights = np.random.default_rng(12).normal(size=(64, 64))
+
+    def build(core, q):
+        reg = core.Register.from_coordinates(coords, prefix="q").with_coords({"q1": q})
+        seq = core.Sequence(reg, core.MockDevice)
+        seq.declare_channel("ch", "rydberg_global")
+        seq.add(core.Pulse.ConstantPulse(20, 1.0, -1.0, 0.0), "ch")
+        return seq
+
+    q = torch.tensor([10.0, 0.5], dtype=torch.float64, requires_grad=True)
+    th = QuantumModel(build(tcore, q), {}, device="cpu")._make_emulator({})._hamiltonian
+    tdiag = th._ham_data.int_diag
+    (tg,) = torch.autograd.grad((tdiag * torch.tensor(weights)).sum(), [q])
+
+    def jdiag(jq):
+        return JModel(build(jcore, jq), {})._make_emulator({})._hamiltonian._ham_data.int_diag
+
+    jq = jnp.asarray([10.0, 0.5])
+    np.testing.assert_allclose(tdiag.detach().numpy(), np.asarray(jdiag(jq)), rtol=0,
+                               atol=F64_TOL)
+    jg = jax.grad(lambda x: (jdiag(x) * weights).sum())(jq)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0, atol=F64_TOL)
+    assert float(tg.abs().max()) > 1e-3
+
+
+# the time (us) and state batch of the XY right-hand side
+RHS_T = 0.137
+RHS_NB = 2
+
+
+def _xy_rhs_loss(out):
+    """A real scalar of H psi whose gradient reaches the kron matrices."""
+    return (out.re * out.re).sum() + (out.im * out.re).sum()
+
+
+def test_export_xy_stepper_rhs(tmp_path):
+    """One right-hand side of the f64 XY stepper: q1's coordinates build
+    the Hamiltonian (kron pairs), ``h_apply_batched`` applies it once to a
+    seeded state batch, and ``torch.autograd.grad`` takes the coordinate
+    gradient of a scalar of it.  The step exports and reloads bit for bit;
+    H psi and the gradient equal JAX's ``h_apply_batched`` and ``jax.grad``
+    at 1e-12 (f64 on both sides)."""
+    model = QuantumModel(_sequence(tcore, FUSED_NS, True), _params(True), device="cpu")
+    psi = random_state(4, RHS_NB, seed=5).T.reshape(RHS_NB, 2, 2)
+    tpsi = Cplx(torch.tensor(psi.real), torch.tensor(psi.imag))
+
+    def step(q1):
+        q = q1.detach().requires_grad_(True)
+        hd = model._make_emulator({"om": model.params["om"].detach(), "q1": q})._hamiltonian
+        hd = hd._ham_data
+        assert hd.kron_row is not None
+        zr, zc, zk = interp_streams(hd, torch.tensor(RHS_T, dtype=torch.float64))
+        out = h_apply_batched(hd, zr, zc, zk, tpsi)
+        (g,) = torch.autograd.grad(_xy_rhs_loss(out), [q])
+        return out.re.detach(), out.im.detach(), g.detach()
+
+    q0 = torch.tensor(XY_COORDS[1], dtype=torch.float64)
+    path = export_step(step, (q0,), str(tmp_path / "rhs.pt2"))
+    assert load_meta(path)["custom_ops"] == []
+    got, want = load_step(path, device="cpu")(q0), step(q0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[2].abs().max()) > 1e-3
+
+    jmodel = JModel(_sequence(jcore, FUSED_NS, True), {k: jnp.asarray(v)
+                                                        for k, v in _params(True).items()})
+    jpsi = JCplx(jnp.asarray(psi.real), jnp.asarray(psi.imag))
+
+    def jrhs(q1):
+        hd = jmodel._make_emulator({"om": jmodel.params["om"], "q1": q1})._hamiltonian._ham_data
+        zr, zc, zk = j_interp_streams(hd, jnp.asarray(RHS_T))
+        return j_h_apply_batched(hd, zr, zc, zk, jpsi)
+
+    jq = jnp.asarray(XY_COORDS[1])
+    jout = jrhs(jq)
+    jg = jax.grad(lambda q: _xy_rhs_loss(jrhs(q)))(jq)
+    for a, b in ((want[0], jout.re), (want[1], jout.im), (want[2], jg)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=F64_TOL)
 
 
 def test_export_checks_the_register_eagerly(tmp_path):
