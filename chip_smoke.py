@@ -229,8 +229,18 @@ Phases (each raises on failure, so the script exits non-zero):
      launch of each kernel of the route and of no other, the sidecar
      naming those ops, the value and every gradient equal bit for bit to
      the eager step called after the export, and within phase 4's bars of
-     the f64 stepper; the export, save and load seconds and the reloaded
-     step's warm time beside the eager step's printed;
+     the f64 stepper; then on the steppers, whose loop the trace keeps as
+     the op pulser_diff_torch::stepper_states and its adjoint
+     ::stepper_states_bwd (solvers/stepper_op.py), bench.py's 18-atom
+     default step (DP5_SE_F32, 660 ns), its 12-atom fused=False step and
+     bench_xy.py's 12-atom fused=False step (400 ns, q1 trainable), on
+     the models phases 8, 4 and 6 warmed: the sidecar naming the stepper
+     ops, no fused launch, the value equal bit for bit to that of
+     export_step's own eager call and the gradient within EXPORT_HOLDS of
+     it, within the f64 (or f32) stepper's bars of phase 4's, 6's or 8's
+     f64 references; the export, save and load seconds, and the reloaded
+     call's time (with its two op bodies') and peak device memory beside
+     the eager call's, each timed once, printed;
  21. (a) the wide adjoint interval, a plain version only (fused_bwd_plain
      with form="wide", the JAX package's _bwd_interval_wide), on the
      first PLAIN_STEPS steps of phase 3's 12-atom main-path inputs and of
@@ -833,7 +843,8 @@ def _xy_kernel_phase(torch, fe, device, gen):
 def _xy_step_phase(torch, fe, device, xy):
     """The 12-atom XY value+grad through QuantumModel (default routing),
     counts reset just before and read just after: one K1 and one K2
-    launch, no K4/K5; held against the f64 stepper on the card."""
+    launch, no K4/K5; held against the f64 stepper on the card (its model
+    returned, warm, for phase 20)."""
     _reset(fe)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -856,7 +867,6 @@ def _xy_step_phase(torch, fe, device, xy):
     torch.cuda.synchronize()
     f64_ms = (time.perf_counter() - t0) * 1e3
     f64_peak = torch.cuda.max_memory_allocated() / 2**30
-    del f64_model
     _log(f"  launches {launches}; f64 stepper value+grad {f64_ms:.1f} ms (once), peak device "
          f"memory {f64_peak:.2f} GiB")
     dv = abs(float(value) - float(v64))
@@ -894,7 +904,8 @@ def _xy_step_phase(torch, fe, device, xy):
         raise RuntimeError(f"12 atoms XY: fused path vs f64 stepper: |dv| {dv:.3e}, "
                            f"|dg| {dg:.3e}, |dc| {dc:.3e}")
     return {"launches": launches, "first_ms": first_ms, "f64_ms": f64_ms, "f64_peak": f64_peak,
-            "dv": dv, "dg": dg, "dc": dc, "v64": v64, "g64": g64, "c64": c64}
+            "dv": dv, "dg": dg, "dc": dc, "v64": v64, "g64": g64, "c64": c64,
+            "f64_model": f64_model}
 
 
 def _ptxas_summary(report: str) -> dict:
@@ -1059,7 +1070,8 @@ def _phase_18(torch, fe, device, p0, gen, n: int = 18):
     step: the default route (DP5_SE_F32, no fused launch) against the f64
     stepper, its time and peak memory, the same step with TF32 allowed
     (bit for bit), with remat=True, and with fused=True (K4/K5 at da = db =
-    512, a measurement: the default stays the JAX package's)."""
+    512, a measurement: the default stays the JAX package's).  The
+    default-route model is returned, warm, for phase 20."""
     import pulser_diff_torch.backend as be
 
     solvers = []
@@ -1154,7 +1166,7 @@ def _phase_18(torch, fe, device, p0, gen, n: int = 18):
     del d18, k5_in, k5_out
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "f64_ms": f64_ms, "dv": dv, "dg": dg, "K4": k4_entry,
-            "K5": k5_entry}
+            "K5": k5_entry, "v64": v64, "g64": g64, "model": model}
 
 
 def _population_inputs(torch, fe, model, cands, device):
@@ -3824,6 +3836,20 @@ def _parallel_phase(torch, fe, device, gen, refs):
 # phase 20: export and reload of the main path's value+grad steps
 # ----------------------------------------------------------------------
 EXPORT_REPS = 3
+# what phase 20 holds a reloaded step to, by route: its value and gradient
+# against the f64 stepper (PERF.md's bars: the fused kernels' and the f64
+# stepper's 1e-6 / 1e-5, the f32 stepper's 1e-5 / 1e-5), and its gradient
+# against the eager step's, relative to the largest magnitude of any of the
+# step's gradients (0: bit for bit, the fused ops' adjoint being the eager
+# one; on the steppers the adjoint op sums the same terms in another order:
+# the CPU tests' 1e-12 in f64, tests/test_torch_f32.py's 2e-5 in f32).  The
+# value is the eager value bit for bit on every route.
+EXPORT_HOLDS = {
+    "fused": (VALUE_TOL, GRAD_TOL, 0.0),
+    "f64 stepper": (VALUE_TOL, GRAD_TOL, 1e-12),
+    "f32 stepper": (F32_VALUE_TOL, F32_GRAD_TOL, 2e-5),
+}
+STEPPER_OPS = ["pulser_diff_torch::stepper_states", "pulser_diff_torch::stepper_states_bwd"]
 
 
 def _export_step_fn(torch, model):
@@ -3863,65 +3889,136 @@ def _export_timers(torch, secs: dict):
         torch.export.export, torch.export.save = saved
 
 
+@contextlib.contextmanager
+def _op_body_timers(torch, secs: dict):
+    """Wall seconds of the stepper ops' bodies (stepper_op's _forward and
+    _backward, each between two synchronisations) inside the block, summed
+    into ``secs``."""
+    from pulser_diff_torch.solvers import stepper_op
+
+    saved = stepper_op._forward, stepper_op._backward
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    stepper_op._forward, stepper_op._backward = timed("fwd", saved[0]), timed("bwd", saved[1])
+    try:
+        yield
+    finally:
+        stepper_op._forward, stepper_op._backward = saved
+
+
 def _export_case(torch, fe, device, label: str, model, params: dict, want: dict, ref64: dict,
-                 outdir: str) -> dict:
-    """One step through export_step / load_step on the card: the sidecar,
-    the reloaded call's launches (``want``), bit-for-bit equality with the
-    eager step after the export, the f64 bars (``ref64``: value and each
-    gradient), times."""
+                 outdir: str, route: str = "fused", reps: int = EXPORT_REPS) -> dict:
+    """One step through export_step / load_step on the card: the sidecar
+    (the fused ops ``want`` launches, or the stepper ops), the reloaded
+    call's launches (``want``), its value equal to the eager step's bit for
+    bit and its gradient within ``EXPORT_HOLDS[route]`` of the eager one,
+    the f64 bars (``ref64``: value and each gradient), times and peak
+    device memory of the reloaded and the eager step: medians of ``reps``
+    calls after the counted one, or with ``reps`` 0 (the steppers'
+    seconds-long steps, on a model an earlier phase warmed) the counted
+    call and export_step's own eager call, once each."""
     from pulser_diff_torch.utils import export_step, load_meta, load_step
 
+    value_bar, grad_bar, eager_rel = EXPORT_HOLDS[route]
     step = _export_step_fn(torch, model)
+    own: dict = {}
+
+    def step_timed(p):
+        # export_step's own eager call, before the trace: timed, its peak
+        if own:
+            return step(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(p)
+        torch.cuda.synchronize()
+        own.update(out=out, ms=(time.perf_counter() - t0) * 1e3,
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
+        return out
+
     path = os.path.join(outdir, label.replace(" ", "_") + ".pt2")
     secs: dict = {}
     t0 = time.perf_counter()
     with _export_timers(torch, secs):
-        export_step(step, (params,), path)
+        export_step(step_timed, (params,), path)
     secs["export_step"] = time.perf_counter() - t0
     meta = load_meta(path)
-    ops = sorted(f"pulser_diff_torch::{k}" for k, n in want.items() if n)
+    ops = (sorted(f"pulser_diff_torch::{k}" for k, n in want.items() if n) if route == "fused"
+           else STEPPER_OPS)
     if meta["device_type"] != device.type or meta["custom_ops"] != ops:
         raise RuntimeError(f"{label}: sidecar {meta}, expected device {device.type} and ops {ops}")
     t0 = time.perf_counter()
     loaded = load_step(path, device=device)
     secs["load"] = time.perf_counter() - t0
-    (value, grads), launches, first_ms = _counted(torch, fe, label, lambda: loaded(params), want)
-    eager = step(params)
-    torch.cuda.synchronize()
-    same = torch.equal(value, eager[0]) and all(torch.equal(grads[k], eager[1][k]) for k in grads)
+    bodies: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.nullcontext() if route == "fused" else _op_body_timers(torch, bodies):
+        (value, grads), launches, first_ms = _counted(torch, fe, label, lambda: loaded(params),
+                                                      want)
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    if reps:
+        torch.cuda.reset_peak_memory_stats()
+        reload_ms, _ = _host_time_ms(torch, lambda: loaded(params), reps)
+        reload_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms, eager = _host_time_ms(torch, lambda: step(params), reps)
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+        how = f"warm, medians of {reps}; the reloaded step's first call {first_ms:.1f} ms"
+    else:
+        reload_ms, reload_peak = first_ms, first_peak
+        eager, eager_ms, eager_peak = own["out"], own["ms"], own["peak"]
+        how = "once each: the counted call, export_step's own eager call"
+    split = "".join(f"; the {name} op's body {sec * 1e3:.1f} ms" for name, sec in
+                    (("forward", bodies.get("fwd")), ("adjoint", bodies.get("bwd"))) if sec)
+    same_value = torch.equal(value, eager[0])
+    # the reloaded gradient against the eager one, relative to the eager
+    # gradient's largest magnitude
+    scale = max(float(g.abs().max()) for g in eager[1].values())
+    dge = max(float((grads[k] - eager[1][k]).abs().max()) for k in grads) / max(scale, 1e-300)
     dv = abs(float(value) - float(ref64["value"]))
     dg = max(float((grads[k] - ref64[k]).abs().max()) for k in grads)
-    reload_ms, _ = _host_time_ms(torch, lambda: loaded(params), EXPORT_REPS)
-    eager_ms, _ = _host_time_ms(torch, lambda: step(params), EXPORT_REPS)
     _log(f"  {label}: export_step {secs['export_step']:.2f} s (torch.export.export "
          f"{secs['export']:.2f} s, save {secs['save']:.2f} s, the eager call the rest), load "
          f"{secs['load']:.2f} s, {os.path.getsize(path) / 2**20:.2f} MiB; ops "
          f"{meta['custom_ops']}; launches {launches}")
     _log(f"  {label}: reloaded value {float(value)!r}, equal to the eager step bit for bit: "
-         f"{same}; vs f64 |dv| {dv:.3e} (tol {VALUE_TOL:.0e}), max|dg| {dg:.3e} (tol "
-         f"{GRAD_TOL:.0e})")
-    _log(f"  {label}: reloaded step {reload_ms:.2f} ms warm (first {first_ms:.1f} ms), eager "
-         f"step {eager_ms:.2f} ms warm (medians of {EXPORT_REPS})")
-    if not same:
+         f"{same_value}; gradient vs the eager one max relative {dge:.3e} (tol {eager_rel:.0e}); "
+         f"vs f64 |dv| {dv:.3e} (tol {value_bar:.0e}), max|dg| {dg:.3e} (tol {grad_bar:.0e})")
+    _log(f"  {label}: reloaded step {reload_ms:.2f} ms{split}, peak {reload_peak:.3f} GiB; "
+         f"eager step {eager_ms:.2f} ms, peak {eager_peak:.3f} GiB ({how})")
+    if not same_value or dge > eager_rel:
         raise RuntimeError(f"{label}: the reloaded step differs from the eager step: "
                            f"{value!r} {grads!r} against {eager!r}")
-    if dv > VALUE_TOL or dg > GRAD_TOL:
+    if dv > value_bar or dg > grad_bar:
         raise RuntimeError(f"{label}: reloaded step vs f64 stepper: |dv| {dv:.3e}, |dg| {dg:.3e}")
-    return {**secs, "reload_ms": reload_ms, "eager_ms": eager_ms, "first_ms": first_ms}
+    return {**secs, "reload_ms": reload_ms, "eager_ms": eager_ms, "first_ms": first_ms,
+            "reload_peak": reload_peak, "eager_peak": eager_peak, "dge": dge, **bodies}
 
 
 def _export_phase(torch, fe, device, cases) -> dict:
-    """Phase 20: each of ``cases`` (label, model, params, launches wanted,
-    f64 references) through :func:`_export_case`, the artifacts in a
+    """Phase 20: each of ``cases`` (label, a function returning the model,
+    params, launches wanted, f64 references, and optionally the route and
+    the timed repetitions) through :func:`_export_case`, the artifacts in a
     temporary directory removed after; wall seconds of each printed."""
     import tempfile
 
     out = {}
     with tempfile.TemporaryDirectory() as outdir:
-        for label, model, params, want, ref64 in cases:
+        for label, model, params, want, ref64, *opts in cases:
             t0 = time.perf_counter()
-            out[label] = _export_case(torch, fe, device, label, model, params, want, ref64,
-                                      outdir)
+            out[label] = _export_case(torch, fe, device, label, model(), params, want, ref64,
+                                      outdir, *opts)
+            torch.cuda.empty_cache()
             _log(f"  {label}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4213,7 +4310,6 @@ def main() -> int:
     f64_step_ms = (time.perf_counter() - t0) * 1e3
     _log(f"  n_steps {int(data['hs'].shape[0])}, substeps {substeps}, launches {launches}")
     _hold_against_f64(torch, value, grad, v64, g64, "12 atoms")
-    del f64_model
 
     # 5. the 16-atom main path: counts reset just before, read just after
     _log("phase 5 main path: 16-atom value+grad through QuantumModel (default routing)")
@@ -4393,11 +4489,12 @@ def main() -> int:
     par_ms, entry_kernels = _parallel_phase(torch, fe, device, gen, refs)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in par_ms.items()))
 
-    # 20. export: phases 4-6's steps exported, reloaded and called (each
-    # call's counts set to 0 just before and read just after)
+    # 20. export: phases 4-6's and 8's steps exported, reloaded and called
+    # (each call's counts set to 0 just before and read just after)
     _log("phase 20 export: the 12-atom (K1/K2), 16-atom (K4/K5) and 12-atom XY (K1/K2, K = 8) "
-         "value+grad steps, and the 12-atom step with q1's coordinates trainable (K1/K2), "
-         "through export_step / load_step")
+         "value+grad steps, the 12-atom step with q1's coordinates trainable (K1/K2), and on "
+         "the steppers' op the 18-atom default step (DP5_SE_F32), the 12-atom fused=False "
+         "step and the 12-atom XY fused=False step, through export_step / load_step")
     f64 = torch.float64
     p_main = {"amp_samples_0": torch.tensor(p0, dtype=f64, device=device)}
     p_xy = {"amp_samples_0": torch.tensor(XY_P0, dtype=f64, device=device),
@@ -4410,15 +4507,24 @@ def main() -> int:
     _log(f"  12 atoms, q1 trainable: f64 stepper value {float(q1_v64)!r}, q1's gradient "
          f"{q1_c64.cpu().numpy().tolist()!r}")
     p_q1 = {**p_main, "q1": torch.tensor(c1, dtype=f64, device=device)}
+    no_launch = dict.fromkeys(K1K2, 0)
+    xy_ref = {"value": xy_step["v64"], "amp_samples_0": xy_step["g64"], "q1": xy_step["c64"]}
     _export_phase(torch, fe, device, (
-        ("12 atoms", fused_model, p_main, K1K2, {"value": v64, "amp_samples_0": g64}),
-        ("16 atoms", model16, p_main, K4K5, {"value": v64_16, "amp_samples_0": g64_16}),
-        ("12 atoms XY", xy["model"], p_xy, K1K2,
-         {"value": xy_step["v64"], "amp_samples_0": xy_step["g64"], "q1": xy_step["c64"]}),
-        ("12 atoms q1", q1_model, p_q1, K1K2,
+        ("12 atoms", lambda: fused_model, p_main, K1K2, {"value": v64, "amp_samples_0": g64}),
+        ("16 atoms", lambda: model16, p_main, K4K5, {"value": v64_16, "amp_samples_0": g64_16}),
+        ("12 atoms XY", lambda: xy["model"], p_xy, K1K2, xy_ref),
+        ("12 atoms q1", lambda: q1_model, p_q1, K1K2,
          {"value": q1_v64, "amp_samples_0": q1_g64, "q1": q1_c64}),
+        ("18 atoms f32 stepper", lambda: big["model"], p_main, no_launch,
+         {"value": big["v64"], "amp_samples_0": big["g64"]}, "f32 stepper", 0),
+        ("12 atoms f64 stepper", lambda: f64_model, p_main, no_launch,
+         {"value": v64, "amp_samples_0": g64}, "f64 stepper", 0),
+        ("12 atoms XY f64 stepper", lambda: xy_step["f64_model"], p_xy, no_launch, xy_ref,
+         "f64 stepper", 0),
     ))
-    del q1_model
+    del q1_model, f64_model
+    big.pop("model")
+    xy_step.pop("f64_model")
 
     # 21. (a) the wide adjoint (plain) against K2 and its lean plain version
     # at the main path's and the XY shapes; (b) the main path under the f32

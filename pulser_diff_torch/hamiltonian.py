@@ -118,6 +118,13 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
     def rate(x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=default_dtype()).to(device)
 
+    def root(x: torch.Tensor) -> torch.Tensor:
+        # a power 0.5, the same bits as torch.sqrt: sqrt's backward reads
+        # its saved output, which a torch.export trace calling
+        # torch.autograd.grad does not follow (it would freeze it into the
+        # artifact as a constant)
+        return x**0.5
+
     def op(mat) -> Cplx:
         return as_cplx(mat, dtype=default_dtype(), device=device).to(device=device)
 
@@ -135,16 +142,16 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
     if "dephasing" in noise:
         basis_check("dephasing")
         r = config.hyperfine_dephasing_rate if basis_name == "digital" else config.dephasing_rate
-        local.append(pauli("Z") * torch.sqrt(rate(r) / 2))
+        local.append(pauli("Z") * root(rate(r) / 2))
     if "relaxation" in noise:
         if not {"g", "r"} <= set(labels):
             raise ValueError(
                 "'relaxation' noise requires addressing of the 'ground-rydberg' basis.")
         local.append(op(_local_op_np(dim, labels, "sigma_gr"))
-                     * torch.sqrt(rate(config.relaxation_rate)))
+                     * root(rate(config.relaxation_rate)))
     if "depolarizing" in noise:
         basis_check("depolarizing")
-        coeff = torch.sqrt(rate(config.depolarizing_rate) / 4)
+        coeff = root(rate(config.depolarizing_rate) / 4)
         local += [pauli(p) * coeff for p in "XYZ"]
     if "eff_noise" in noise:
         basis_check("effective")
@@ -155,7 +162,7 @@ def collapse_operators(config: NoiseModel, basis_name: str, labels: list, n_qubi
                     f"Incompatible shape {o.shape} of effective noise operator: expected "
                     f"({dim}, {dim}) for basis '{basis_name}'"
                     + (" with leakage" if leak else "") + ".")
-            local.append(o * torch.sqrt(rate(r)))
+            local.append(o * root(rate(r)))
     if not local:
         return CollapseOps((), None)
     sites = tuple(q for _ in local for q in range(n_qubits))

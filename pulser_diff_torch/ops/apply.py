@@ -111,7 +111,8 @@ def interp_streams(h: FactoredHamiltonian, t: torch.Tensor):
 
 
 # this thread's nesting depth of _f32_full_precision: inside, a product
-# that needs no gradient runs directly, and an inner block changes nothing
+# that needs no gradient runs directly, and an inner block changes nothing;
+# ``whole``: the block's differentiation runs inside it too
 _PINNED = threading.local()
 
 
@@ -120,11 +121,14 @@ def _depth() -> int:
 
 
 @contextlib.contextmanager
-def _f32_full_precision():
+def _f32_full_precision(whole: bool = False):
     """cuBLAS f32 products at full f32 precision (no TF32) inside the block,
     through whichever of PyTorch's two switches the caller set (the legacy
     ``allow_tf32``, whose getter raises once the per-backend
-    ``fp32_precision`` was set alone); both are restored after it."""
+    ``fp32_precision`` was set alone); both are restored after it.  With
+    ``whole`` the caller differentiates inside the block too
+    (``torch.func.vjp`` and its pullback), so no product needs an autograd
+    Function of its own to pin its backward pass."""
     if _depth():
         yield
         return
@@ -138,11 +142,11 @@ def _f32_full_precision():
         m.fp32_precision = "ieee"
     else:
         m.allow_tf32 = False
-    _PINNED.depth = 1
+    _PINNED.depth, _PINNED.whole = 1, whole
     try:
         yield
     finally:
-        _PINNED.depth = 0
+        _PINNED.depth, _PINNED.whole = 0, False
         if prev is not None:
             m.allow_tf32 = prev
         if new is not None:
@@ -173,10 +177,13 @@ class _F32Matmul(torch.autograd.Function):
     around the forward alone would not pin it."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
+    def forward(a, b):
         with _f32_full_precision():
             return _matmul(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -192,8 +199,12 @@ class _F32Matmul(torch.autograd.Function):
 
 def _needs_graph(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether a product must pin its own backward pass: outside a pinned
-    block, or where autograd will differentiate it."""
-    return not _depth() or (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))
+    block, or where autograd will differentiate it after a block that is
+    not ``whole``."""
+    if not _depth():
+        return True
+    return (not _PINNED.whole and torch.is_grad_enabled()
+            and (a.requires_grad or b.requires_grad))
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -212,11 +223,14 @@ class _F32Einsum(torch.autograd.Function):
     with the other operand."""
 
     @staticmethod
-    def forward(ctx, sub, a, b):
-        ctx.sub = sub
-        ctx.save_for_backward(a, b)
+    def forward(sub, a, b):
         with _f32_full_precision():
             return torch.einsum(sub, a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sub = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, g):

@@ -87,12 +87,13 @@ def expect(obs: Cplx, states: Cplx) -> Cplx:
             rr = torch.diagonal(states.re, dim1=-2, dim2=-1)
             ri = torch.diagonal(states.im, dim1=-2, dim2=-1)
             return Cplx(rr @ obs.re - ri @ obs.im, ri @ obs.re + rr @ obs.im)
-        # tr(O rho) = sum_ij O_ij rho_ji
-        o_re, o_im = obs.re, obs.im
-        return Cplx(
-            torch.einsum("ij,tji->t", o_re, states.re) - torch.einsum("ij,tji->t", o_im, states.im),
-            torch.einsum("ij,tji->t", o_re, states.im) + torch.einsum("ij,tji->t", o_im, states.re),
-        )
+        # tr(O rho) = sum_ij O_ij rho_ji: each rho flattened against O^T,
+        # as products of explicit views (an einsum saves reshapes of its
+        # own, which a torch.export trace calling torch.autograd.grad does
+        # not follow)
+        o_re, o_im = (o.T.reshape(-1) for o in (obs.re, obs.im))
+        s_re, s_im = (s.reshape(s.shape[0], -1) for s in (states.re, states.im))
+        return Cplx(s_re @ o_re - s_im @ o_im, s_im @ o_re + s_re @ o_im)
     sh = states.sum(axis=-1)  # (n_t, dim)
     if obs.ndim == 1:
         # |s_j|^2 in the states' dtype, promoted for the contraction (as

@@ -39,6 +39,15 @@ adaptive DP5(4) steps inside each grid interval, differentiated by a
 continuous-adjoint sweep of its own (``_AdaptiveEvolve``), its bounded
 loop a host loop with one read an attempted step (``ADAPTIVE_COUNTS``).
 No kernel lies under them, in the JAX package or here.
+
+Under ``torch.export`` (``torch.compiler.is_exporting()``) ``sesolve`` and
+``mesolve`` hand their loop to one custom op (``solvers/stepper_op.py``),
+which runs the same steps on real tensors and differentiates them interval
+by interval with ``torch.func.vjp``, so an exported step does not grow with
+its steps; eagerly nothing of that runs.  The autograd Functions of the
+Krylov and adaptive steppers take the ``setup_context`` form and
+differentiate inside with ``torch.func.vjp``, so that the op can take them
+through ``torch.func``.
 """
 
 from __future__ import annotations
@@ -388,7 +397,8 @@ def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 class _ExpmSymE1(torch.autograd.Function):
     """(re, im) of expm(-i h T) e1 for small symmetric T (..., m, m), by
-    an eigendecomposition on T's device.  The backward pass is the
+    an eigendecomposition on T's device (its eigenpairs are returned too,
+    not differentiable).  The backward pass is the
     transpose of the JAX package's Daleckii-Krein JVP: divided
     differences F_ij = (f(l_i) - f(l_j)) / (l_i - l_j), and on
     (near-)degenerate pairs the derivative f'(mu) = -i h e^{-i h mu} at
@@ -403,7 +413,7 @@ class _ExpmSymE1(torch.autograd.Function):
     package's f32 mode (tests/test_torch_krylov.py)."""
 
     @staticmethod
-    def forward(ctx, T, h):
+    def forward(T, h):
         with _f32_full_precision():
             if T.dtype == torch.float32:
                 lam, V = (x.to(T.dtype) for x in torch.linalg.eigh(T.to(torch.float64)))
@@ -413,12 +423,18 @@ class _ExpmSymE1(torch.autograd.Function):
             v0 = V[..., 0, :]
             u_re = _bmv(V, torch.cos(phase) * v0)
             u_im = _bmv(V, torch.sin(phase) * v0)
-        ctx.save_for_backward(lam, V, torch.as_tensor(h, dtype=T.dtype, device=T.device))
-        ctx.h_is_tensor = isinstance(h, torch.Tensor)
-        return u_re, u_im
+        return u_re, u_im, lam, V
 
     @staticmethod
-    def backward(ctx, g_re, g_im):
+    def setup_context(ctx, inputs, output):
+        T, h = inputs
+        lam, V = output[2:]
+        ctx.mark_non_differentiable(lam, V)
+        ctx.save_for_backward(lam, V, torch.as_tensor(h, dtype=T.dtype, device=T.device))
+        ctx.h_is_tensor = isinstance(h, torch.Tensor)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im, _g_lam, _g_v):
         lam, V, h = ctx.saved_tensors
         with _f32_full_precision():
             phase = lam * (-h)
@@ -443,7 +459,7 @@ class _ExpmSymE1(torch.autograd.Function):
 
 
 def _expm_sym_e1(T: torch.Tensor, h) -> tuple[torch.Tensor, torch.Tensor]:
-    return _ExpmSymE1.apply(T, h)
+    return _ExpmSymE1.apply(T, h)[:2]
 
 
 # The f32 path differentiates the exact map, not the recursion (reverse
@@ -463,13 +479,16 @@ class _KrylovExpmCadj(torch.autograd.Function):
     the kron part matrices, the mixed stream values, h and psi."""
 
     @staticmethod
-    def forward(ctx, m, tol, *args):
+    def forward(m, tol, *args):
         ops, h, psi_re, psi_im = args[:11], args[11], args[12], args[13]
         with _f32_full_precision():
             out = _krylov_expm(_cadj_apply(ops), Cplx(psi_re, psi_im), h, m, tol)
-        ctx.m, ctx.tol = m, tol
-        ctx.save_for_backward(*ops, h, psi_re, psi_im, out.re, out.im)
         return out.re, out.im
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.m, ctx.tol = inputs[:2]
+        ctx.save_for_backward(*inputs[2:], *output)
 
     @staticmethod
     def backward(ctx, g_re, g_im):
@@ -495,17 +514,19 @@ class _KrylovExpmCadj(torch.autograd.Function):
             for s, wq in zip(_KRYLOV_ADJ_NODES, _KRYLOV_ADJ_WEIGHTS):
                 vu = _krylov_exp_of(basis, h * s)
                 v_s, u_s = vu[:nb], vu[nb:]
-                with torch.enable_grad():
-                    leaves = [o.detach().requires_grad_() if i in want else o
-                              for i, o in enumerate(ops)]
+
+                def apply_to_v(*xs):
+                    leaves = list(ops)
+                    for i, x in zip(want, xs):
+                        leaves[i] = x
                     y = _cadj_apply(leaves)(v_s)
-                    # <ct_F, X> = wq h Im(u_s^H X)
-                    gs = torch.autograd.grad(
-                        (y.re, y.im), [leaves[i] for i in want],
-                        grad_outputs=(-(wq * h) * u_s.im, (wq * h) * u_s.re), allow_unused=True)
+                    return y.re, y.im
+
+                # <ct_F, X> = wq h Im(u_s^H X)
+                _, vjp_fn = torch.func.vjp(apply_to_v, *[ops[i] for i in want])
+                gs = vjp_fn((-(wq * h) * u_s.im, (wq * h) * u_s.re))
                 for i, g in zip(want, gs):
-                    if g is not None:
-                        grads[i] = g if grads[i] is None else grads[i] + g
+                    grads[i] = g if grads[i] is None else grads[i] + g
         g_h = None
         if ctx.needs_input_grad[13]:
             # d/dh exp(-i h H) psi = -i H out
@@ -625,15 +646,21 @@ class _AdaptiveEvolve(torch.autograd.Function):
     stacks and sample spacing are constant."""
 
     @staticmethod
-    def forward(ctx, cfg, parts, t0, t1, psi_re, psi_im, *streams):
+    def forward(cfg, parts, t0, t1, psi_re, psi_im, *streams):
         n_samples, rtol, atol, max_iters = cfg
         ham = _rebuild_ham(parts, streams, n_samples)
         span = t1 - t0
         y = _adaptive_dp5(lambda s, p: list(_se_rhs(ham, t0 + s, Cplx(*p))),
                           [psi_re, psi_im], span, span, rtol, atol, max_iters)
+        # an empty interval returns psi itself: as a view, which
+        # setup_context may save
+        return tuple(a.view_as(a) if a is b else a for a, b in zip(y, (psi_re, psi_im)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        cfg, parts, t0, t1 = inputs[:4]
         ctx.cfg, ctx.parts = cfg, parts
-        ctx.save_for_backward(t0, t1, y[0], y[1], *streams)
-        return y[0], y[1]
+        ctx.save_for_backward(t0, t1, *output, *inputs[6:])
 
     @staticmethod
     def backward(ctx, g_re, g_im):
@@ -647,15 +674,16 @@ class _AdaptiveEvolve(torch.autograd.Function):
 
         def aug_rhs(s, y):
             # dpsi/ds = -f;  dlam/ds = (df/dpsi)^T lam;  dtheta/ds = (df/dtheta)^T lam
-            with torch.enable_grad():
-                st = [x.detach().requires_grad_() if x is not None else None for x in streams]
-                p = Cplx(y[0].detach().requires_grad_(), y[1].detach().requires_grad_())
-                fv = f(st, t1 - s, p)
-                gs = torch.autograd.grad((fv.re, fv.im), [st[i] for i in live] + list(p),
-                                         grad_outputs=(y[2], y[3]), allow_unused=True)
-            st_bar = [torch.zeros_like(streams[i]) if g is None else g
-                      for i, g in zip(live, gs[:-2])]
-            return [-fv.re.detach(), -fv.im.detach(), gs[-2], gs[-1], *st_bar]
+            def f_of(*xs):
+                st = list(streams)
+                for i, x in zip(live, xs):
+                    st[i] = x
+                fv = f(st, t1 - s, Cplx(*xs[len(live):]))
+                return fv.re, fv.im
+
+            fv, vjp_fn = torch.func.vjp(f_of, *[streams[i] for i in live], y[0], y[1])
+            gs = vjp_fn((y[2], y[3]))
+            return [-fv[0], -fv[1], gs[-2], gs[-1], *gs[:-2]]
 
         y0 = [p1_re, p1_im, g_re, g_im] + [torch.zeros_like(streams[i]) for i in live]
         y = _adaptive_dp5(aug_rhs, y0, span, span, rtol, atol, max_iters)
@@ -1130,7 +1158,9 @@ def sesolve(
     ``atol`` / ``max_iters``: the error control and attempt cap of
     ``DP5_SE_ADAPTIVE``.  ``remat`` / ``n_segments``: checkpointed
     integration (``_integrate``); None decides from the state's bytes
-    (``_auto_remat``, ``_auto_segments``).
+    (``_auto_remat``, ``_auto_segments``).  Under ``torch.export`` the
+    loop is one call of ``stepper_op.run_stepper``, which keeps one state
+    per interval (or per segment) for its adjoint.
     """
     if solver in _F32_SOLVERS:
         f32 = torch.float32
@@ -1144,6 +1174,12 @@ def sesolve(
         remat = _auto_remat(psi0, n_steps)
     if n_segments is None:
         n_segments = _auto_segments(psi0, n_steps)
+    if torch.compiler.is_exporting():
+        from pulser_diff_torch.solvers.stepper_op import run_stepper
+
+        return run_stepper("se", solver, ham, psi0, grid, substeps, n_segments,
+                           krylov_dim=krylov_dim, krylov_tol=krylov_tol, rtol=rtol, atol=atol,
+                           max_iters=max_iters)
     step = _make_se_step(ham, solver, substeps, krylov_dim, krylov_tol, rtol, atol, max_iters)
     return _integrate(step, psi0, grid, remat, n_segments)
 
@@ -1172,7 +1208,8 @@ def mesolve(
     materializes) and ``_auto_segments``.  ``DP5_ME_F32`` / ``RK4_ME_F32``
     run the same forms on f32 copies of the Hamiltonian, rho0, the
     collapse operators and the grid times, every product at full f32
-    precision, forward and backward.
+    precision, forward and backward.  Under ``torch.export`` the loop is
+    one call of ``stepper_op.run_stepper``, as in :func:`sesolve`.
     """
     if solver in _F32_ME_SOLVERS:
         f32 = torch.float32
@@ -1189,5 +1226,10 @@ def mesolve(
         remat = _me_auto_remat(me_form, ham.dim, rho0, n_steps)
     if n_segments is None:
         n_segments = _auto_segments(rho0, n_steps)
+    if torch.compiler.is_exporting():
+        from pulser_diff_torch.solvers.stepper_op import run_stepper
+
+        return run_stepper("me", solver, ham, rho0, grid, substeps, n_segments,
+                           collapse=collapse, n=n_qudits, d=qudit_dim, form=me_form)
     step = _ME_FORMS[me_form](ham, collapse, n_qudits, qudit_dim, solver, substeps)
     return _integrate(step, rho0, grid, remat, n_segments)

@@ -10,7 +10,10 @@ port's eager step, and against JAX's jitted step on the same pulse.  One
 right-hand side of the f64 XY stepper (the Hamiltonian built from the
 coordinates, ``h_apply_batched`` once, its coordinate gradient) exports
 too.  The ports of tests/test_misc.py's two export tests on the steppers,
-whose loop unrolls under the trace, are in test_torch_export_steppers.py.
+whose loop is one custom op under the trace
+(``pulser_diff_torch::stepper_states``, solvers/stepper_op.py), are in
+test_torch_export_steppers.py, the other steppers' routes in
+test_torch_export_solvers.py; ``opcheck`` covers the stepper ops here.
 """
 
 import json
@@ -26,12 +29,15 @@ import torch
 
 import pulser_diff_torch.core as tcore
 import pulser_diff_tpu.core as jcore
+from pulser_diff_torch import SimConfig, TorchEmulator
 from pulser_diff_torch.cplx import Cplx
 from pulser_diff_torch.model import QuantumModel
 from pulser_diff_torch.ops import fused_evolution as tfe
 from pulser_diff_torch.ops import total_magnetization
 from pulser_diff_torch.ops.apply import h_apply_batched, interp_streams
 from pulser_diff_torch.solvers import TimeGrid
+from pulser_diff_torch.solvers import stepper_op
+from pulser_diff_torch.solvers.solver import _cast_ham
 from pulser_diff_torch.utils import export_step, load_meta, load_step
 from pulser_diff_tpu.cplx import Cplx as JCplx
 from pulser_diff_tpu.model import QuantumModel as JModel
@@ -40,7 +46,7 @@ from pulser_diff_tpu.ops.apply import h_apply_batched as j_h_apply_batched
 from pulser_diff_tpu.ops.apply import interp_streams as j_interp_streams
 
 from tests.test_torch_model import FUSED_TOL
-from tests.torch_port_cases import emulators, random_state, xy_emulators
+from tests.torch_port_cases import emulators, random_state, sequence, xy_emulators
 
 torch.set_num_threads(1)
 
@@ -319,14 +325,84 @@ def _op_args(ckpt: bool, xy: bool):
     return fwd, bwd
 
 
-@pytest.mark.parametrize("kind", ["K1/K2", "K4/K5", "K1/K2 kron"])
+def _stepper_op_args(kind: str):
+    """(op, arguments) of ``stepper_states`` and of its adjoint at 2 atoms
+    on 6 steps: the f64 stepper with kron pairs (XY), the f32 stepper, or
+    the dephasing master equation (its collapse operators among the
+    tensors); the forward's tensors as leaves that require grad, the
+    adjoint's with random slot cotangents (seeded) and every key wanted."""
+    gen = torch.Generator().manual_seed(13)
+    if kind == "stepper ME":
+        tsim = TorchEmulator.from_sequence(sequence(tcore, 2, 6), config=SimConfig(
+            noise="dephasing", dephasing_rate=0.1), sampling_rate=1.0,
+            evaluation_times="Full", device="cpu")
+    else:
+        _, tsim = xy_emulators(2, duration=6, seed=3, sampling_rate=1.0,
+                               evaluation_times="Full")
+    h = tsim._hamiltonian
+    ham = h._ham_data
+    grid = TimeGrid.make(h.sampling_times, tsim._eval_times_array, torch.device("cpu"))
+    psi = tsim.initial_state
+    if kind == "stepper ME":
+        rho = Cplx(psi.re @ psi.re.T + psi.im @ psi.im.T, psi.im @ psi.re.T - psi.re @ psi.im.T)
+        args = stepper_op._op_args("me", "DP5_ME", ham, rho, grid, 1, None,
+                                   collapse=h._collapse_ops, n=2, d=2, form="factored")
+    else:
+        da, db = h.dim ** h._a, h.dim ** h._b
+        p0 = Cplx(psi.re.T.reshape(1, da, db), psi.im.T.reshape(1, da, db))
+        if kind == "stepper f32":
+            ham, p0 = _cast_ham(ham, torch.float32), p0.to(torch.float32)
+            grid = TimeGrid(times=grid.times.to(torch.float32), write_slots=grid.write_slots,
+                            n_eval=grid.n_eval)
+        args = stepper_op._op_args("se", "DP5_SE", ham, p0, grid, 1, None)
+    cfg, slots, keys, tensors = args
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point()) for t in tensors]
+    outs = stepper_op._states_op(cfg, slots, keys, tensors)
+    lam = [torch.randn(outs[0].shape, generator=gen, dtype=outs[0].dtype) for _ in range(2)]
+    fwd = (stepper_op._states_op, (cfg, slots, keys, leaves))
+    bwd = (stepper_op._states_bwd_op, (cfg, slots, keys, keys, *outs[2:], *lam, tensors))
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("kind", ["K1/K2", "K4/K5", "K1/K2 kron", "stepper XY", "stepper f32",
+                                  "stepper ME"])
 def test_ops_pass_opcheck(kind):
     """torch.library.opcheck: each op's schema, fake implementation and
     (for the forward ops) registered autograd rule agree with its CPU
-    implementation, the plain version."""
-    for op, args in _op_args(ckpt=kind == "K4/K5", xy=kind.endswith("kron")):
+    implementation (for the fused ops the plain version)."""
+    if kind.startswith("stepper"):
+        pairs = _stepper_op_args(kind)
+    else:
+        pairs = _op_args(ckpt=kind == "K4/K5", xy=kind.endswith("kron"))
+    for op, args in pairs:
+        if op is stepper_op._states_bwd_op:
+            _check_stepper_adjoint(op, args)
+            continue
         result = torch.library.opcheck(op, args)
         assert set(result.values()) == {"SUCCESS"}, result
+
+
+def _check_stepper_adjoint(op, args) -> None:
+    """opcheck's schema and fake-tensor checks of ``stepper_states_bwd``,
+    made by hand: opcheck runs an op under dispatch modes that read the
+    storage of every tensor an inner op sees, and the adjoint's
+    ``torch.func.vjp`` holds its tensors in wrappers that have none.  No
+    input is mutated, no output aliases an input, and the fake
+    implementation gives the real outputs' shapes, dtypes and devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+
+    leaves = [t for t in pytree.tree_leaves(args) if isinstance(t, torch.Tensor)]
+    before = [t.clone() for t in leaves]
+    outs = op(*args)
+    for t, b in zip(leaves, before):
+        assert torch.equal(t, b)
+    ptrs = {t.untyped_storage().data_ptr() for t in leaves}
+    assert all(o.untyped_storage().data_ptr() not in ptrs for o in outs)
+    with FakeTensorMode() as mode:
+        fake = op(*pytree.tree_map_only(torch.Tensor, mode.from_tensor, args))
+    assert [(f.shape, f.dtype, f.device) for f in fake] == [
+        (o.shape, o.dtype, o.device) for o in outs]
 
 
 _FRESH_PROCESS = """
@@ -335,22 +411,30 @@ sys.modules["jax"] = None  # any import of JAX fails
 import torch
 from pulser_diff_torch.utils import load_step
 p = {"om": torch.tensor(1.8, dtype=torch.float64)}
-v, g = load_step(sys.argv[1], device="cpu")(p)
+out = []
+for path in sys.argv[1:]:
+    v, g = load_step(path, device="cpu")(p)
+    out.append({"value": float(v).hex(), "grad": float(g["om"]).hex()})
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jaxlib", "pulser_diff_tpu"))
-print(json.dumps({"value": float(v).hex(), "grad": float(g["om"]).hex(), "bad": bad}))
+print(json.dumps({"steps": out, "bad": bad}))
 """
 
 
 def test_fresh_process_reloads_without_jax(tmp_path):
     """A fresh process with JAX unimportable, which imports only
-    pulser_diff_torch.utils, loads an artifact holding the fused ops (a
-    20 ns pulse: only the reload is checked here) and reproduces its
-    outputs bit for bit."""
-    step, p0 = _port_step(20, solver="DP5_PALLAS")
-    path = export_step(step, (p0,), str(tmp_path / "fresh.pt2"))
-    want = load_step(path, device="cpu")(p0)
-    out = subprocess.run([sys.executable, "-c", _FRESH_PROCESS, path], cwd=ROOT,
+    pulser_diff_torch.utils, loads an artifact holding the fused ops and
+    one holding the stepper ops (20 ns pulses: only the reload is checked
+    here) and reproduces their outputs bit for bit."""
+    paths, want = [], []
+    for solver in ("DP5_PALLAS", "DP5_SE"):
+        step, p0 = _port_step(20, solver=solver)
+        paths.append(export_step(step, (p0,), str(tmp_path / f"fresh_{solver}.pt2")))
+        v, g = load_step(paths[-1], device="cpu")(p0)
+        want.append({"value": float(v).hex(), "grad": float(g["om"]).hex()})
+    assert load_meta(paths[1])["custom_ops"] == [
+        "pulser_diff_torch::stepper_states", "pulser_diff_torch::stepper_states_bwd"]
+    out = subprocess.run([sys.executable, "-c", _FRESH_PROCESS, *paths], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"value": float(want[0]).hex(), "grad": float(want[1]["om"]).hex(), "bad": []}
+    assert got == {"steps": want, "bad": []}
