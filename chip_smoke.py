@@ -12,8 +12,9 @@ Phases (each raises on failure, so the script exits non-zero):
      references that phases 15 (c), 17 (a), 18 (b)-(d) and 19 (e) take
      on the card machine's CPU are computed from the start by one
      process of this script (--cpu-references NAME ..., no GPU visible),
-     which ends before phase 3 (so only phases 12 and 13 share the CPU
-     with it and with nvcc);
+     read when a phase first asks for one and reaped after phase 19 (it
+     ends during phase 3: phases 12, 13 and the start of 3 share the CPU
+     with it);
   3. kernels against their plain PyTorch versions on the card: K1
      (fused_fwd_kernel) on every evaluation-slot state and K2
      (fused_bwd_kernel) on lam0, every stream cotangent and dbar, each
@@ -32,7 +33,8 @@ Phases (each raises on failure, so the script exits non-zero):
      equal the plan's, two K5 runs are equal bit for bit, and no K4/K5
      instantiation spills.  The kron-pair branches (K3, the
      XY terms) of all four kernels at small XY shapes (2, 3, 4 atoms, an
-     in-plane field) and at the 12-atom XY shapes (K = 8), with K2/K5's
+     in-plane field) and on the first PLAIN_STEPS steps of the 12-atom XY
+     shapes (K = 8), with K2/K5's
      kron stream and part-matrix cotangents and the states' low words; K4
      equal to K1 at every 12-atom XY slot, bit for bit;
   4. the 12-atom main path: the 8-parameter value-and-gradient step of
@@ -152,7 +154,8 @@ Phases (each raises on failure, so the script exits non-zero):
      factored forms within 1e-10, trace and Hermiticity 1e-10, the weights
      reading |x> as 0; (e) at 12 atoms (f64 stepper, no kernel)
      expectation_fn_of_times and deriv_time with the pulse boundaries
-     repaired, against a central difference at three interior times, and
+     repaired, against a central difference at the middle interior time
+     (three before, cut with the time limit), and
      deriv_param at the final time against a central difference along the
      gradient, 1e-5 relative, timed;
  17. the Krylov and adaptive steppers and the final-state form: (a)
@@ -202,7 +205,7 @@ Phases (each raises on failure, so the script exits non-zero):
  19. parallel/ (torch.distributed and DTensor; no kernel under it, as the
      JAX package's mesh paths take fused=False): (a) in an NCCL group of
      one rank, sharded_noise_states on a {"runs": 1} mesh with bench_mc.py's
-     noise at 12 atoms, R = 4, equal bit for bit to mesh=None, run 0 equal
+     noise at 12 atoms, R = 2, equal bit for bit to mesh=None, run 0 equal
      to a lone solve from its seed's draws, unit norms (1e-8), no launch;
      (b) sharded_expectation_step on bench.py's 12-atom model with that
      noise, 2 runs, one Adam step: the loss within 1e-12 of the mean of the
@@ -240,7 +243,23 @@ Phases (each raises on failure, so the script exits non-zero):
      it, within the f64 (or f32) stepper's bars of phase 4's, 6's or 8's
      f64 references; the export, save and load seconds, and the reloaded
      call's time (with its two op bodies') and peak device memory beside
-     the eager call's, each timed once, printed;
+     the eager call's, each timed once, printed; and two steps that keep
+     their draws: phase 14's noisy 12-atom model (doppler and amplitude,
+     12 parts, K1/K2), exported without a pinned draw (the trace's draws
+     become constants of the artifact), reloaded and called twice, each
+     call one K1 and one K2 launch, the two calls equal bit for bit and
+     equal bit for bit to the eager step on the trace's draws (drawn again
+     from the seed the trace's generator took), held against the f64
+     stepper on those draws at phase 4's bars; and phase 13's
+     10-atom expectation_mcwf_fn step (key 12, R = P20_MCWF_R = 64, phase
+     13's 512 cut to keep the case near 40 s, and its 160 ns pulse cut to
+     P20_MCWF_NS = 80 ns, 44 s at R = 64 on a slower host), whose
+     trajectory loop the trace keeps as the op
+     pulser_diff_torch::mcwf_states and its adjoint ::mcwf_states_bwd
+     (solvers/mcwf_op.py): no launch, the reloaded value equal bit for bit
+     to export_step's own eager call and the gradient within 1e-12
+     relative of it; export, load, reloaded and eager times and peaks
+     printed;
  21. (a) the wide adjoint interval, a plain version only (fused_bwd_plain
      with form="wide", the JAX package's _bwd_interval_wide), on the
      first PLAIN_STEPS steps of phase 3's 12-atom main-path inputs and of
@@ -271,6 +290,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -589,6 +609,12 @@ def _check_kernels(torch, fe, data, slots, n_eval, last_slot, method, gen, label
     return k1_err, k2_abs, k2_rel, (ref_re, ref_im, lam_re, lam_im)
 
 
+# the small shapes' pulse (20 steps at 0.5 samples a ns): they check the
+# kernels' shapes and forms, which do not depend on the step count (120 and
+# 100 ns before, cut with the script's time limit)
+SMALL_NS = 40
+
+
 def _small_cases(torch, device):
     """Small shapes: direct form (da = db = 2), da != db with a state
     batch and every sampling time an evaluation time, and RK4."""
@@ -604,9 +630,9 @@ def _small_cases(torch, device):
             [(6.0 * (i % 2), 6.0 * (i // 2)) for i in range(n)], prefix="q")
         seq = Sequence(reg, MockDevice)
         seq.declare_channel("ryd", "rydberg_global")
-        t = np.arange(120)
+        t = np.arange(SMALL_NS)
         seq.add(Pulse(CustomWaveform(1.0 + np.sin(t / 20.0) ** 2),
-                      ConstantWaveform(120, -1.5), 0.4), "ryd")
+                      ConstantWaveform(SMALL_NS, -1.5), 0.4), "ryd")
         sim = TorchEmulator.from_sequence(seq, sampling_rate=0.5,
                                           evaluation_times=eval_times, device=device)
         if nb > 1:
@@ -635,7 +661,7 @@ def _xy_small_cases(torch, device):
         seq = Sequence(reg, MockDevice)
         seq.declare_channel("mw", "microwave_global")
         seq.set_magnetic_field(1.0, 1.0, 0.0)
-        t = np.arange(100)
+        t = np.arange(SMALL_NS)
         seq.add(Pulse(CustomWaveform(1.0 + np.sin(t / 15.0) ** 2),
                       CustomWaveform(0.3 * np.cos(t / 25.0)), 0.3), "mw")
         sim = TorchEmulator.from_sequence(seq, sampling_rate=0.5, evaluation_times="Full",
@@ -801,9 +827,10 @@ def _bound_ms(fe, data, slots, others, S: int, kind: str) -> tuple[float, str]:
 
 def _xy_kernel_phase(torch, fe, device, gen):
     """The kron-pair branches (K3) against their plain versions: K1/K2 and
-    K4/K5 at the small XY shapes and at the 12-atom XY shapes (K4 equal to
-    K1 at every evaluation slot, bit for bit).  Returns the 12-atom inputs
-    and errors, and the plain versions' times."""
+    K4/K5 at the small XY shapes and on the first PLAIN_STEPS steps of the
+    12-atom XY shapes (K4 equal to K1 at every evaluation slot, bit for
+    bit).  Returns the 12-atom inputs and errors, and the plain versions'
+    times (on those steps)."""
     for label, sim, method in _xy_small_cases(torch, device):
         sd, ss, sn, sl = _kernel_inputs(torch, sim, 1, device, method)
         _check_kernels(torch, fe, sd, ss, sn, sl, method, gen, label)
@@ -818,15 +845,30 @@ def _xy_kernel_phase(torch, fe, device, gen):
          f"substeps {substeps}, kr {tuple(data['kr'].shape)}, kc {tuple(data['kc'].shape)}")
     times = {}
     plan = _log_plan(fe, fe._library(), data, "DP5", "12 atoms XY (main path)")
-    k1_err, k2_err, _, k2_in = _check_kernels(
-        torch, fe, data, slots, n_eval, last_slot, "DP5", gen, "12 atoms XY (main path)", times)
-    _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, "12 atoms XY")
-    k4_err, k5_err, _, k5_in = _check_ckpt(
-        torch, fe, data, "DP5", gen, "12 atoms XY (ckpt=True)", times)
-    ckpt_plans = _ckpt_plans(torch, fe, data, "12 atoms XY (ckpt=True)")
-    _two_k5_runs(torch, fe, data, k5_in, "12 atoms XY")
+    # against the plain versions on the first PLAIN_STEPS steps (their
+    # Python loops took ~40 s on every step on an H100 80GB HBM3 machine's
+    # host); the adjoints' full-length
+    # inputs are the kernels' own states and fresh cotangents
+    n_steps = int(data["hs"].shape[0])
+    n = min(PLAIN_STEPS, n_steps)
+    win = _cut_steps(data, n)
+    cslots, cn, clast = _window_slots(torch, slots, n_eval, n)
+    cut = f"steps 0-{n - 1} of {n_steps}"
+    k1_err, k2_err, _, _ = _check_kernels(torch, fe, win, cslots, cn, clast, "DP5", gen,
+                                          f"12 atoms XY (main path, {cut})", times)
+    k4_err, k5_err, _, _ = _check_ckpt(torch, fe, win, "DP5", gen,
+                                       f"12 atoms XY (ckpt=True, {cut})", times)
     ck = fe.fused_fwd_ckpt(data, "DP5", lo=True)
     k1 = fe.fused_fwd(data, "DP5", slots, n_eval, lo=True)
+    k2_in = (k1[0], k1[1], *[torch.randn(tuple(k1[0].shape), generator=gen,
+                                         dtype=torch.float32).to(k1[0].device) for _ in range(2)])
+    k5_in = (ck[0], ck[1], *[torch.randn(tuple(ck[0].shape), generator=gen,
+                                         dtype=torch.float32).to(ck[0].device) for _ in range(2)])
+    _two_k2_runs(torch, fe, data, slots, n_eval, last_slot, k2_in, "12 atoms XY")
+    _two_k5_runs(torch, fe, data, k5_in, "12 atoms XY")
+    # the plans read each kernel's last launch: K4's and K5's just above,
+    # on every step
+    ckpt_plans = _ckpt_plans(torch, fe, data, "12 atoms XY (ckpt=True)")
     g_of = {int(s): g for g, s in enumerate(slots.tolist()) if s < n_eval}
     k4_vs_k1 = max(_max_err(c[:, g - 1], o[:, s]) for c, o in zip(ck, k1)
                    for s, g in g_of.items() if g > 0)
@@ -2899,7 +2941,8 @@ def _derivative_phase(torch, fe, device) -> dict:
     """(e): bench.py's 12-atom sequence on the f64 stepper (no kernel):
     expectation_fn_of_times on every sampled time and deriv_time with the
     pulse boundaries repaired, against a central difference of the same
-    function at three interior times between the streams' samples;
+    function at the middle interior time between the streams' samples
+    (three before, cut with the script's time limit);
     deriv_param at one time against a central difference along the
     gradient; each within DERIV_REL_TOL relative."""
     from pulser_diff_torch import deriv_param, deriv_time
@@ -2927,12 +2970,11 @@ def _derivative_phase(torch, fe, device) -> dict:
     pos = sim._eval_times_array / sim._hamiltonian._ham_data.sample_dt
     between = [i for i in range(2, n_t - 2) if abs(pos[i] - round(pos[i])) > 0.1
                and all(abs(i - e) > 2 for e in sim.endtimes)]
-    if len(between) < 3:
-        raise RuntimeError(f"{label}: {len(between)} interior times between samples")
+    if not between:
+        raise RuntimeError(f"{label}: no interior time between samples")
     worst = 0.0
     with torch.no_grad():
-        for i in (between[len(between) // 4], between[len(between) // 2],
-                  between[3 * len(between) // 4]):
+        for i in (between[len(between) // 2],):
             e = torch.zeros_like(t)
             e[i] = DERIV_EPS
             fd = float(fn(t + e).sum() - fn(t - e).sum()) / (2 * DERIV_EPS)
@@ -3550,7 +3592,7 @@ def _examples_phase(torch, fe, device, gen, refs):
 # phase 19: parallel/ (device meshes, sharded solves), the entry module and
 # the native sampler's binding, on one card
 # ---------------------------------------------------------------------------
-P19_RUNS = 4  # (a) seeds on the runs axis (bench_mc.py's noise)
+P19_RUNS = 2  # (a) seeds on the runs axis (bench_mc.py's noise; 4 before)
 P19_TRAIN_RUNS = 2  # (b) runs of the training step
 P19_TARGET = -1.0
 P19_LR = 1e-2
@@ -3850,6 +3892,17 @@ EXPORT_HOLDS = {
     "f32 stepper": (F32_VALUE_TOL, F32_GRAD_TOL, 2e-5),
 }
 STEPPER_OPS = ["pulser_diff_torch::stepper_states", "pulser_diff_torch::stepper_states_bwd"]
+MCWF_OPS = ["pulser_diff_torch::mcwf_states", "pulser_diff_torch::mcwf_states_bwd"]
+# the MCWF step's trajectories: phase 13's R = 512 cut to 64, where the
+# case took 49.9 s at 512 and 38.4 s at 64 on an H100 80GB HBM3 at 700 W
+# (the step is bound by its launches more than by R); the reloaded
+# gradient against the eager one: the same estimator, its adjoint by
+# torch.func.vjp step by step instead of autograd's graph
+P20_MCWF_R = 64
+# and its pulse: phase 13's 160 ns cut to 80, as the case still took 43.8
+# s at R = 64 on a host whose plain versions ran 1.26x slower (same card)
+P20_MCWF_NS = 80
+MCWF_EXPORT_REL = 1e-12
 
 
 def _export_step_fn(torch, model):
@@ -3890,13 +3943,14 @@ def _export_timers(torch, secs: dict):
 
 
 @contextlib.contextmanager
-def _op_body_timers(torch, secs: dict):
-    """Wall seconds of the stepper ops' bodies (stepper_op's _forward and
-    _backward, each between two synchronisations) inside the block, summed
-    into ``secs``."""
+def _op_body_timers(torch, secs: dict, module=None):
+    """Wall seconds of a loop op's bodies (``module``'s _forward and
+    _backward, each between two synchronisations; by default stepper_op's)
+    inside the block, summed into ``secs``."""
     from pulser_diff_torch.solvers import stepper_op
 
-    saved = stepper_op._forward, stepper_op._backward
+    module = stepper_op if module is None else module
+    saved = module._forward, module._backward
 
     def timed(name, fn):
         def call(*args, **kwargs):
@@ -3909,11 +3963,11 @@ def _op_body_timers(torch, secs: dict):
                 secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
         return call
 
-    stepper_op._forward, stepper_op._backward = timed("fwd", saved[0]), timed("bwd", saved[1])
+    module._forward, module._backward = timed("fwd", saved[0]), timed("bwd", saved[1])
     try:
         yield
     finally:
-        stepper_op._forward, stepper_op._backward = saved
+        module._forward, module._backward = saved
 
 
 def _export_case(torch, fe, device, label: str, model, params: dict, want: dict, ref64: dict,
@@ -4005,13 +4059,175 @@ def _export_case(torch, fe, device, label: str, model, params: dict, want: dict,
             "reload_peak": reload_peak, "eager_peak": eager_peak, "dge": dge, **bodies}
 
 
+@contextlib.contextmanager
+def _noise_seeds(seeds: list):
+    """The seed of every noise draw a Hamiltonian build makes inside the
+    block, appended to ``seeds`` (``_update_noise`` seeds a fresh generator
+    for each)."""
+    from pulser_diff_torch import hamiltonian
+
+    real = hamiltonian.draw_noise
+
+    def spy(gen, *args):
+        seeds.append(gen.initial_seed())
+        return real(gen, *args)
+
+    hamiltonian.draw_noise = spy
+    try:
+        yield
+    finally:
+        hamiltonian.draw_noise = real
+
+
+def _export_noisy_case(torch, fe, device, n_qubits: int, p0, outdir: str) -> dict:
+    """Phase 20: phase 14's noisy model (TRAIN_NOISE, the default route)
+    exported without a pinned draw, so the artifact keeps the draws its
+    trace made: the sidecar naming K1/K2's ops, two reloaded calls of one
+    K1 and one K2 launch each (counts set to 0 just before each and read
+    just after), equal bit for bit, and equal bit for bit to the eager
+    default-route step on the trace's own draws (made again by the
+    Hamiltonian's ``_update_noise`` from the seed the trace's generator
+    took); held against the f64 stepper on those draws at phase 4's
+    bars."""
+    from types import SimpleNamespace
+
+    from pulser_diff_torch import SimConfig
+    from pulser_diff_torch.utils import export_step, load_meta, load_step
+
+    label = f"noisy {n_qubits} atoms"
+    f64 = torch.float64
+    model, _ = _bench_model(torch, device, fused=None, n_qubits=n_qubits,
+                            noise_config=SimConfig(**TRAIN_NOISE))
+    params = {"amp_samples_0": torch.tensor(p0, dtype=f64, device=device)}
+    path = os.path.join(outdir, "noisy.pt2")
+    seeds: list = []
+    secs: dict = {}
+    t0 = time.perf_counter()
+    with _noise_seeds(seeds), _export_timers(torch, secs):
+        export_step(_export_step_fn(torch, model), (params,), path)
+    secs["export_step"] = time.perf_counter() - t0
+    meta = load_meta(path)
+    ops = sorted(f"pulser_diff_torch::{k}" for k, n in K1K2.items() if n)
+    if meta["device_type"] != device.type or meta["custom_ops"] != ops:
+        raise RuntimeError(f"{label}: sidecar {meta}, expected device {device.type} and ops {ops}")
+    t0 = time.perf_counter()
+    loaded = load_step(path, device=device)
+    secs["load"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    first, launches, first_ms = _counted(torch, fe, label, lambda: loaded(params), K1K2)
+    second, _, second_ms = _counted(torch, fe, label, lambda: loaded(params), K1K2)
+    peak = _peak_gib(torch)
+    same = torch.equal(first[0], second[0]) and all(
+        torch.equal(first[1][k], second[1][k]) for k in first[1])
+    with torch.no_grad():
+        h = model._make_emulator(dict(model.params))._hamiltonian
+    # the trace's build drew last: its generator's seed
+    h._np_rng = SimpleNamespace(integers=lambda *a, **k: seeds[-1])
+    draws = h._update_noise()
+    with model._pinned(draws):
+        eager_v, eager_g, _ = _value_and_grad(torch, model, p0, device)
+    ref, _ = _bench_model(torch, device, fused=False, n_qubits=n_qubits,
+                          noise_config=SimConfig(**TRAIN_NOISE))
+    with ref._pinned(draws):
+        v64, g64, _ = _value_and_grad(torch, ref, p0, device)
+    value, grad = first[0], first[1]["amp_samples_0"]
+    _log(f"  {label}: export_step {secs['export_step']:.2f} s (torch.export.export "
+         f"{secs['export']:.2f} s, save {secs['save']:.2f} s), load {secs['load']:.2f} s; ops "
+         f"{meta['custom_ops']}; launches a call {launches}; the trace's noise seed {seeds[-1]} "
+         f"({len(seeds)} draws in export_step)")
+    _log(f"  {label}: reloaded calls {first_ms:.1f} / {second_ms:.1f} ms, peak {peak:.3f} GiB; "
+         f"the two calls equal bit for bit: {same}; value {float(value)!r}, vs the eager "
+         f"default-route step on the trace's draws |dv| {abs(float(value - eager_v)):.3e}, "
+         f"max|dg| {float((grad - eager_g).abs().max()):.3e}")
+    if not same:
+        raise RuntimeError(f"{label}: two calls of the reloaded step differ: {first} {second}")
+    if not (torch.equal(value, eager_v) and torch.equal(grad, eager_g)):
+        raise RuntimeError(f"{label}: the reloaded step differs from the eager step on the "
+                           f"trace's draws: {value} {grad} against {eager_v} {eager_g}")
+    _hold_against_f64(torch, value, grad, v64, g64, f"{label} reloaded")
+    del model, ref, loaded
+    return {**secs, "first_ms": first_ms, "second_ms": second_ms, "peak": peak}
+
+
+def _export_mcwf_case(torch, fe, device, n_qubits: int, n_traj: int, outdir: str) -> dict:
+    """Phase 20: phase 13's expectation_mcwf_fn step (key 12) exported,
+    its trajectory loop the op mcwf_states and its adjoint mcwf_states_bwd:
+    no launch, the reloaded value equal bit for bit to export_step's own
+    eager call, the gradient within MCWF_EXPORT_REL of it; the export,
+    load, reloaded and eager times and peaks printed."""
+    from pulser_diff_torch.solvers import mcwf_op
+    from pulser_diff_torch.utils import export_step, load_meta, load_step
+
+    label = f"{n_qubits} atoms MCWF R={n_traj}, {P20_MCWF_NS} ns"
+    t_case = time.perf_counter()
+    fn = _mcwf_model(torch, device, n_qubits, "MCWF", duration=P20_MCWF_NS).expectation_mcwf_fn(
+        key=12, n_traj=n_traj)
+    own: dict = {}
+
+    def step(p):
+        q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        v = fn(q)[1][-1]
+        grads = torch.autograd.grad(v, list(q.values()))
+        return v.detach(), {k: g.detach() for k, g in zip(q, grads)}
+
+    def step_timed(p):
+        # export_step's own eager call, before the trace: timed, its peak
+        if own:
+            return step(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(p)
+        torch.cuda.synchronize()
+        own.update(out=out, ms=(time.perf_counter() - t0) * 1e3, peak=_peak_gib(torch))
+        return out
+
+    params = {"omega": torch.tensor(1.7, dtype=torch.float64, device=device)}
+    path = os.path.join(outdir, "mcwf.pt2")
+    secs: dict = {}
+    t0 = time.perf_counter()
+    with _export_timers(torch, secs):
+        export_step(step_timed, (params,), path)
+    secs["export_step"] = time.perf_counter() - t0
+    meta = load_meta(path)
+    if meta["device_type"] != device.type or meta["custom_ops"] != MCWF_OPS:
+        raise RuntimeError(f"{label}: sidecar {meta}")
+    t0 = time.perf_counter()
+    loaded = load_step(path, device=device)
+    secs["load"] = time.perf_counter() - t0
+    bodies: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with _op_body_timers(torch, bodies, mcwf_op):
+        (value, grads), _, reload_ms = _counted(torch, fe, label, lambda: loaded(params),
+                                                NO_LAUNCH)
+    peak = _peak_gib(torch)
+    eager_v, eager_g = own["out"]
+    same = torch.equal(value, eager_v)
+    dge = abs(float(grads["omega"] - eager_g["omega"])) / abs(float(eager_g["omega"]))
+    wall = time.perf_counter() - t_case
+    _log(f"  {label}: export_step {secs['export_step']:.2f} s (torch.export.export "
+         f"{secs['export']:.2f} s, save {secs['save']:.2f} s, the eager call the rest), load "
+         f"{secs['load']:.2f} s, {os.path.getsize(path) / 2**20:.2f} MiB; ops "
+         f"{meta['custom_ops']}; no launch")
+    _log(f"  {label}: reloaded value {float(value)!r}, equal to the eager step bit for bit: "
+         f"{same}; gradient {float(grads['omega'])!r} vs the eager one relative "
+         f"{dge:.3e} (tol {MCWF_EXPORT_REL:.0e})")
+    _log(f"  {label}: reloaded step {reload_ms:.1f} ms (the forward op's body "
+         f"{bodies.get('fwd', 0.0) * 1e3:.1f} ms, the adjoint's {bodies.get('bwd', 0.0) * 1e3:.1f} "
+         f"ms), peak {peak:.3f} GiB; eager step {own['ms']:.1f} ms, peak {own['peak']:.3f} GiB "
+         f"(once each); the case {wall:.1f} s")
+    if not same or not dge <= MCWF_EXPORT_REL:
+        raise RuntimeError(f"{label}: the reloaded step differs from the eager step: "
+                           f"{value!r} {grads!r} against {own['out']!r}")
+    return {**secs, "reload_ms": reload_ms, "eager_ms": own["ms"], "peak": peak,
+            "eager_peak": own["peak"], "wall": wall}
+
+
 def _export_phase(torch, fe, device, cases) -> dict:
     """Phase 20: each of ``cases`` (label, a function returning the model,
     params, launches wanted, f64 references, and optionally the route and
     the timed repetitions) through :func:`_export_case`, the artifacts in a
     temporary directory removed after; wall seconds of each printed."""
-    import tempfile
-
     out = {}
     with tempfile.TemporaryDirectory() as outdir:
         for label, model, params, want, ref64, *opts in cases:
@@ -4187,12 +4403,6 @@ def main() -> int:
                  f"{ld} B")
             if src == "fused_ckpt" and (st or ld):
                 raise RuntimeError(f"{kname} spills {st} / {ld} bytes")
-
-    # the CPU references end before the timed phases, so no host-bound
-    # reading from phase 3 on shares the CPU with them
-    t0 = time.perf_counter()
-    refs.wait()
-    _log(f"  CPU references done: {len(refs.done)}, {time.perf_counter() - t0:.1f} s of waiting")
 
     # 3. kernels against their plain versions
     _log("phase 3 kernels vs plain versions")
@@ -4381,7 +4591,7 @@ def main() -> int:
     _log(f"  16-atom value+grad step {step16_ms:.2f} ms (first {first16_s * 1e3:.1f} ms); "
          f"f64 stepper step {f64_16_ms:.1f} ms (once)")
     # the XY kernels (K = 8) at the 12-atom XY shapes; their plain versions
-    # ran once in phase 3 (Python loops of small launches, ~3 s and ~15 s)
+    # ran once in phase 3, on the first PLAIN_STEPS steps
     xd, xs, xn, xl = xy["data"], xy["slots"], xy["n_eval"], xy["last_slot"]
     n_xy = 5
     k1x_ms = _cuda_time_ms(torch, lambda: fe.fused_fwd(xd, "DP5", xs, xn, lo=True), n_xy)
@@ -4399,13 +4609,15 @@ def main() -> int:
     plain = xy["plain"]
     _log(f"  K1 XY (K3 branch, K = {fe._n_kron(xd)}) {k1x_ms:.3f} ms on "
          f"{xy['plan']['K1']['C']} blocks (plain "
-         f"{plain['k1_plain']:.1f} ms once, bound {k1x_bound:.4f} ms by {k1x_by})")
+         f"{plain['k1_plain']:.1f} ms once on the first {PLAIN_STEPS} steps, bound "
+         f"{k1x_bound:.4f} ms by {k1x_by})")
     _log(f"  K2 XY (K3 branch) {k2x_ms:.3f} ms on {xy['plan']['K2']['C']} blocks (plain "
-         f"{plain['k2_plain']:.1f} ms once, "
+         f"{plain['k2_plain']:.1f} ms once on the first {PLAIN_STEPS} steps, "
          f"bound {k2x_bound:.4f} ms by {k2x_by})")
     _log(f"  K4 / K5 XY (ckpt=True shapes) {k4x_ms:.3f} / {k5x_ms:.3f} ms on "
          f"{fe.ckpt_blocks(xd, False)} / {fe.ckpt_blocks(xd, True)} blocks (plain "
-         f"{plain['k4_plain']:.1f} / {plain['k5_plain']:.1f} ms once, bounds "
+         f"{plain['k4_plain']:.1f} / {plain['k5_plain']:.1f} ms once on the first "
+         f"{PLAIN_STEPS} steps, bounds "
          f"{k4x_bound:.4f} / {k5x_bound:.4f} ms)")
     _log(f"  12-atom XY value+grad step {stepx_ms:.2f} ms (first {xy_step['first_ms']:.1f} ms); "
          f"f64 stepper step {xy_step['f64_ms']:.1f} ms (once, peak {xy_step['f64_peak']:.2f} GiB)")
@@ -4488,13 +4700,19 @@ def main() -> int:
          "native sampler")
     par_ms, entry_kernels = _parallel_phase(torch, fe, device, gen, refs)
     _log("  ms: " + ", ".join(f"{k}: {v:.1f}" for k, v in par_ms.items()))
+    # every CPU reference has been read: the process has ended or ends now
+    t0 = time.perf_counter()
+    refs.wait()
+    _log(f"  CPU references done: {len(refs.done)}, {time.perf_counter() - t0:.1f} s of waiting")
 
     # 20. export: phases 4-6's and 8's steps exported, reloaded and called
     # (each call's counts set to 0 just before and read just after)
     _log("phase 20 export: the 12-atom (K1/K2), 16-atom (K4/K5) and 12-atom XY (K1/K2, K = 8) "
          "value+grad steps, the 12-atom step with q1's coordinates trainable (K1/K2), and on "
          "the steppers' op the 18-atom default step (DP5_SE_F32), the 12-atom fused=False "
-         "step and the 12-atom XY fused=False step, through export_step / load_step")
+         "step and the 12-atom XY fused=False step, through export_step / load_step; then the "
+         "noisy 12-atom step (K1/K2) and the 10-atom MCWF step, whose artifacts keep their "
+         "draws")
     f64 = torch.float64
     p_main = {"amp_samples_0": torch.tensor(p0, dtype=f64, device=device)}
     p_xy = {"amp_samples_0": torch.tensor(XY_P0, dtype=f64, device=device),
@@ -4525,6 +4743,18 @@ def main() -> int:
     del q1_model, f64_model
     big.pop("model")
     xy_step.pop("f64_model")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        _export_noisy_case(torch, fe, device, N_QUBITS, p0, outdir)
+        _log(f"  noisy {N_QUBITS} atoms: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        _log(f"  {MCWF_GRAD_N} atoms MCWF: R cut from phase 13's {MCWF_GRAD_R} to {P20_MCWF_R} "
+             "(the case took 49.9 s at 512 against 38.4 s at 64 on an H100 80GB HBM3, "
+             f"700 W) and the pulse from 160 to {P20_MCWF_NS} ns (43.8 s at R = 64 on a "
+             "slower host, same card)")
+        _export_mcwf_case(torch, fe, device, MCWF_GRAD_N, P20_MCWF_R, outdir)
+        torch.cuda.empty_cache()
 
     # 21. (a) the wide adjoint (plain) against K2 and its lean plain version
     # at the main path's and the XY shapes; (b) the main path under the f32
@@ -4557,10 +4787,12 @@ def main() -> int:
               k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by),
         # the kron-pair branch (K3), timed in K1 and K2 at the 12-atom XY
         # shapes (K = 8); launches from the XY main path's run
-        entry("fused_fwd_kernel kron-pair branch (K3 in K1, K = 8)", "fused_evolution.cu", 248,
+        entry(f"fused_fwd_kernel kron-pair branch (K3 in K1, K = 8) (plain_ms: first "
+              f"{PLAIN_STEPS} steps)", "fused_evolution.cu", 248,
               xy_step["launches"]["fused_fwd"], xy["k1_err"], k1x_ms, plain["k1_plain"],
               k1x_bound, k1x_by),
-        entry("fused_bwd_kernel kron-pair branch (K3 in K2, K = 8)", "fused_evolution.cu", 699,
+        entry(f"fused_bwd_kernel kron-pair branch (K3 in K2, K = 8) (plain_ms: first "
+              f"{PLAIN_STEPS} steps)", "fused_evolution.cu", 699,
               xy_step["launches"]["fused_bwd"], xy["k2_err"], k2x_ms, plain["k2_plain"],
               k2x_bound, k2x_by),
     ]

@@ -2,10 +2,15 @@
 """Seconds to export a value+grad step against its steps, on the CPU.
 
     python3 export_timing.py [--solver DP5_SE] [--ns 4 200] [--threads 1]
+    python3 export_timing.py --solver MCWF --ns 80 400
 
 The step is tests/test_torch_export.py's: two atoms 8 um apart, one
 constant rydberg_global pulse of trainable amplitude, the last total
-magnetization and its gradient (torch.autograd.grad).  For each pulse
+magnetization and its gradient (torch.autograd.grad).  With ``--solver
+MCWF`` (or ``MCWF_F32``) the atoms dephase at 3 /us and the value is
+``expectation_mcwf_fn``'s average over 4 trajectories (key 0, one
+step a sample), whose loop is the op ``mcwf_states`` under the trace: 424
+graph nodes at 80 and at 400 ns (one CPU thread).  For each pulse
 length it prints the steps the solver takes, the nodes of the exported
 graph, and the seconds of export_step (its eager call, the trace and the
 save), load_step and one reloaded call.  On every route the loop over
@@ -30,7 +35,11 @@ import torch
 from pulser_diff_torch.core import MockDevice, Pulse, Register, Sequence
 from pulser_diff_torch.model import QuantumModel
 from pulser_diff_torch.ops import total_magnetization
+from pulser_diff_torch.simconfig import SimConfig
 from pulser_diff_torch.utils import export_step, load_step
+
+MCWF_SOLVERS = ("MCWF", "MCWF_F32")
+MCWF_TRAJ = 4
 
 
 def _step(duration: int, solver: str):
@@ -38,8 +47,15 @@ def _step(duration: int, solver: str):
     seq = Sequence(reg, MockDevice)
     seq.declare_channel("ryd", "rydberg_global")
     seq.add(Pulse.ConstantPulse(duration, seq.declare_variable("om"), -1.0, 0.0), "ryd")
-    model = QuantumModel(seq, {"om": 1.8}, solver=solver, device="cpu")
-    exp_fn = model.expectation_fn(total_magnetization(2, device="cpu"))
+    obs = total_magnetization(2, device="cpu")
+    if solver in MCWF_SOLVERS:
+        model = QuantumModel(seq, {"om": 1.8}, solver=solver, device="cpu",
+                             noise_config=SimConfig(noise="dephasing", dephasing_rate=3.0),
+                             evaluation_times="Minimal")
+        exp_fn = model.expectation_mcwf_fn(obs, key=0, n_traj=MCWF_TRAJ, substeps=1)
+    else:
+        model = QuantumModel(seq, {"om": 1.8}, solver=solver, device="cpu")
+        exp_fn = model.expectation_fn(obs)
 
     def step(p):
         q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
@@ -70,7 +86,7 @@ def main() -> None:
             loaded(p0)
             t3 = time.perf_counter()
             nodes = len(torch.export.load(path).graph.nodes)
-            steps = ns * model._default_substeps()
+            steps = ns * (1 if args.solver in MCWF_SOLVERS else model._default_substeps())
             print(f"{args.solver} {ns} ns: {steps} steps, {nodes} graph nodes; export_step "
                   f"{t1 - t0:.1f} s, load_step {t2 - t1:.1f} s, reloaded call {t3 - t2:.2f} s",
                   flush=True)

@@ -13,13 +13,21 @@ source), it names ``torch.float64``; the fused kernels take float32 words.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Without a device and without CUDA they raise: nothing falls back to the
 CPU on its own.
+
+A random draw made while ``torch.export`` traces a step is made on real
+tensors (``constant_under_export``), so it enters the exported graph as a
+constant and every call of the artifact reuses it, as a JAX key drawn
+from under ``jax.jit`` is a constant of the compiled program.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, TypeVar, Union
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
+
+T = TypeVar("T")
 
 # real dtype of the state, coefficient and Hamiltonian arrays
 _DEFAULT_DTYPE = torch.float64
@@ -58,3 +66,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"Device {dev} was requested but CUDA is absent.")
     return dev
+
+
+def constant_under_export(draw: Callable[[], T]) -> T:
+    """``draw()``.  Under ``torch.export`` it runs outside the trace's
+    dispatch modes, so the tensors it returns are real and enter the
+    exported graph as constants: the artifact keeps the draws its trace
+    made and every call reuses them, in the exporting process and in a
+    fresh one, and the generator it reads never becomes an object of the
+    graph.  Eagerly it is a plain call (each call draws anew)."""
+    if not torch.compiler.is_exporting():
+        return draw()
+    with _disable_current_modes():
+        return draw()

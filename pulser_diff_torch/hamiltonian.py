@@ -46,7 +46,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pulser_diff_torch.config import DeviceLike, default_dtype, resolve_device
+from pulser_diff_torch.config import (
+    DeviceLike, constant_under_export, default_dtype, resolve_device,
+)
 from pulser_diff_torch.cplx import Cplx, as_cplx
 from pulser_diff_torch.core.devices import Device
 from pulser_diff_torch.core.register import QubitId
@@ -195,22 +197,28 @@ def draw_noise(gen: torch.Generator, config: NoiseModel, n_qubits: int,
     package's semantics (its stream differs): a Bernoulli(eta) bad atom
     per qubit (SPAM), a Doppler detuning doppler_sigma(T) N(0, 1) per
     qubit, and an amplitude factor clip(1 + amp_sigma N(0, 1), 0) per
-    pulse slot."""
+    pulse slot.  Under ``torch.export`` the uniform and normal samples are
+    constants of the graph (``constant_under_export``), as the JAX
+    package's key is under ``jax.jit``; the parameters stay traced."""
     dev = gen.device
     draws = zero_noise_draws(n_qubits, n_slots, dev)
 
     def param(x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=default_dtype()).to(dev)
 
+    def draw(sample, n: int) -> torch.Tensor:
+        return constant_under_export(
+            lambda: sample(n, generator=gen, dtype=default_dtype(), device=dev))
+
     if "SPAM" in config.noise_types:
-        u = torch.rand(n_qubits, generator=gen, dtype=default_dtype(), device=dev)
+        u = draw(torch.rand, n_qubits)
         draws = draws._replace(bad_atoms=(u < param(config.state_prep_error)).to(default_dtype()))
     if "doppler" in config.noise_types:
         sigma = doppler_sigma(param(config.temperature) * 1e-6)  # uK -> K
-        z = torch.randn(n_qubits, generator=gen, dtype=default_dtype(), device=dev)
+        z = draw(torch.randn, n_qubits)
         draws = draws._replace(doppler=sigma * z)
     if "amplitude" in config.noise_types:
-        z = torch.randn(max(n_slots, 1), generator=gen, dtype=default_dtype(), device=dev)
+        z = draw(torch.randn, max(n_slots, 1))
         draws = draws._replace(amp_factors=torch.clamp(1.0 + param(config.amp_sigma) * z, min=0.0))
     return draws
 

@@ -1,11 +1,25 @@
-"""The pulser abstract representation (counterpart of the abstract-repr
-half of pulser_diff_tpu/interop.py).
+"""Interop with pulser (counterpart of pulser_diff_tpu/interop.py).
+
+The converters of live pulser objects (``from_pulser_register``,
+``from_pulser_waveform``, ``from_pulser_device``,
+``from_pulser_sequence``) turn a pulser Register, Waveform, Device or
+built Sequence into its port equivalent, so an existing pulser program
+runs on this backend unchanged::
+
+    import pulser
+    from pulser_diff_torch.interop import from_pulser_sequence
+    seq = from_pulser_sequence(pulser_seq)
+    sim = TorchEmulator.from_sequence(seq)
+
+They read the objects' attributes only (duck typing), so pulser is not a
+dependency: ``from_pulser_sequence`` asks for it lazily
+(``_require_pulser``), and the native front end (``pulser_diff_torch.core``)
+needs it nowhere.
 
 ``from_abstract_repr`` reads a sequence serialized in pulser's JSON
 dialect (``Sequence.to_abstract_repr()``) into a port Sequence, and
-``to_abstract_repr`` writes a built port Sequence back.  Neither needs the
-``pulser`` package; the converters of live pulser objects
-(``from_pulser_*``) are not ported, since they need it.
+``to_abstract_repr`` writes a built port Sequence back, both without
+pulser.
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ from pulser_diff_torch.core import (
     Sequence,
 )
 from pulser_diff_torch.core.channels import Channel
-from pulser_diff_torch.core.devices import Device
+from pulser_diff_torch.core.devices import C6_DICT, Device
 
 
 def _np(x: Any) -> np.ndarray:
@@ -36,6 +50,124 @@ def _np(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
     return np.asarray(x, dtype=float)
+
+
+# ----------------------------------------------------------------------
+# live pulser objects (read by their attributes; pulser imported lazily)
+# ----------------------------------------------------------------------
+def _require_pulser():
+    try:
+        import pulser  # noqa: F401
+
+        return pulser
+    except ImportError as e:
+        raise ImportError(
+            "The `pulser` package is not installed; interop conversion "
+            "requires it. The native front end (pulser_diff_torch.core) "
+            "does not."
+        ) from e
+
+
+def from_pulser_register(preg: Any) -> Register:
+    """A port Register with a pulser Register's qubit ids and coordinates."""
+    return Register({qid: _np(c) for qid, c in preg.qubits.items()})
+
+
+def from_pulser_waveform(wf: Any):
+    """The port waveform of a pulser waveform, by its class name; a kind
+    without a counterpart becomes a CustomWaveform of its samples."""
+    name = type(wf).__name__
+    if name == "ConstantWaveform":
+        return ConstantWaveform(wf.duration, float(wf._value))
+    if name == "RampWaveform":
+        return RampWaveform(wf.duration, float(wf._start), float(wf._stop))
+    if name == "BlackmanWaveform":
+        return BlackmanWaveform(wf.duration, float(wf._area))
+    if name == "KaiserWaveform":
+        return KaiserWaveform(wf.duration, float(wf._area), float(getattr(wf, "_beta", 14.6)))
+    if name == "InterpolatedWaveform":
+        times = _np(wf._times) / max(wf.duration - 1, 1)
+        return InterpolatedWaveform(wf.duration, _np(wf._values), times)
+    if name == "CompositeWaveform":
+        return CompositeWaveform(*[from_pulser_waveform(w) for w in wf._waveforms])
+    # fall back to raw samples (exact)
+    return CustomWaveform(_np(wf.samples))
+
+
+def from_pulser_device(pdev: Any) -> Device:
+    """A port Device spec of a pulser device.  A Rydberg level missing from
+    ``C6_DICT`` gets the device's own interaction coefficient there."""
+    channels = []
+    for ch_id, ch in pdev.channels.items():
+        channels.append(
+            Channel(
+                name=ch_id,
+                addressing=ch.addressing,
+                basis=ch.basis,
+                max_abs_detuning=getattr(ch, "max_abs_detuning", None),
+                max_amp=getattr(ch, "max_amp", None),
+                min_retarget_interval=getattr(ch, "min_retarget_interval", 0) or 0,
+                fixed_retarget_t=getattr(ch, "fixed_retarget_t", 0) or 0,
+                max_targets=getattr(ch, "max_targets", None),
+                clock_period=getattr(ch, "clock_period", 1),
+                min_duration=getattr(ch, "min_duration", 1),
+                max_duration=getattr(ch, "max_duration", None),
+                mod_bandwidth=getattr(ch, "mod_bandwidth", None),
+            )
+        )
+    level = getattr(pdev, "rydberg_level", 70)
+    if level not in C6_DICT:
+        C6_DICT[level] = float(pdev.interaction_coeff)
+    return Device(
+        name=pdev.name,
+        dimensions=getattr(pdev, "dimensions", 2),
+        rydberg_level=level,
+        max_atom_num=getattr(pdev, "max_atom_num", None),
+        max_radial_distance=getattr(pdev, "max_radial_distance", None),
+        min_atom_distance=getattr(pdev, "min_atom_distance", 0.0) or 0.0,
+        interaction_coeff_xy=getattr(pdev, "interaction_coeff_xy", None),
+        supports_slm_mask=getattr(pdev, "supports_slm_mask", False),
+        channels=tuple(channels),
+    )
+
+
+def from_pulser_sequence(pseq: Any) -> Sequence:
+    """A port Sequence replaying a BUILT pulser Sequence's schedule: its
+    register, device, channels, SLM mask, then slot by slot its targets,
+    delays and pulses, and its measurement.  A parametrized sequence
+    raises ValueError."""
+    _require_pulser()
+    if pseq.is_parametrized():
+        raise ValueError("Convert built sequences only (call .build() first).")
+    seq = Sequence(from_pulser_register(pseq.register), from_pulser_device(pseq.device))
+    for name, ch in pseq.declared_channels.items():
+        # the device's id of the declared channel
+        cid = next((dev_id for dev_id, dev_ch in pseq.device.channels.items() if dev_ch == ch),
+                   None)
+        seq.declare_channel(name, cid or ch.name)
+    if getattr(pseq, "_slm_mask_targets", None):
+        seq.config_slm_mask(pseq._slm_mask_targets)
+    for name in pseq.declared_channels:
+        for slot in pseq._schedule[name].slots:
+            if slot.ti < 0:
+                continue
+            if isinstance(slot.type, str):
+                if slot.type == "delay":
+                    seq.delay(slot.tf - slot.ti, name)
+                elif slot.type == "target":
+                    seq.target(sorted(slot.targets), name)
+                continue
+            p = slot.type
+            # pulser folds the targets' phase reference (the phase shifts
+            # and the earlier post-phase shifts) into a scheduled pulse's
+            # phase, so the slot's phase is the effective one: replayed
+            # with post_phase_shift=0, or the Sequence would add the
+            # shifts a second time
+            seq.add(Pulse(from_pulser_waveform(p.amplitude), from_pulser_waveform(p.detuning),
+                          float(p.phase), 0.0), name, protocol="no-delay")
+    if getattr(pseq, "_measurement", None):
+        seq.measure(pseq._measurement)
+    return seq
 
 
 # ----------------------------------------------------------------------

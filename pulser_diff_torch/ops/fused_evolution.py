@@ -1428,22 +1428,24 @@ def _data_grads(keys: str, cot: dict, needs) -> list:
     return [cot[k] if n else None for k, n in zip(keys.split(","), needs)]
 
 
-def _save_states(ctx, output, *inputs) -> None:
-    """Keep the forward's hi words and the inputs for the adjoint.  Under
-    ``torch.export`` the states are held on ``ctx`` itself: a saved output
-    comes back from autograd as a new tensor, which the trace no longer
-    knows and would freeze into the artifact as a constant.  Eagerly they
-    are saved tensors (no reference cycle through the graph)."""
+def _save_states(ctx, output, *inputs, n_states: int = 2) -> None:
+    """Keep the forward's first ``n_states`` outputs (the hi words) and the
+    inputs for the adjoint.  Under ``torch.export`` the outputs are held
+    on ``ctx`` itself: a saved output comes back from autograd as a new
+    tensor, which the trace no longer knows and would freeze into the
+    artifact as a constant.  Eagerly they are saved tensors (no reference
+    cycle through the graph)."""
+    states = tuple(output[:n_states])
     if torch.compiler.is_exporting():
-        ctx.states = (output[0], output[1])
+        ctx.states = states
         ctx.save_for_backward(*inputs)
     else:
         ctx.states = None
-        ctx.save_for_backward(output[0], output[1], *inputs)
+        ctx.save_for_backward(*states, *inputs)
 
 
 def _saved(ctx) -> tuple:
-    """(st_re, st_im, *inputs) as :func:`_save_states` kept them."""
+    """(*outputs, *inputs) as :func:`_save_states` kept them."""
     if ctx.states is None:
         return ctx.saved_tensors
     return (*ctx.states, *ctx.saved_tensors)

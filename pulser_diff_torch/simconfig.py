@@ -11,12 +11,13 @@ batch, and the Lindblad types (``dephasing``, ``relaxation``,
 ``depolarizing``, ``eff_noise``) on the master equation (``mesolve``) or
 as quantum-jump trajectories (``solver="MCWF"``); a rate given as a
 tensor carries its gradient.  ``leakage`` (with ``eff_noise``) extends
-the basis by a dark level |x> a site.  ``to_pulser`` (it needs
-``pulser``) is not ported.
+the basis by a dark level |x> a site.  ``to_pulser`` makes every tensor
+parameter a Python float or a numpy array.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
@@ -201,6 +202,22 @@ class SimConfig:
     @property
     def supported_noises(self) -> dict[str, set[str]]:
         return SUPPORTED_NOISES
+
+    def to_pulser(self) -> "SimConfig":
+        """A copy with every tensor parameter concrete: a 0-d tensor becomes
+        a Python float and any other a numpy array (tuples element by
+        element), whatever its device and whether it carries a gradient,
+        as the JAX package's ``to_pulser`` does with its arrays."""
+
+        def conv(v: Any) -> Any:
+            if isinstance(v, torch.Tensor):
+                arr = v.detach().cpu().numpy()
+                return float(arr) if arr.ndim == 0 else arr
+            return v
+
+        return SimConfig(**{
+            f.name: tuple(conv(x) for x in v) if isinstance(v, tuple) else conv(v)
+            for f in dataclasses.fields(self) for v in (getattr(self, f.name),)})
 
     def to_noise_model(self) -> NoiseModel:
         """The NoiseModel equivalent: the parameters relevant to the noise

@@ -24,6 +24,11 @@ masked with ``torch.where`` (its states are those of the branched form),
 so the step loop never waits for the device.  The uniforms come from a
 ``torch.Generator`` on the state's device (``draw_uniforms``), or from the
 caller (``uniforms=``), which lets a test feed the JAX package's draws.
+
+Under ``torch.export`` the uniforms are constants of the graph, as the
+JAX package's key is under ``jax.jit``, and the step loop is one custom
+op (``solvers/mcwf_op.py``), as the JAX package's ``lax.scan`` is one
+loop; eagerly nothing changes.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from pulser_diff_torch.config import constant_under_export
 from pulser_diff_torch.cplx import Cplx, cstack
 from pulser_diff_torch.hamiltonian import CollapseOps
 from pulser_diff_torch.ops.apply import FactoredHamiltonian, _einsum
@@ -41,6 +47,11 @@ from pulser_diff_torch.solvers.solver import (
     SolverType, TimeGrid, _auto_remat, _cast_ham, _explicit_rk_step, _group_collapse, _se_rhs,
     _tableau_of, sesolve,
 )
+
+
+# the smallest squared norm a normalization divides by, and the least
+# total channel weight a jump needs
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 class McwfResult(NamedTuple):
@@ -60,11 +71,15 @@ class Uniforms(NamedTuple):
 def draw_uniforms(gen: torch.Generator, n_steps: int, n_traj: int,
                   dtype: torch.dtype) -> Uniforms:
     """The uniforms of a solve of ``n_steps`` steps and ``n_traj``
-    trajectories, drawn on the generator's device."""
+    trajectories, drawn on the generator's device (constants of the graph
+    under ``torch.export``: ``constant_under_export``)."""
     dev = gen.device
-    return Uniforms(torch.rand(n_steps, n_traj, generator=gen, dtype=dtype, device=dev),
-                    torch.rand(n_steps, n_traj, generator=gen, dtype=dtype, device=dev),
-                    torch.rand(n_traj, generator=gen, dtype=dtype, device=dev))
+
+    def draw(*shape: int) -> torch.Tensor:
+        return constant_under_export(
+            lambda: torch.rand(*shape, generator=gen, dtype=dtype, device=dev))
+
+    return Uniforms(draw(n_steps, n_traj), draw(n_steps, n_traj), draw(n_traj))
 
 
 def _site_view(psi: Cplx, site: int, n: int, d: int) -> tuple:
@@ -99,17 +114,21 @@ def _site_rdm(site: int, n: int, d: int, psi: Cplx) -> Cplx:
     return Cplx(g_re, g_im)
 
 
+def _q_carries_grad(groups: list) -> bool:
+    return any(Q.re.requires_grad or Q.im.requires_grad for _s, _L, Q in groups)
+
+
 def _diag_q_sum(groups: list, n: int, d: int, state_shape, dtype) -> Optional[torch.Tensor]:
     """sum_site lift(Q_site) as a (da, db) diagonal when every site's Q =
     sum_m L^+ L is diagonal (dephasing, relaxation, depolarizing), else
-    None.  Also None when Q carries a gradient: a constant diagonal would
-    drop it (the JAX package takes the general path for traced Q)."""
+    None.  It reads Q on the host; the caller takes the general path
+    instead when Q carries a gradient (``_q_carries_grad``): a constant
+    diagonal would drop it (the JAX package takes the general path for
+    traced Q)."""
     if not groups:
         return None
     full = np.zeros([d] * n) if n > 1 else np.zeros([d])
     for site, _L, Q in groups:
-        if Q.re.requires_grad or Q.im.requires_grad:
-            return None
         qre = Q.re.detach().cpu().numpy().astype(np.float64)
         qim = Q.im.detach().cpu().numpy().astype(np.float64)
         if np.abs(qre - np.diag(np.diag(qre))).max() > 1e-12 or np.abs(qim).max() > 1e-12:
@@ -128,6 +147,36 @@ def _norm2(psi: Cplx) -> torch.Tensor:
 def _per_traj(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """An (R,) vector shaped to broadcast against a (R, ...) batch."""
     return v.reshape((v.shape[0],) + (1,) * (like.ndim - 1))
+
+
+def _drift_step(ham: FactoredHamiltonian, groups: list, n: int, d: int,
+                qdiag: Optional[torch.Tensor], c, A, B):
+    """step(re, im, t0, t1) -> (re, im): one explicit Runge-Kutta step of
+    the non-Hermitian drift -i H psi - (1/2) sum_site lift(Q_site) psi, the
+    anti-Hermitian part as the elementwise ``qdiag`` where it is given
+    (``_diag_q_sum``), else site by site."""
+    if qdiag is not None:
+        half_q = qdiag * 0.5
+
+        def drift_rhs(t, p):
+            out = _se_rhs(ham, t, p)
+            return Cplx(out.re - half_q * p.re, out.im - half_q * p.im)
+    else:
+        def drift_rhs(t, p):
+            out = _se_rhs(ham, t, p)
+            for site, _L, Q in groups:
+                out = out - _apply_site_ket(Q, site, n, d, p) * 0.5
+            return out
+
+    def drift_step(re, im, t0, t1):
+        return tuple(_explicit_rk_step(drift_rhs, t0, t1 - t0, Cplx(re, im), c, A, B))
+
+    return drift_step
+
+
+def _normalized(p: Cplx, tiny: float) -> Cplx:
+    nrm = _per_traj(torch.sqrt(torch.clamp(_norm2(p), min=tiny)), p.re)
+    return Cplx(p.re / nrm, p.im / nrm)
 
 
 def _apply_jumps(groups: list, n: int, d: int, M: int, p: Cplx, thr: torch.Tensor,
@@ -166,6 +215,20 @@ def _apply_jumps(groups: list, n: int, d: int, M: int, p: Cplx, thr: torch.Tenso
     jb = _per_traj(jumped, p.re)
     p = Cplx(torch.where(jb, pj.re * scale, p.re), torch.where(jb, pj.im * scale, p.im))
     return p, torch.where(jumped, ut, thr), nj + jumped.to(torch.int32)
+
+
+def _mc_step(drift_step, groups: list, n: int, d: int, M: int, tiny: float, p: Cplx,
+             thr: torch.Tensor, nj: torch.Tensor, t0, t1, us: torch.Tensor, ut: torch.Tensor,
+             remat: bool = False):
+    """One step of the trajectories over [t0, t1]: the drift (checkpointed
+    with ``remat``), then the jumps of those whose squared norm fell below
+    their threshold; (p, thr, nj) after it."""
+    if remat:
+        p = Cplx(*checkpoint(drift_step, p.re, p.im, t0, t1, use_reentrant=False))
+    else:
+        p = Cplx(*drift_step(p.re, p.im, t0, t1))
+    crossed = _norm2(p) < thr
+    return _apply_jumps(groups, n, d, M, p, thr, nj, crossed, us, ut, tiny)
 
 
 def mcsolve(
@@ -235,22 +298,6 @@ def mcsolve(
         states = sesolve(ham, psi, grid, solver=solver, substeps=substeps)
         return McwfResult(states, torch.zeros(R, dtype=torch.int32, device=psi.re.device))
 
-    # the anti-Hermitian drift -(1/2) sum_site lift(Q_site): one (da, db)
-    # elementwise diagonal when every Q is diagonal
-    qdiag = _diag_q_sum(groups, n, d, psi.re.shape[1:], dtype)
-    if qdiag is not None:
-        half_q = qdiag * 0.5
-
-        def drift_rhs(t, p):
-            out = _se_rhs(ham, t, p)
-            return Cplx(out.re - half_q * p.re, out.im - half_q * p.im)
-    else:
-        def drift_rhs(t, p):
-            out = _se_rhs(ham, t, p)
-            for site, _L, Q in groups:
-                out = out - _apply_site_ket(Q, site, n, d, p) * 0.5
-            return out
-
     g = grid.refined(substeps)
     times = g.times
     n_steps = times.shape[0] - 1
@@ -261,34 +308,30 @@ def mcsolve(
     if u_sel.shape != (n_steps, R) or thr.shape != (R,):
         raise ValueError(f"uniforms of shapes {tuple(u_sel.shape)} / {tuple(thr.shape)} for "
                          f"{n_steps} steps of {R} trajectories.")
-    tiny = float(np.finfo(np.float32).tiny)
+    tiny = _TINY
     if remat is None:
         remat = _auto_remat(psi, n_steps, stages=len(c))
+    if torch.compiler.is_exporting():
+        from pulser_diff_torch.solvers.mcwf_op import run_mcwf
 
-    def drift_step(re, im, t0, t1):
-        return tuple(_explicit_rk_step(drift_rhs, t0, t1 - t0, Cplx(re, im), c, A, B))
+        return run_mcwf(solver, ham, psi, collapse, n, d, g, Uniforms(u_sel, u_thr, thr), remat,
+                        _q_carries_grad(groups))
 
+    # the anti-Hermitian drift -(1/2) sum_site lift(Q_site): one (da, db)
+    # elementwise diagonal when every Q is diagonal
+    qdiag = None if _q_carries_grad(groups) else _diag_q_sum(groups, n, d, psi.re.shape[1:],
+                                                             dtype)
+    drift_step = _drift_step(ham, groups, n, d, qdiag, c, A, B)
     n_eval = g.n_eval
     out: list = [None] * n_eval
     slots = [int(s_) for s_ in g.write_slots]
-
-    def normalized(p: Cplx) -> Cplx:
-        nrm = _per_traj(torch.sqrt(torch.clamp(_norm2(p), min=tiny)), p.re)
-        return Cplx(p.re / nrm, p.im / nrm)
-
     if slots[0] < n_eval:
-        out[slots[0]] = normalized(psi)
+        out[slots[0]] = _normalized(psi, tiny)
     p = psi
     nj = torch.zeros(R, dtype=torch.int32, device=psi.re.device)
     for k in range(n_steps):
-        if remat:
-            p = Cplx(*checkpoint(drift_step, p.re, p.im, times[k], times[k + 1],
-                                 use_reentrant=False))
-        else:
-            p = Cplx(*drift_step(p.re, p.im, times[k], times[k + 1]))
-        crossed = _norm2(p) < thr
-        p, thr, nj = _apply_jumps(groups, n, d, M, p, thr, nj, crossed, u_sel[k], u_thr[k],
-                                  tiny)
+        p, thr, nj = _mc_step(drift_step, groups, n, d, M, tiny, p, thr, nj, times[k],
+                              times[k + 1], u_sel[k], u_thr[k], remat)
         if slots[k + 1] < n_eval:
-            out[slots[k + 1]] = normalized(p)
+            out[slots[k + 1]] = _normalized(p, tiny)
     return McwfResult(cstack(out), nj)

@@ -27,7 +27,10 @@ steps (as the JAX package's ``lax.scan`` stays one loop).
 Each op takes its tensors as one list and their keys as one comma-joined
 string, its static configuration as one JSON string (an op schema holds
 no dict), and serves every device type with one implementation: the
-steppers are plain torch ops, no kernel of their own.
+steppers are plain torch ops, no kernel of their own.  The reverse sweep
+(:func:`_reverse_sweep`) and the autograd rule
+(:func:`_register_loop_autograd`) serve MCWF's loop op too
+(``solvers/mcwf_op.py``), whose carry is more than the state.
 """
 
 from __future__ import annotations
@@ -72,10 +75,15 @@ def _inputs(ham, y0: Cplx, times: torch.Tensor, collapse: Optional[CollapseOps])
     return {k: v for k, v in data.items() if v is not None}
 
 
+def _ham_of(cfg: dict, data: dict):
+    """The factored Hamiltonian of a solve, rebuilt from ``data``."""
+    parts = (data["row_parts"], data["col_parts"], data.get("sample_dt", cfg["sample_dt"]))
+    return _rebuild_ham(parts, tuple(data.get(k) for k in _STREAM_KEYS), cfg["n_samples"])
+
+
 def _step_of(cfg: dict, data: dict):
     """step(y, t0, t1) of the eager path, built from ``data``."""
-    parts = (data["row_parts"], data["col_parts"], data.get("sample_dt", cfg["sample_dt"]))
-    ham = _rebuild_ham(parts, tuple(data.get(k) for k in _STREAM_KEYS), cfg["n_samples"])
+    ham = _ham_of(cfg, data)
     if cfg["kind"] == "se":
         return _make_se_step(ham, cfg["solver"], cfg["substeps"], cfg["krylov_dim"],
                              cfg["krylov_tol"], cfg["rtol"], cfg["atol"], cfg["max_iters"])
@@ -112,39 +120,45 @@ def _forward(cfg: dict, slots: list, data: dict) -> list:
     return [states.re, states.im, starts.re, starts.im]
 
 
-def _backward(cfg: dict, slots: list, want: list, st_re, st_im, g_re, g_im,
-              data: dict) -> list:
-    """The cotangents of the ``want`` keys: a reverse sweep of
-    ``torch.func.vjp`` over the grid intervals."""
-    t, n_eval, seg_len = data["times"], cfg["n_eval"], cfg["seg_len"]
+def _reverse_sweep(data: dict, want: list, own: tuple, seg_len: int, start, advance,
+                   local) -> tuple:
+    """A reverse sweep of ``torch.func.vjp`` over the grid intervals, run by
+    run of ``seg_len`` steps: the state's cotangent at the first step, and
+    the cotangents of the grid times and of the ``want`` keys not in
+    ``own`` (those the caller carries itself), by key.
+
+    ``start(i)`` is run i's kept start carry, ``advance(carry, k)`` the
+    carry after step k (the carries inside a run are recomputed from its
+    start), and ``local(k, carry, lam)`` gives step k as (y, f, cot): its
+    start state y, ``f(sub, re, im, t0, t1)`` its outputs as a function of
+    that state, the interval's ends and the tensors ``sub`` (by key) put
+    in place of ``data``'s, and their cotangent ``cot`` given the state's
+    cotangent ``lam`` after the step."""
+    t = data["times"]
     n_steps = t.shape[0] - 1
-    live = [k for k in want if k not in _STATE_KEYS]
+    live = [k for k in want if k not in own]
     need_t = "times" in want
     acc = {k: torch.zeros_like(data[k]) for k in live}
     t_bar = torch.zeros_like(t)
     lam = Cplx(torch.zeros_like(data["psi_re"]), torch.zeros_like(data["psi_im"]))
-    step = _step_of(cfg, data)
-
-    def f(re, im, t0, t1, *xs):
-        fn = _step_of(cfg, {**data, **dict(zip(live, xs))}) if xs else step
-        out = fn(Cplx(re, im), t0, t1)
-        return out.re, out.im
-
+    xs = [data[x] for x in live]
     for k0 in reversed(range(0, n_steps, seg_len)):
         k1 = min(k0 + seg_len, n_steps)
-        ys = [Cplx(st_re[k0 // seg_len], st_im[k0 // seg_len])]
+        carries = [start(k0 // seg_len)]
         for k in range(k0, k1 - 1):
-            ys.append(step(ys[-1], t[k], t[k + 1]))
+            carries.append(advance(carries[-1], k))
         for k in reversed(range(k0, k1)):
-            if slots[k + 1] < n_eval:
-                lam = lam + Cplx(g_re[slots[k + 1]], g_im[slots[k + 1]])
-            y, ends, xs = ys[k - k0], (t[k], t[k + 1]), [data[x] for x in live]
+            y, f, cot = local(k, carries[k - k0], lam)
+            ends = (t[k], t[k + 1])
             if need_t:
-                _, vjp_fn = torch.func.vjp(f, y.re, y.im, *ends, *xs)
+                _, vjp_fn = torch.func.vjp(
+                    lambda re, im, t0, t1, *xs_: f(dict(zip(live, xs_)), re, im, t0, t1),
+                    y.re, y.im, *ends, *xs)
             else:  # the interval's ends as constants: no cotangent taken
-                _, vjp_fn = torch.func.vjp(lambda re, im, *xs_: f(re, im, *ends, *xs_),
-                                           y.re, y.im, *xs)
-            cots = vjp_fn((lam.re, lam.im))
+                _, vjp_fn = torch.func.vjp(
+                    lambda re, im, *xs_: f(dict(zip(live, xs_)), re, im, *ends),
+                    y.re, y.im, *xs)
+            cots = vjp_fn(cot)
             lam = Cplx(cots[0], cots[1])
             if need_t:
                 t_bar[k] += cots[2]
@@ -152,9 +166,32 @@ def _backward(cfg: dict, slots: list, want: list, st_re, st_im, g_re, g_im,
                 cots = cots[:2] + cots[4:]
             for key, c in zip(live, cots[2:]):
                 acc[key] += c
+    return lam, {"times": t_bar, **acc}
+
+
+def _backward(cfg: dict, slots: list, want: list, kept: list, g_re, g_im, data: dict) -> list:
+    """The cotangents of the ``want`` keys, from the kept start states
+    ``kept`` = [re, im]."""
+    t, n_eval = data["times"], cfg["n_eval"]
+    st_re, st_im = kept
+    step = _step_of(cfg, data)
+
+    def local(k, y, lam):
+        if slots[k + 1] < n_eval:
+            lam = lam + Cplx(g_re[slots[k + 1]], g_im[slots[k + 1]])
+
+        def f(sub, re, im, t0, t1):
+            out = (_step_of(cfg, {**data, **sub}) if sub else step)(Cplx(re, im), t0, t1)
+            return out.re, out.im
+
+        return y, f, (lam.re, lam.im)
+
+    lam, found = _reverse_sweep(data, want, _STATE_KEYS, cfg["seg_len"],
+                                lambda i: Cplx(st_re[i], st_im[i]),
+                                lambda y, k: step(y, t[k], t[k + 1]), local)
     if slots[0] < n_eval:
         lam = lam + Cplx(g_re[slots[0]], g_im[slots[0]])
-    found = {"psi_re": lam.re, "psi_im": lam.im, "times": t_bar, **acc}
+    found.update(psi_re=lam.re, psi_im=lam.im)
     # fresh tensors: an op's output may not alias its inputs
     return [found[k].clone() for k in want]
 
@@ -176,45 +213,57 @@ def _(cfg, slots, keys, tensors):
 
 
 @torch.library.custom_op("pulser_diff_torch::stepper_states_bwd", mutates_args=())
-def _states_bwd_op(cfg: str, slots: torch.Tensor, keys: str, want: str, st_re: torch.Tensor,
-                   st_im: torch.Tensor, g_re: torch.Tensor, g_im: torch.Tensor,
+def _states_bwd_op(cfg: str, slots: torch.Tensor, keys: str, want: str,
+                   kept: list[torch.Tensor], g_re: torch.Tensor, g_im: torch.Tensor,
                    tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     """The adjoint of ``stepper_states`` for the slot cotangents ``g``,
-    from its kept start states ``st``: the cotangents of the ``want`` keys,
-    in that order."""
+    from its kept start states (re, im): the cotangents of the ``want``
+    keys, in that order."""
     with _f32_full_precision(whole=True):
-        return _backward(json.loads(cfg), slots.tolist(), want.split(","), st_re, st_im, g_re,
-                         g_im, _data_of(keys, tensors))
+        return _backward(json.loads(cfg), slots.tolist(), want.split(","), kept, g_re, g_im,
+                         _data_of(keys, tensors))
 
 
-@_states_bwd_op.register_fake
-def _(cfg, slots, keys, want, st_re, st_im, g_re, g_im, tensors):
+def _bwd_fake(cfg, slots, keys, want, kept, g_re, g_im, tensors):
+    """The fake implementation of an adjoint op: one cotangent like each
+    wanted tensor."""
     data = _data_of(keys, tensors)
     return [torch.empty_like(data[k]) for k in want.split(",")]
 
 
-def _setup(ctx, inputs, output) -> None:
-    cfg, slots, keys, tensors = inputs
-    ctx.cfg, ctx.keys = cfg, keys
-    _save_states(ctx, output[2:], slots, *tensors)
+def _register_loop_autograd(op, bwd_op, kept_from: int) -> None:
+    """``op``'s autograd rule, for a loop op (cfg, slots, keys, tensors)
+    whose first two outputs are the slot states (re, im) and whose outputs
+    from ``kept_from`` on are the carries its adjoint ``bwd_op`` (cfg,
+    slots, keys, want, kept, g_re, g_im, tensors) reads: the adjoint runs
+    for the tensors whose gradient is asked for, with zero slot
+    cotangents where autograd hands none."""
+    bwd_op.register_fake(_bwd_fake)
+
+    def setup(ctx, inputs, output) -> None:
+        cfg, slots, keys, tensors = inputs
+        ctx.cfg, ctx.keys, ctx.n_kept = cfg, keys, len(output) - kept_from
+        _save_states(ctx, output[kept_from:], slots, *tensors, n_states=ctx.n_kept)
+
+    def backward(ctx, grads):
+        saved = _saved(ctx)
+        kept, slots, tensors = list(saved[:ctx.n_kept]), saved[ctx.n_kept], saved[ctx.n_kept + 1:]
+        keys = ctx.keys.split(",")
+        want = [k for k, n in zip(keys, ctx.needs_input_grad[3]) if n]
+        out: list = [None] * len(keys)
+        if want:
+            shape = (json.loads(ctx.cfg)["n_eval"], *kept[0].shape[1:])
+            g_re, g_im = (kept[0].new_zeros(shape) if g is None else g for g in grads[:2])
+            cots = bwd_op(ctx.cfg, slots, ctx.keys, ",".join(want), kept, g_re, g_im,
+                          list(tensors))
+            for k, c in zip(want, cots):
+                out[keys.index(k)] = c
+        return None, None, None, out
+
+    op.register_autograd(backward, setup_context=setup)
 
 
-def _states_backward(ctx, grads):
-    st_re, st_im, slots, *tensors = _saved(ctx)
-    keys = ctx.keys.split(",")
-    want = [k for k, n in zip(keys, ctx.needs_input_grad[3]) if n]
-    out: list = [None] * len(keys)
-    if want:
-        shape = (json.loads(ctx.cfg)["n_eval"], *st_re.shape[1:])
-        g_re, g_im = (st_re.new_zeros(shape) if g is None else g for g in grads[:2])
-        cots = _states_bwd_op(ctx.cfg, slots, ctx.keys, ",".join(want), st_re, st_im,
-                              g_re, g_im, tensors)
-        for k, c in zip(want, cots):
-            out[keys.index(k)] = c
-    return None, None, None, out
-
-
-_states_op.register_autograd(_states_backward, setup_context=_setup)
+_register_loop_autograd(_states_op, _states_bwd_op, 2)
 
 
 def _op_args(kind: str, solver: str, ham, y0: Cplx, grid, substeps: int,

@@ -11,7 +11,9 @@ fused kernels K1/K2/K4/K5 are ``torch.library`` custom ops
 the fused route holds them, forward and adjoint, in the artifact; on every
 other route ``sesolve`` / ``mesolve`` run their loop under the trace as the
 custom op ``pulser_diff_torch::stepper_states`` and its adjoint
-``::stepper_states_bwd`` (``solvers/stepper_op.py``).
+``::stepper_states_bwd`` (``solvers/stepper_op.py``), and ``mcsolve`` its
+trajectories as ``::mcwf_states`` and ``::mcwf_states_bwd``
+(``solvers/mcwf_op.py``).
 
 Notes:
 - The artifact is tied to the device type it was traced on: a step traced
@@ -22,9 +24,16 @@ Notes:
 - Inputs must keep the exported shapes and dtypes.
 - The loop over steps lives inside one op on every route, so the artifact
   and the time to export it do not grow with the steps: a 2-atom f64 step
-  has 363 graph nodes at 4 ns and at 200 ns and exports in 4.0 s / 5.7 s on
-  one CPU thread, its eager call included (``export_timing.py``).  MCWF (``solvers/mcwf.py``) reads
-  the host inside its loop and does not export.
+  has 363 graph nodes at 4 ns and at 200 ns and exports in 3.8 s / 5.7 s
+  on one CPU thread, its eager call included; a 2-atom MCWF step 424
+  nodes at 80 and at 400 ns, 5.7 s / 9.2 s (``export_timing.py``).
+- Draws are constants of the artifact, as a JAX key drawn under
+  ``jax.jit`` is: the noise a step's trace draws (``draw_noise``) and the
+  uniforms of an MCWF ``key`` are made on real tensors
+  (``config.constant_under_export``), so every call of the reloaded step,
+  in the exporting process or a fresh one, serves that one realization,
+  while the eager step draws anew at each call.  ``export_step`` refuses a
+  graph that would draw from a lifted ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,15 @@ def _custom_ops(exported: torch.export.ExportedProgram) -> list[str]:
     return sorted(names)
 
 
+def _lifted_generators(exported: torch.export.ExportedProgram) -> list[str]:
+    """The names of the ``torch.Generator`` objects the trace lifted into
+    the graph: a draw from one of them is not a constant of the artifact
+    (the object advances at every call, and ``torch.export.save`` does not
+    keep its state)."""
+    return sorted(name for name, obj in exported.constants.items()
+                  if isinstance(obj, torch.Generator))
+
+
 def export_step(fn: Callable[..., Any], example_args: Sequence[Any], path: str) -> str:
     """Export ``fn`` at ``example_args``'s shapes to ``path``.
 
@@ -83,7 +101,10 @@ def export_step(fn: Callable[..., Any], example_args: Sequence[Any], path: str) 
     it is traced with ``torch.export.export(..., strict=False)``
     (``strict=True`` refuses ``torch.autograd.grad``), written with
     ``torch.export.save``, and described in ``path + ".meta.json"``.
-    Returns the path written."""
+    A graph that draws from a lifted ``torch.Generator`` raises ValueError
+    naming it, before anything is written: the artifact keeps the draws
+    its trace made (``config.constant_under_export``), as the JAX
+    package's does.  Returns the path written."""
     example_args = tuple(example_args)
     out = fn(*example_args)
     devices = {t.device.type for t in pytree.tree_leaves((example_args, out))
@@ -91,6 +112,12 @@ def export_step(fn: Callable[..., Any], example_args: Sequence[Any], path: str) 
     if len(devices) != 1:
         raise ValueError(f"A step runs on one device type; its tensors are on {sorted(devices)}.")
     exported = torch.export.export(_Step(fn), example_args, strict=False)
+    generators = _lifted_generators(exported)
+    if generators:
+        raise ValueError(
+            f"The exported step draws from the torch.Generator object(s) {generators} at every "
+            "call; make the trace's draws with config.constant_under_export so that the "
+            "artifact keeps them.")
     path = os.path.abspath(path)
     torch.export.save(exported, path)
     meta = {
@@ -122,7 +149,7 @@ def load_step(path: str, *, device: DeviceLike = None,
     resolve_device(device)
     # the custom ops (the fused kernels', the steppers' loop) must be
     # registered before the graph that calls them is read
-    from pulser_diff_torch.solvers import stepper_op  # noqa: F401
+    from pulser_diff_torch.solvers import mcwf_op, stepper_op  # noqa: F401
 
     return torch.export.load(os.path.abspath(path)).module()
 

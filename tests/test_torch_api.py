@@ -32,13 +32,11 @@ RENAMED = {
 
 # names the port does not have, and why
 EXCEPTIONS = {
-    ("interop", "from_pulser_device"): "needs the pulser package, which is not installed",
-    ("interop", "from_pulser_register"): "needs the pulser package, which is not installed",
-    ("interop", "from_pulser_sequence"): "needs the pulser package, which is not installed",
-    ("interop", "from_pulser_waveform"): "needs the pulser package, which is not installed",
-    ("simconfig", "SimConfig.to_pulser"): "needs the pulser package, which is not installed",
-    ("utils/profiling", "start_server"): "kept on purpose: the profiler server of JAX has no "
-                                         "counterpart (torch.profiler writes traces)",
+    ("utils/profiling", "start_server"): "kept on purpose: it wraps jax.profiler.start_server, "
+                                         "the gRPC endpoint TensorBoard's capture button talks "
+                                         "to; torch has no such server (torch.profiler writes "
+                                         "traces), and a hand-made one would speak a protocol "
+                                         "no tool reads",
 }
 
 

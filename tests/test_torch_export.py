@@ -360,7 +360,7 @@ def _stepper_op_args(kind: str):
     outs = stepper_op._states_op(cfg, slots, keys, tensors)
     lam = [torch.randn(outs[0].shape, generator=gen, dtype=outs[0].dtype) for _ in range(2)]
     fwd = (stepper_op._states_op, (cfg, slots, keys, leaves))
-    bwd = (stepper_op._states_bwd_op, (cfg, slots, keys, keys, *outs[2:], *lam, tensors))
+    bwd = (stepper_op._states_bwd_op, (cfg, slots, keys, keys, list(outs[2:]), *lam, tensors))
     return fwd, bwd
 
 
